@@ -1,0 +1,747 @@
+"""Colocated serving of the port: dense and paged continuous batching.
+
+Counterpart of ``repro.launch.serve`` for ``--role decode [--paged]``.
+Request lifecycle: queued -> prefilled (KV cache assigned) -> decoding in
+the fixed-width decode batch -> finished (EOS or max tokens) -> row
+recycled for the next queued request.  The decode step runs the whole
+batch; per-row positions let rows be at different generation depths.
+
+- :class:`Server` keeps a dense cache row per request.
+- :class:`PagedServer` keeps the KV cache in the paged pool
+  (``repro_torch.serving.pool``): pages allocated lazily per request,
+  prompt prefixes shared by page table, SLO-aware preemption with swap
+  to a host memory tier or recompute.  Its decode step runs THROUGH the
+  page table, with attention on the hand-written CUDA kernel on the card.
+
+Run: ``python -m repro_torch.launch.serve --role decode --paged``
+(``--device cpu`` runs on the CPU, with the kernels' plain versions).
+The tensor-parallel, pooled and disaggregated servers are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.compat import resolve_device, tree_leaves, tree_map
+from repro_torch.obs import trace as obs_trace
+
+
+def _paged_decode_views_fn(model, ctx, layout, device):
+    """The colocated paged decode step: the pool stays resident on the
+    device in *decode-views* form (the per-layer page-pool tree) across
+    ticks, so a steady-state step runs zero carrier repacks.
+
+    The reference donates the views buffers to its jitted step; the port
+    updates them IN PLACE instead — the scratch-page wipe and the
+    per-layer token scatter write the resident pools where they lie, and
+    the returned views are the same tensors."""
+    empty_views = layout.decode_views(
+        torch.from_numpy(layout.empty_page_row()[None]).to(device)
+    )
+
+    def step(params, token, positions, views, tables):
+        # wipe the scratch page (page axis 1 of every (L, P, T, ...) pool):
+        # dead rows and unmaterialised slots scattered garbage into it
+        for pool, init in zip(tree_leaves(views), tree_leaves(empty_views)):
+            pool[:, -1] = init[:, 0]
+        return model.decode_step_paged(
+            params, ctx, token, positions, views, tables
+        )
+
+    return step
+
+
+def _pool_patch_fn(layout):
+    """Device-side pool patch for the views-resident pool: scatter ``rows``
+    (fresh page payloads — admissions, lazy materialisations) at
+    ``write_dst`` and duplicate ``copy_src -> copy_dst`` (COW splits), in
+    place, without round-tripping the whole pool through the host.
+    Writes land before copies: a copy source may be a page written this
+    very tick."""
+
+    def patch(views, write_dst, rows, copy_src, copy_dst):
+        rowviews = layout.decode_views(rows)
+        for pool, rv in zip(tree_leaves(views), tree_leaves(rowviews)):
+            if write_dst.numel():
+                pool[:, write_dst] = rv
+            if copy_src.numel():
+                pool[:, copy_dst] = pool[:, copy_src]
+        return views
+
+    return patch
+
+
+def _pool_write_need(store, layout, rid: int, position: int) -> int:
+    """Fresh pages the next decode write needs: one when the position
+    lands on an unmaterialised slot (lazy growth) or a shared page
+    (copy-on-write split), none otherwise."""
+    table = store.tables[rid]
+    p = table[position // layout.page_tokens]
+    if p < 0:
+        return 1
+    return 1 if store.state.refcnt[p] > 1 else 0
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    return x.float().cpu().numpy()
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int = 16
+    out: List[int] = dataclasses.field(default_factory=list)
+    t_enqueue: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+    slo: Any = None  # Optional[repro_torch.serving.scheduler.SLO]
+
+
+class Server:
+    """Fixed-decode-batch continuous batching over Model prefill/decode.
+
+    ``params`` must live on ``device`` (CUDA unless the caller passes
+    another device)."""
+
+    def __init__(self, model, ctx, params, batch_size: int, cache_len: int,
+                 eos_id: int = -1, device: Any = None):
+        self.device = resolve_device(device)
+        for leaf in tree_leaves(params):
+            if leaf.device.type != self.device.type:
+                raise ValueError(
+                    f"parameters on {leaf.device}, server on {self.device}"
+                )
+        self.model = model
+        self.ctx = ctx
+        self.params = params
+        self.B = batch_size
+        self.cache_len = cache_len
+        self.eos_id = eos_id
+
+        # rank attributed to this server's trace events
+        self.trace_rank: Optional[int] = None
+        self.active: List[Optional[Request]] = [None] * batch_size
+        self.positions = np.zeros((batch_size,), np.int32)
+        self.last_token = np.zeros((batch_size, 1), np.int32)
+        self.caches = None  # lazily built from first prefill
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        # slot -> remaining tokens a recompute-resume must replay: the
+        # decode path reproduces them bit-identically (same ops, same
+        # inputs), rebuilding the KV cache without re-appending output
+        self.replaying: Dict[int, List[int]] = {}
+
+        self._decode = lambda p, t, pos, c: model.decode_step(p, ctx, t, pos, c)
+        self._prefill_one = lambda p, b: model.prefill(
+            p, ctx, b, cache_len=cache_len
+        )
+
+    def _tensor(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    # ------------------------------------------------------------------ #
+    def submit(self, req: Request) -> None:
+        req.t_enqueue = time.monotonic()
+        tr = obs_trace.active()
+        if tr.enabled:
+            tr.instant("req_submit", cat="req", rank=self.trace_rank,
+                       rid=req.rid, prompt_len=len(req.prompt))
+        self.queue.append(req)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.active):
+            if r is None:
+                return i
+        return None
+
+    def _write_row(self, caches_one, slot: int) -> None:
+        """Insert a single-request cache into batch row ``slot``."""
+        if self.caches is None:
+            # build an empty batched cache from the single-row structure
+            self.caches = tree_map(
+                lambda x: torch.zeros((x.shape[0], self.B) + tuple(x.shape[2:]),
+                                      dtype=x.dtype, device=x.device),
+                caches_one,
+            )
+        for full, one in zip(tree_leaves(self.caches), tree_leaves(caches_one)):
+            full[:, slot] = one[:, 0]
+
+    def admit_prefilled(
+        self, req: Request, caches_one, first_token: int, position: int
+    ) -> bool:
+        """Install a prefilled request in a free decode row.  Returns False
+        when no decode row is free."""
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        if not req.out:
+            req.out.append(int(first_token))
+        tr = obs_trace.active()
+        if not req.t_first:
+            req.t_first = time.monotonic()
+            if tr.enabled:
+                tr.instant("req_first_token", cat="req",
+                           rank=self.trace_rank, rid=req.rid)
+        if tr.enabled:
+            tr.instant("req_admit", cat="req", rank=self.trace_rank,
+                       rid=req.rid, slot=slot, position=position)
+        self.active[slot] = req
+        self.positions[slot] = position
+        self.last_token[slot, 0] = int(first_token)
+        self._write_row(caches_one, slot)
+        return True
+
+    def _prefill(self, req: Request):
+        toks = self._tensor(np.asarray(req.prompt, np.int32)[None])
+        logits, caches_one = self._prefill_one(self.params, {"inputs": toks})
+        return int(np.argmax(_to_host(logits)[0])), caches_one
+
+    def _admit(self) -> None:
+        while self.queue:
+            if self._free_slot() is None:
+                return
+            req = self.queue.pop(0)
+            tok, caches_one = self._prefill(req)
+            self.admit_prefilled(
+                req, caches_one, first_token=tok, position=len(req.prompt)
+            )
+
+    def _retire(self, slot: int) -> None:
+        req = self.active[slot]
+        if req is None:  # already retired this step (eos at the cache cap)
+            return
+        req.t_done = time.monotonic()
+        tr = obs_trace.active()
+        if tr.enabled:
+            tr.instant("req_retire", cat="req", rank=self.trace_rank,
+                       rid=req.rid, tokens=len(req.out))
+        self.finished.append(req)
+        self.active[slot] = None
+        self._release(req)
+
+    def evict_row(self, slot: int) -> Optional[Request]:
+        """Remove a request from its decode row WITHOUT retiring it (the
+        preemption path): the caller owns its KV state and re-admits it
+        later.  No release hook runs."""
+        req = self.active[slot]
+        self.active[slot] = None
+        self.replaying.pop(slot, None)
+        return req
+
+    def start_replay(self, slot: int, tokens: List[int]) -> None:
+        """Arm a recompute-resume: the next ``len(tokens)`` decode steps
+        on ``slot`` rebuild the KV cache by re-deriving exactly those
+        tokens (asserted — the decode path is deterministic), without
+        re-appending them to the request's output."""
+        if tokens:
+            self.replaying[slot] = list(tokens)
+
+    def _release(self, req: Request) -> None:
+        """Called when a request leaves its decode row."""
+
+    def _advance(self, live: List[int], logits: np.ndarray) -> None:
+        """Shared post-decode token handling: append/advance each live
+        row, replaying preempted-and-recomputed rows without appending."""
+        for i in live:
+            req = self.active[i]
+            tok = int(np.argmax(logits[i]))
+            replay = self.replaying.get(i)
+            if replay:
+                expect = replay.pop(0)
+                if tok != expect:
+                    raise AssertionError(
+                        f"recompute replay diverged on rid {req.rid}: "
+                        f"step produced {tok}, original was {expect}"
+                    )
+                if not replay:
+                    del self.replaying[i]
+                self.positions[i] += 1
+                self.last_token[i, 0] = tok
+                continue  # the token is already in req.out
+            req.out.append(tok)
+            self.positions[i] += 1
+            self.last_token[i, 0] = tok
+            if tok == self.eos_id or len(req.out) >= req.max_new:
+                self._retire(i)
+            if self.positions[i] >= self.cache_len - 1:
+                self._retire(i)
+
+    # ------------------------------------------------------------------ #
+    def step(self) -> int:
+        """One scheduler tick: admit, decode one token for all rows.
+        Subclasses override :meth:`_step`; this wrapper is the single
+        place every server's tick gets its ``decode_step`` span."""
+        tr = obs_trace.active()
+        if not tr.enabled:
+            return self._step()
+        with tr.span("decode_step", cat="decode", rank=self.trace_rank) as sp:
+            n = self._step()
+            sp.args["live"] = n
+            return n
+
+    def _step(self) -> int:
+        self._admit()
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        if not live or self.caches is None:
+            return 0
+        logits, self.caches = self._decode(
+            self.params,
+            self._tensor(self.last_token),
+            self._tensor(self.positions),
+            self.caches,
+        )
+        self._advance(live, _to_host(logits))
+        return len(live)
+
+    def _pending(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.active)
+
+    def run_until_drained(self, max_ticks: int = 10000) -> Dict[str, Any]:
+        t0 = time.monotonic()
+        decoded = 0
+        ticks = 0
+        while self._pending() and ticks < max_ticks:
+            decoded += self.step()
+            ticks += 1
+        dt = time.monotonic() - t0
+        lat = [r.t_done - r.t_enqueue for r in self.finished]
+        ttft = [r.t_first - r.t_enqueue for r in self.finished]
+        return {
+            "requests": len(self.finished),
+            "decoded_tokens": decoded,
+            "wall_s": dt,
+            "tok_per_s": decoded / dt if dt else 0.0,
+            "p50_latency_s": float(np.median(lat)) if lat else 0.0,
+            "p50_ttft_s": float(np.median(ttft)) if ttft else 0.0,
+        }
+
+
+class PagedServer(Server):
+    """Continuous batching over the paged KV pool with SLO-aware
+    preemptive scheduling over a tiered KV memory.
+
+    Each admitted request gets fixed-size token *pages* from a refcounted
+    pool, freed when it retires; requests sharing a prompt prefix resolve
+    to the *same physical pages* (copy-on-write protected).  The decode
+    step runs THROUGH the page table: the new token's K/V scatter straight
+    into the pool and attention is the paged-attention kernel over the
+    physical pages.  Admission is **lazy** (only prompt pages materialise;
+    the generation tail allocates page by page), so the pool
+    *oversubscribes*: when the free list runs dry the
+    :class:`~repro_torch.serving.scheduler.AdmissionScheduler` preempts
+    victims — swap (pages copied to the host
+    :class:`~repro_torch.serving.tier.MemoryTier`, restored bit-exactly) or
+    recompute (pages dropped; resume replays the generated tokens).
+
+    Token parity with :class:`Server` — pressured or not — is the
+    correctness bar.
+    """
+
+    def __init__(self, model, ctx, params, batch_size: int, cache_len: int,
+                 eos_id: int = -1, device: Any = None, page_tokens: int = 8,
+                 n_pool_pages: Optional[int] = None,
+                 decode_step_us: float = 2000.0, prefill_us: float = 4000.0):
+        super().__init__(model, ctx, params, batch_size, cache_len,
+                         eos_id=eos_id, device=device)
+        from repro_torch.serving.pool import PagedKVStore, PagedLayout
+        from repro_torch.serving.scheduler import AdmissionScheduler
+        from repro_torch.serving.tier import MemoryTier
+
+        self.layout = PagedLayout.from_struct(
+            model.kv_block_struct(ctx, prompt_len=4, cache_len=cache_len),
+            cache_len=cache_len, page_tokens=page_tokens,
+        )
+        if n_pool_pages is None:
+            n_pool_pages = (batch_size + 1) * self.layout.n_pages
+        self.store = PagedKVStore(self.layout, n_pool_pages)
+        tier_slots = max(n_pool_pages, batch_size * self.layout.n_pages)
+        self.tier = MemoryTier(
+            1, tier_slots, self.layout.page_elems, host_backed=True
+        )
+        self.scheduler = AdmissionScheduler(
+            page_bytes=self.layout.page_bytes,
+            decode_step_us=decode_step_us, prefill_us=prefill_us,
+        )
+        self._by_rid: Dict[int, Request] = {}
+        self._preempted: Dict[int, Dict[str, Any]] = {}
+        self._decode_paged = _paged_decode_views_fn(
+            model, ctx, self.layout, self.device
+        )
+        # device-resident pool in decode-views form (each per-layer pool
+        # has P+1 rows, scratch last), kept across ticks; None whenever
+        # the host mirror is authoritative
+        self._dev_views = None
+        # live high-water mark of page-table width (monotonic)
+        self._table_width = 1
+        # host-side page mutations queued for the device-resident pool:
+        # fresh payload rows and COW src->dst splits, applied before the
+        # next decode step (or before any host sync)
+        self._patch = _pool_patch_fn(self.layout)
+        self._pending_rows: Dict[int, np.ndarray] = {}
+        self._pending_copies: List[tuple] = []
+        self.paged_decode_steps = 0
+
+    def _apply_pending(self) -> None:
+        """Flush queued page writes/copies into the device-resident pool."""
+        rows = list(self._pending_rows.items())
+        copies = list(self._pending_copies)
+        self._pending_rows.clear()
+        self._pending_copies.clear()
+        idx = lambda xs: self._tensor(np.asarray(xs, np.int64))
+        wd = idx([pg for pg, _ in rows])
+        wr = self._tensor(
+            np.stack([r for _, r in rows]) if rows
+            else np.zeros((0, self.layout.page_elems), np.float32)
+        )
+        cs = idx([s for s, _ in copies])
+        cd = idx([d for _, d in copies])
+        self._dev_views = self._patch(self._dev_views, wd, wr, cs, cd)
+
+    def _sync_host(self) -> None:
+        """Land the device-resident pool back in the host mirror before
+        any host-side read or write of page payloads (swap staging,
+        resume restores).  Queued page patches flush to the device first
+        so the download is complete.  The device copy is dropped; the
+        next decode step re-uploads the mutated mirror."""
+        if self._dev_views is not None:
+            if self._pending_rows or self._pending_copies:
+                self._apply_pending()
+            P = self.store.state.n_pages
+            mem = self.layout.views_to_pool(self._dev_views)
+            self.store.mem[:] = mem[:P].cpu().numpy()
+            self._dev_views = None
+
+    # ------------------------------------------------------------------ #
+    def submit(self, req: Request) -> None:
+        from repro_torch.serving.scheduler import SLO
+
+        super().submit(req)
+        self._by_rid[req.rid] = req
+        self.scheduler.submit(
+            req.rid, req.slo or SLO(), prompt_len=len(req.prompt),
+            now=req.t_enqueue,
+        )
+
+    def _pending(self) -> bool:
+        return super()._pending() or bool(self._preempted)
+
+    # ------------------------------------------------------------------ #
+    # capacity management: preemption + tiered swap
+    # ------------------------------------------------------------------ #
+    def _running_rids(self) -> List[int]:
+        return [r.rid for r in self.active if r is not None]
+
+    def _slot_of(self, rid: int) -> Optional[int]:
+        for i, r in enumerate(self.active):
+            if r is not None and r.rid == rid:
+                return i
+        return None
+
+    def _freeable(self, rid: int) -> int:
+        return self.store.freeable(rid)
+
+    def _write_need(self, rid: int, position: int) -> int:
+        return _pool_write_need(self.store, self.layout, rid, position)
+
+    def _preempt(self, rid: int, mode: Optional[str] = None) -> None:
+        from repro_torch.serving import tier as tier_lib
+
+        self._sync_host()  # swap staging reads page payloads
+        slot = self._slot_of(rid)
+        req = self._by_rid[rid]
+        table = self.store.page_table(rid)
+        logical = [lp for lp, pp in enumerate(table) if pp >= 0]
+        chosen, swap_us, rec_us = self.scheduler.choose_mode(rid, len(logical))
+        if mode is None:
+            mode = chosen
+        tr = obs_trace.active()
+        if tr.enabled:
+            tr.instant(
+                "req_preempt", cat="req", rank=self.trace_rank, rid=rid,
+                mode=mode, n_pages=len(logical),
+                swap_est_us=round(swap_us, 1),
+                recompute_est_us=round(rec_us, 1),
+            )
+        if mode == "swap":
+            try:
+                self.tier.plan_swap_out(rid, logical)
+            except tier_lib.OutOfSlotsError:
+                mode = "recompute"  # tier full: drop and replay instead
+        if mode == "swap":
+            rows = np.stack([self.store.mem[table[lp]] for lp in logical])
+            self.tier.host_store(rid, rows)
+        snap = {
+            "mode": mode,
+            "logical": tuple(logical),
+            "position": int(self.positions[slot]),
+            "last_token": int(self.last_token[slot, 0]),
+            # a victim caught mid-replay must finish its replay after a
+            # swap-resume (evict_row drops the row's replay state)
+            "replay": list(self.replaying.get(slot, [])),
+        }
+        self.store.evict_request(rid)
+        self.evict_row(slot)
+        self._preempted[rid] = snap
+        # keep the β model honest: replayed tokens are not new generation
+        self.scheduler.entry(rid).generated = max(0, len(req.out) - 1)
+        self.scheduler.on_preempted(rid, mode)
+
+    def _make_room(self, need: int, beneficiary: int, strict: bool) -> bool:
+        """Free at least ``need`` pool pages by preempting victims chosen
+        by the scheduler; False when no eligible victim set suffices."""
+        while self.store.n_free < need:
+            victims = self.scheduler.pick_victims(
+                self._running_rids(), need - self.store.n_free,
+                self._freeable, beneficiary=beneficiary, strict=strict,
+            )
+            if not victims:
+                return False
+            for rid in victims:
+                self._preempt(rid)
+        return True
+
+    # ------------------------------------------------------------------ #
+    # admission + resume (scheduler-ordered)
+    # ------------------------------------------------------------------ #
+    def _bind_row(
+        self, req: Request, slot: int, position: int, last_token: int
+    ) -> None:
+        tr = obs_trace.active()
+        if not req.t_first:
+            req.t_first = time.monotonic()
+            if tr.enabled:
+                tr.instant("req_first_token", cat="req",
+                           rank=self.trace_rank, rid=req.rid)
+        if tr.enabled:
+            tr.instant("req_admit", cat="req", rank=self.trace_rank,
+                       rid=req.rid, slot=slot, position=position)
+        self.active[slot] = req
+        self.positions[slot] = position
+        self.last_token[slot, 0] = int(last_token)
+
+    def _prefill_pages(self, req: Request):
+        tok, caches_one = self._prefill(req)
+        return tok, self.layout.flatten(caches_one).cpu().numpy()
+
+    def _resume(self, rid: int, slot: int) -> bool:
+        st = self._preempted[rid]
+        req = self._by_rid[rid]
+        self._sync_host()  # restores / re-prefills write page payloads
+        if st["mode"] == "swap":
+            if self.store.n_free < len(st["logical"]):
+                return False
+            phys = self.store.admit_resume(rid, st["logical"])
+            rows = self.tier.host_load(rid)
+            self.tier.release(rid)
+            for row, pp in zip(rows, phys):
+                self.store.mem[pp] = row
+            self._bind_row(req, slot, st["position"], st["last_token"])
+            self.start_replay(slot, st.get("replay", []))
+        else:  # recompute: re-prefill the prompt, replay the generation
+            if self.store.n_free < self.layout.pages_for(len(req.prompt)):
+                return False
+            _, pages = self._prefill_pages(req)
+            plan = self.store.plan_admit(req.prompt, lazy=True)
+            self.store.write_pages(plan, pages)
+            self.store.commit(rid, plan)
+            self._bind_row(req, slot, len(req.prompt), req.out[0])
+            self.start_replay(slot, req.out[1:])
+        del self._preempted[rid]
+        tr = obs_trace.active()
+        if tr.enabled:
+            tr.instant("req_resume", cat="req", rank=self.trace_rank,
+                       rid=rid, slot=slot, mode=st["mode"])
+        self.scheduler.on_admitted(rid, time.monotonic())
+        return True
+
+    def _admit(self) -> None:
+        for rid in self.scheduler.admission_order():
+            slot = self._free_slot()
+            if slot is None:
+                return
+            if rid in self._preempted:
+                self._resume(rid, slot)
+                continue
+            req = self._by_rid.get(rid)
+            if req is None or req not in self.queue:
+                continue
+            need = self.layout.pages_for(len(req.prompt))
+            if self.store.n_free < need and not self._make_room(
+                need, rid, strict=True
+            ):
+                continue
+            self.queue.remove(req)
+            tok, pages = self._prefill_pages(req)
+            plan = self.store.plan_admit(req.prompt, lazy=True)
+            self.store.write_pages(plan, pages)
+            self.store.commit(req.rid, plan)
+            if self._dev_views is not None:
+                # the pool stays device-resident across admissions: queue
+                # only the fresh prompt pages as patches
+                for page_id, is_fresh in zip(plan.table, plan.fresh):
+                    if is_fresh:
+                        self._pending_rows[page_id] = self.store.mem[
+                            page_id
+                        ].copy()
+            if not req.out:
+                req.out.append(tok)
+            self._bind_row(req, slot, len(req.prompt), req.out[0])
+            self.scheduler.on_admitted(rid, time.monotonic())
+
+    # ------------------------------------------------------------------ #
+    # the end-to-end paged decode step
+    # ------------------------------------------------------------------ #
+    def _step(self) -> int:
+        self._admit()
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        if not live:
+            return 0
+        # write capacity row by row: lazy materialisation / COW splits may
+        # need fresh pages — the oversubscription pressure point.  A row
+        # that cannot get one (even after preempting eligible victims)
+        # self-preempts and resumes once pages free up.
+        from repro_torch.serving.pool import UNMATERIALIZED
+
+        for i in list(live):
+            req = self.active[i]
+            if req is None:
+                continue  # already evicted by an earlier row's make_room
+            need = self._write_need(req.rid, int(self.positions[i]))
+            if need and self.store.n_free < need:
+                if not self._make_room(need, req.rid, strict=False):
+                    self._preempt(req.rid)
+                    continue
+            pos = int(self.positions[i])
+            if need and self._dev_views is not None:
+                # materialisation / COW split mutates page payloads: mirror
+                # the host-side write as a device patch
+                before = self.store.tables[req.rid][pos // self.layout.page_tokens]
+                dst = self.store.prepare_write(req.rid, pos)
+                if before == UNMATERIALIZED:
+                    self._pending_rows[dst] = np.asarray(
+                        self.layout.empty_page_row()
+                    )
+                elif dst != before:  # COW split: clone the shared payload
+                    self._pending_copies.append((int(before), int(dst)))
+            else:
+                self.store.prepare_write(req.rid, pos)
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        if not live:
+            return 0
+        # device tables: unmaterialised slots (and dead rows) target the
+        # scratch page past the pool — always masked by lengths.  The
+        # width is the batch's live high-water mark in 4-page buckets, so
+        # paged attention reads only pages a request can occupy.
+        P = self.store.state.n_pages
+        T = self.layout.page_tokens
+        need = max(int(self.positions[i]) // T + 1 for i in live)
+        need = min(self.layout.n_pages, -(-need // 4) * 4)  # 4-page buckets
+        self._table_width = max(self._table_width, need)
+        tables = np.full((self.B, self._table_width), P, np.int32)
+        for i in live:
+            row = self.store.device_table(self.active[i].rid, absent=P)
+            tables[i] = row[: self._table_width]
+        logits = self._decode_via_tables(tables)
+        for i in live:
+            if i not in self.replaying:  # replays are not new generation
+                self.scheduler.on_step(self.active[i].rid)
+        self._advance(live, logits)
+        return len(live)
+
+    def _decode_via_tables(self, tables: np.ndarray) -> np.ndarray:
+        """Upload the pool when host-resident, flush queued page patches,
+        run the paged decode; returns host logits."""
+        if self._dev_views is None:  # (re-)upload the mutated host mirror
+            mem = np.concatenate(
+                [self.store.mem, self.layout.empty_page_row()[None]], axis=0
+            )
+            self._dev_views = self.layout.decode_views(self._tensor(mem))
+        if self._pending_rows or self._pending_copies:
+            self._apply_pending()
+        logits, self._dev_views = self._decode_paged(
+            self.params,
+            self._tensor(self.last_token),
+            self._tensor(self.positions),
+            self._dev_views,
+            self._tensor(tables),
+        )
+        self.paged_decode_steps += 1
+        return _to_host(logits)
+
+    # ------------------------------------------------------------------ #
+    def _release(self, req: Request) -> None:
+        self.store.release(req.rid)
+        if req.rid in self._by_rid:
+            self.scheduler.on_done(req.rid)
+
+    def run_until_drained(self, max_ticks: int = 10000) -> Dict[str, Any]:
+        stats = super().run_until_drained(max_ticks)
+        self._sync_host()  # callers may inspect the pool post-drain
+        stats.update({f"pool_{k}": v for k, v in self.store.stats().items()})
+        stats.update(self.tier.stats())
+        stats.update(self.scheduler.stats())
+        return stats
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--role", choices=("decode",), default="decode",
+                    help="decode = colocated continuous batching (the only "
+                         "role ported so far)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--cache-len", type=int, default=64)
+    ap.add_argument("--paged", action="store_true",
+                    help="KV lives in the paged pool: pages allocated/freed "
+                         "per request, prompt prefixes shared by page table")
+    ap.add_argument("--page-tokens", type=int, default=8,
+                    help="tokens per KV page (must divide --cache-len)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs.registry import SMOKE
+    from repro_torch.models.build import build_model
+    from repro_torch.parallel.ctx import RunCtx
+
+    device = resolve_device(args.device)
+    cfg = SMOKE[args.arch]  # the reference serves the SMOKE cut too
+    model = build_model(cfg)
+    ctx = RunCtx()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init(ctx, gen, device=device)
+
+    rng = np.random.default_rng(0)
+    reqs = [
+        Request(
+            rid=rid,
+            prompt=rng.integers(0, cfg.vocab, size=args.prompt_len).tolist(),
+            max_new=args.max_new,
+        )
+        for rid in range(args.requests)
+    ]
+    if args.paged:
+        server = PagedServer(model, ctx, params, args.batch, args.cache_len,
+                             device=device, page_tokens=args.page_tokens)
+    else:
+        server = Server(model, ctx, params, args.batch, args.cache_len,
+                        device=device)
+    for req in reqs:
+        server.submit(req)
+    stats = server.run_until_drained()
+    for k, v in stats.items():
+        print(f"{k}: {v}")
+
+
+if __name__ == "__main__":
+    main()

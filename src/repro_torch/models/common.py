@@ -1,0 +1,114 @@
+"""Architecture configuration schema + the layer-program machinery.
+
+The port of ``repro.models.common``: an :class:`ArchConfig` plus a
+repeating *pattern* of block kinds, compiled into :class:`Segment`\\ s —
+maximal runs of identical repeating units.  The reference scans each
+segment over stacked layer parameters; the port loops over the stacked
+leading axis, with the same parameter layout.
+
+This slice runs the ``global`` kind (GQA self-attention + gated MLP);
+the other kinds are validated here and fail where a block is built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+__all__ = ["ArchConfig", "Segment", "build_layer_program", "KNOWN_KINDS"]
+
+KNOWN_KINDS = (
+    "global",
+    "local",
+    "moe",
+    "dense",
+    "mamba",
+    "rec",
+    "cross",
+    "enc",
+    "xdec",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """Static description of one architecture (exact published numbers)."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    pattern: Tuple[str, ...] = ("global",)
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        for k in self.pattern:
+            if k not in KNOWN_KINDS:
+                raise ValueError(f"unknown block kind {k!r}")
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // max(self.n_heads, 1)
+
+    def layer_kinds(self) -> List[str]:
+        """Per-layer kinds for the decoder stack (length n_layers)."""
+        return [self.pattern[i % len(self.pattern)] for i in range(self.n_layers)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """A maximal run of identical repeating units.
+
+    ``unit``: tuple of block kinds applied in order per iteration.
+    ``count``: number of iterations (stacked-parameter leading dim).
+    """
+
+    unit: Tuple[str, ...]
+    count: int
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.unit) * self.count
+
+
+def build_layer_program(kinds: Sequence[str], max_unit: int = 8) -> List[Segment]:
+    """Compile a per-layer kind list into segments.
+
+    Greedy: find the shortest repeating unit (length <= max_unit) covering a
+    maximal prefix, emit it as a Segment, recurse on the rest.  Guarantees
+    segment order == layer order.
+    """
+    kinds = list(kinds)
+    segments: List[Segment] = []
+    i = 0
+    n = len(kinds)
+    while i < n:
+        best = (1, 1)  # (unit_len, count)
+        for ul in range(1, min(max_unit, n - i) + 1):
+            unit = kinds[i : i + ul]
+            count = 1
+            while (
+                i + (count + 1) * ul <= n
+                and kinds[i + count * ul : i + (count + 1) * ul] == unit
+            ):
+                count += 1
+            if count * ul > best[0] * best[1] or (
+                count * ul == best[0] * best[1] and ul < best[0]
+            ):
+                best = (ul, count)
+        ul, count = best
+        segments.append(Segment(unit=tuple(kinds[i : i + ul]), count=count))
+        i += ul * count
+    if sum(s.n_layers for s in segments) != n:
+        raise AssertionError("layer program does not cover every layer")
+    return segments

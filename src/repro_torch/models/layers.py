@@ -1,0 +1,265 @@
+"""Model layers of the port (params as plain dicts of tensors).
+
+Counterpart of ``repro.models.layers``, the subset qwen3-4b runs: RMS
+norm, RoPE, causal GQA self-attention with its prefill, dense-decode and
+paged-decode branches, and the gated SiLU MLP.  Parameter trees have the
+reference's keys and shapes, so a tree crosses from JAX by value
+(``repro_torch.models.build.params_from_jax``).
+
+Decode updates caches IN PLACE (the reference returns new arrays): the
+dense cache rows and the page pools are written where they lie and the
+same tensors are returned.  Callers that need the old cache clone it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import ArchConfig
+from repro_torch.parallel.ctx import RunCtx, use_weight
+
+Params = Dict[str, Any]
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------- #
+# initializers
+# --------------------------------------------------------------------------- #
+def _normal(gen: torch.Generator, shape, dtype, scale: float) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def linear_init(gen, in_dim: int, out_dims, dtype, scale=None, lead=()):
+    """``lead`` prepends stacked-layer axes (the reference's vmapped init)."""
+    out = out_dims if isinstance(out_dims, tuple) else (out_dims,)
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    return _normal(gen, tuple(lead) + (in_dim,) + out, dtype, scale)
+
+
+def norm_init(d: int, device, lead=()) -> Params:
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=torch.float32,
+                                device=device)}
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in f32, back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# RoPE
+# --------------------------------------------------------------------------- #
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) int32."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=x.device)
+        / half
+    )
+    ang = positions[..., None].float() * freqs  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------------- #
+def attention_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
+    dh = cfg.resolved_head_dim
+    D, H, KH = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    params = {
+        "norm": norm_init(D, gen.device, lead),
+        "wq": linear_init(gen, D, (H, dh), cfg.dtype, lead=lead),
+        "wk": linear_init(gen, D, (KH, dh), cfg.dtype, lead=lead),
+        "wv": linear_init(gen, D, (KH, dh), cfg.dtype, lead=lead),
+        "wo": linear_init(gen, H * dh, (D,), cfg.dtype, lead=lead),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = norm_init(dh, gen.device, lead)
+        params["k_norm"] = norm_init(dh, gen.device, lead)
+    return params
+
+
+def _gqa_scores_softmax_v(q, k, v, mask, scale):
+    """q: (B,Sq,H,Dh), k/v: (B,Sk,KH,Dh), mask: (B,Sq,Sk) bool.
+
+    Activations stay in the model dtype and the dots accumulate in f32,
+    as the reference's ``preferred_element_type=f32``: the operands are
+    widened (exact for bf16) before the f32 product."""
+    B, Sq, H, Dh = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, Sq, KH, G, Dh)
+    qs = qg * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qs.float(), k.float())
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    visible = mask.any(dim=-1)  # (B, Sq)
+    o = torch.where(visible[:, :, None, None, None], o, 0.0)
+    return o.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def _chunked_attention(q, k, v, qpos, kpos, *, scale, chunk):
+    """Blockwise-over-queries causal attention (O(S·chunk) memory).
+
+    qpos: (B, Sq) absolute query positions; kpos: (B, Sk) key positions
+    (-1 = empty cache slot).
+    """
+    B, Sq, H, Dh = q.shape
+    chunk = min(chunk, Sq)
+    pad = (-Sq) % chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        qpos = F.pad(qpos, (0, pad), value=-1)
+    outs = []
+    for c0 in range(0, q.shape[1], chunk):
+        qs = q[:, c0 : c0 + chunk]
+        qp = qpos[:, c0 : c0 + chunk]
+        mask = kpos[:, None, :] >= 0
+        mask = mask & (qp[:, :, None] >= kpos[:, None, :])
+        mask = mask & (qp[:, :, None] >= 0)
+        outs.append(_gqa_scores_softmax_v(qs, k, v, mask, scale))
+    return torch.cat(outs, dim=1)[:, :Sq]
+
+
+def apply_attention(
+    p: Params,
+    cfg: ArchConfig,
+    ctx: RunCtx,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    mode: str = "prefill",
+    cache: Optional[Params] = None,
+    cache_len: int = 0,
+    page_table: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Causal self-attention sub-block (pre-norm, residual added by caller).
+
+    Modes:
+      prefill  — full sequence; returns a cache of capacity ``cache_len``.
+      decode   — x is (B, 1, D); updates ``cache`` in place.
+
+    Paged decode (``page_table`` given, decode mode only): ``cache`` holds
+    the layer's slice of the KV *page pool* — ``k``/``v`` shaped
+    ``(P, page_tokens, KH, Dh)`` and ``pos`` ``(P, page_tokens)`` — and
+    ``page_table`` is ``(B, NP)`` physical ids per request.  The new
+    token's K/V scatter straight into the request's (COW-resolved,
+    materialised) page and attention runs through the table on
+    ``kernels.ops.paged_attention`` — the CUDA kernel on the card.
+    """
+    dh = cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(dh)
+    B, S, D = x.shape
+    h = apply_norm(p["norm"], x)
+    wq = use_weight(p["wq"], ctx)
+    wk = use_weight(p["wk"], ctx)
+    wv = use_weight(p["wv"], ctx)
+    wo = use_weight(p["wo"], ctx)
+    q = torch.einsum("bsd,dhk->bshk", h, wq)
+    # qk-norm comes before rope, on q and k alike
+    if cfg.qk_norm:
+        q = apply_norm(p["q_norm"], q)
+    k = torch.einsum("bsd,dhk->bshk", h, wk)
+    v = torch.einsum("bsd,dhk->bshk", h, wv)
+    if cfg.qk_norm:
+        k = apply_norm(p["k_norm"], k)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "prefill":
+        W = cache_len
+        # ring-buffer write of the last W positions
+        kc = torch.zeros((B, W) + tuple(k.shape[2:]), dtype=k.dtype,
+                         device=k.device)
+        vc = torch.zeros_like(kc)
+        pc = torch.full((B, W), -1, dtype=torch.int32, device=k.device)
+        take = min(W, S)
+        sl = slice(S - take, S)
+        idx = (positions[:, sl] % W).long()  # (B, take)
+        b_idx = torch.arange(B, device=k.device)[:, None]
+        kc[b_idx, idx] = k[:, sl]
+        vc[b_idx, idx] = v[:, sl]
+        pc[b_idx, idx] = positions[:, sl].to(torch.int32)
+        out = _chunked_attention(
+            q, k, v, positions, positions, scale=scale, chunk=ctx.attn_chunk
+        )
+        new_cache = {"k": kc, "v": vc, "pos": pc}
+    elif mode == "decode" and page_table is not None:
+        kp, vp, pp = cache["k"], cache["v"], cache["pos"]  # page pools
+        T = kp.shape[1]  # page_tokens
+        pos = positions[:, 0]  # (B,)
+        # the write page: COW-resolved and materialised by the host before
+        # the step, so live rows never collide.  Dead rows all target the
+        # scratch page; a dead row's stale position may run past the table
+        # width, and the column clamps as the reference's gather does.
+        col = torch.clamp(pos // T, max=page_table.shape[1] - 1).long()
+        b_idx = torch.arange(B, device=x.device)
+        phys = page_table[b_idx, col].long()
+        slot = (pos % T).long()
+        kp[phys, slot] = k[:, 0]
+        vp[phys, slot] = v[:, 0]
+        pp[phys, slot] = pos.to(pp.dtype)
+        out = ops.paged_attention(
+            q[:, 0], kp, vp, page_table, (pos + 1).to(torch.int32),
+            scale=scale,
+        )[:, None]
+        new_cache = cache
+    elif mode == "decode":
+        kc, vc, pc = cache["k"], cache["v"], cache["pos"]
+        W = kc.shape[1]
+        pos = positions[:, 0]  # (B,)
+        slot = (pos % W).long()
+        b_idx = torch.arange(B, device=x.device)
+        kc[b_idx, slot] = k[:, 0]
+        vc[b_idx, slot] = v[:, 0]
+        pc[b_idx, slot] = pos.to(pc.dtype)
+        mask = pc[:, None, :] >= 0  # (B, 1, W)
+        mask = mask & (pc[:, None, :] <= pos[:, None, None])
+        out = _gqa_scores_softmax_v(q, kc, vc, mask, scale)
+        new_cache = cache
+    else:
+        raise ValueError(mode)
+
+    o = torch.einsum("bshk,hkd->bsd", out, wo.reshape(-1, dh, D))
+    return o.to(x.dtype), new_cache
+
+
+# --------------------------------------------------------------------------- #
+# MLP
+# --------------------------------------------------------------------------- #
+def mlp_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
+    D, Fd = cfg.d_model, cfg.d_ff
+    return {
+        "norm": norm_init(D, gen.device, lead),
+        "wi": linear_init(gen, D, (Fd,), cfg.dtype, lead=lead),
+        "wo": linear_init(gen, Fd, (D,), cfg.dtype, lead=lead),
+        "wg": linear_init(gen, D, (Fd,), cfg.dtype, lead=lead),
+    }
+
+
+def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor,
+              ctx: RunCtx) -> torch.Tensor:
+    """Gated SiLU MLP (pre-norm, residual added by caller)."""
+    h = apply_norm(p["norm"], x)
+    wi = use_weight(p["wi"], ctx)
+    wo = use_weight(p["wo"], ctx)
+    wg = use_weight(p["wg"], ctx)
+    z = F.silu(h @ wg) * (h @ wi)
+    return (z @ wo).to(x.dtype)
