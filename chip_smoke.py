@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one GPU: build, check, serve, report.
+"""Drive the PyTorch/CUDA port on one GPU: build, check, run, report.
 
 Run from the repository root on a machine with an NVIDIA GPU and the CUDA
 toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
 
-1. build   — compile every CUDA kernel of the serving path with nvcc for
-             sm_90a (all sources at once).
-2. kernel  — each kernel against its plain PyTorch version at the serving
-             path's shapes (bf16 and f32, NaN pages behind the lengths),
-             timed with CUDA events against its bound.
-3. serve   — qwen3-4b at full width and depth (36 layers, bf16, random
+1. build   — compile every CUDA kernel of the port with nvcc for sm_90a
+             (one nvcc per source, all started at once).
+2. kernel  — paged attention against its plain PyTorch version at the
+             serving path's shapes (bf16 and f32, NaN pages behind the
+             lengths), timed with CUDA events against its bound.
+3. gascore — each of the five GAScore kernels against its plain version on
+             8 ranks of 1 KiB, 1 MiB and 16 MiB (f32, bf16, and int32 bit
+             patterns with NaNs in an f32 carrier): copies byte-equal, the
+             reduce-scatter byte-equal to the ring order and within its
+             rounding bound of ``sum(0)``; timed against the bound and the
+             one PyTorch call that computes the same function.
+4. gas     — the GAS substrate's main path: the quickstart and pipeline
+             programs on the "xla", "gascore" and "xla,gascore" backends at
+             their own sizes (all agree bit for bit), then at full size (8
+             ranks, 16 MiB segments, 1 MiB puts and gets, AM medium
+             messages of 512 floats, collectives over 16 MiB per rank, and
+             act 3's offset put of one qwen3-4b layer's KV for a
+             2,048-token prompt); launches per kernel checked against each
+             program's static schedule.
+5. serve   — qwen3-4b at full width and depth (36 layers, bf16, random
              weights from a seeded generator) through ``PagedServer``:
              16 requests of 128 prompt tokens, 64 new tokens each, four
              sharing a 64-token prefix; held against the dense ``Server``.
-4. profile — three steady decode steps of a separate paged run under
+6. profile — three steady decode steps of a separate paged run under
              ``torch.profiler``: kernels, device busy time and share.
 
 Then the card's name and power limit, the ``kernels`` line, and as the
@@ -23,6 +37,7 @@ and prints nothing on stdout.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -35,7 +50,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs.registry import ARCHS  # noqa: E402
+from repro_torch.core import collectives, gasnet, sched  # noqa: E402
+from repro_torch.core.engine import make_engine  # noqa: E402
+from repro_torch.core.gasnet import P  # noqa: E402
+from repro_torch.examples import heterogeneous_pipeline, quickstart  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import gascore as gc  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.launch.serve import PagedServer, Request, Server  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
@@ -58,6 +78,19 @@ LOGIT_REL_TOL = 5e-2
 BATCH, CACHE_LEN, PAGE_TOKENS = 8, 512, 16
 N_REQ, PROMPT_LEN, MAX_NEW, SHARED = 16, 128, 64, 64
 PROFILE_STEPS = (20, 21, 22)  # steady decode steps, in a separate run
+
+
+def host_us(fn, iters=50):
+    """Host time per call of ``fn`` (the enqueue: checks, dispatch and the
+    launch), without waiting for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / iters
 
 
 def emit(record):
@@ -143,6 +176,365 @@ def kernel_phase():
         "B": B, "Hq": HQ, "Hkv": HKV, "D": D, "T": T, "NP": NP,
         "lengths": lengths}, "results": out})
     return out
+
+
+# --------------------------------------------------------------------------- #
+# GAScore kernels (csrc/gascore_put.cu, csrc/gascore_ring.cu)
+# --------------------------------------------------------------------------- #
+N_RANKS = 8
+GAS_SIZES = {"1KiB": 1 << 10, "1MiB": 1 << 20, "16MiB": 1 << 24}  # per rank
+PERM = (3, 0, 6, 1, 7, 2, 5, 4)  # a bijection of the 8 ranks
+GAS_KERNELS = {  # wrapper, source, TPU kernel it replaces
+    "ring_shift": (gc.ring_shift, "gascore_put.cu", "gascore.py:67"),
+    "perm_put": (gc.perm_put, "gascore_put.cu", "gascore.py:100"),
+    "offset_put": (gc.offset_put, "gascore_put.cu", "gascore.py:147"),
+    "ring_all_gather": (gc.ring_all_gather, "gascore_ring.cu", "gascore.py:207"),
+    "ring_reduce_scatter": (gc.ring_reduce_scatter, "gascore_ring.cu",
+                            "gascore.py:265"),
+}
+
+
+def _bits(t):
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _byte_equal(name, got, want):
+    if got.shape != want.shape or not torch.equal(_bits(got), _bits(want)):
+        raise AssertionError(f"{name}: kernel and plain version differ")
+
+
+def gas_payload(kind, elems, gen):
+    """(8, elems): f32, bf16, or int32 words (NaN patterns among them)
+    viewed as f32."""
+    dev = torch.device("cuda")
+    if kind == "i32nan":
+        w = torch.randint(-(2**31), 2**31 - 1, (N_RANKS, elems), generator=gen,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+        w[:, :2] = torch.tensor([0x7FC00001, -1], dtype=torch.int32, device=dev)
+        return w.view(torch.float32)
+    x = torch.randn((N_RANKS, elems), generator=gen, device=dev)
+    return x.to(torch.bfloat16) if kind == "bf16" else x
+
+
+def gas_cases(x):
+    """Per kernel: (kernel call, plain call, library call, bytes moved).
+    Bytes: each input read once, each output written once."""
+    n, e = x.shape
+    row = e * x.element_size()
+    k = 3
+    dst = torch.tensor(PERM, device=x.device)
+    seg = torch.zeros((n, 2 * e), dtype=x.dtype, device=x.device)
+    off_rows = [(r * e // n) // 8 * 8 for r in range(n)]
+    offs = torch.tensor(off_rows, dtype=torch.int32, device=x.device)
+    same = torch.full((n,), off_rows[1], dtype=torch.int32, device=x.device)
+    rows = torch.arange(n, device=x.device)[:, None]
+    cols = off_rows[1] + torch.arange(e, device=x.device)[None, :]
+    shifted_rows = (rows + 1) % n
+
+    def lib_offset():
+        seg[shifted_rows, cols] = x  # one indexed (slice) assignment
+
+    def lib_perm():
+        out = torch.empty_like(x)
+        out[dst] = x
+        return out
+
+    cases = {
+        "ring_shift": (lambda: gc.ring_shift(x, k), lambda: ref.ring_shift(x, k),
+                       lambda: torch.roll(x, k, 0), 2 * n * row),
+        "perm_put": (lambda: gc.perm_put(x, PERM), lambda: ref.perm_put(x, PERM),
+                     lib_perm, 2 * n * row),
+        "offset_put": (lambda: gc.offset_put(seg, x, same, 1),
+                       lambda: ref.offset_put(seg, x, same, 1), lib_offset,
+                       2 * n * row),
+        "ring_all_gather": (lambda: gc.ring_all_gather(x),
+                            lambda: ref.all_gather(x),
+                            lambda: x.reshape(1, -1).expand(n, -1).contiguous(),
+                            n * row + n * n * row),
+    }
+    if x.dtype in (torch.float32, torch.bfloat16) and e % n == 0:
+        cases["ring_reduce_scatter"] = (
+            lambda: gc.ring_reduce_scatter(x), lambda: ref.reduce_scatter(x),
+            lambda: x.sum(0).view(n, e // n), n * row + row)
+    return cases, (seg, offs)
+
+
+def gascore_kernel_phase():
+    """Every GAScore kernel against its plain version (byte-equal) at each
+    size and dtype; times at every size in f32.  Returns the 16 MiB f32
+    figures per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    figures, checked = {}, []
+    for size, nbytes in GAS_SIZES.items():
+        for kind in ("f32", "bf16", "i32nan"):
+            elem = 2 if kind == "bf16" else 4
+            x = gas_payload(kind, nbytes // elem, gen)
+            cases, (seg, offs) = gas_cases(x)
+            if kind == "i32nan":  # a sum of bit patterns means nothing
+                cases.pop("ring_reduce_scatter", None)
+            for name, (kern, plain, _, _) in cases.items():
+                want = plain()  # first: offset_put's kernel writes in place
+                _byte_equal(f"{name} {size} {kind}", kern(), want)
+                checked.append(f"{name}/{size}/{kind}")
+            # per-rank offsets, written in place into a copy
+            got = gc.offset_put(seg.clone(), x, offs, 5)
+            _byte_equal(f"offset_put per-rank {size} {kind}", got,
+                        ref.offset_put(seg, x, offs, 5))
+            if "ring_reduce_scatter" in cases:
+                # (n-1) roundings, each within half an ulp of a partial
+                # sum bounded by sum |x| (2^-24 relative in f32, 2^-8 bf16)
+                got = gc.ring_reduce_scatter(x).float()
+                want = x.float().sum(0).view(N_RANKS, -1)
+                half_ulp = 2.0**-24 if kind == "f32" else 2.0**-8
+                tol = (N_RANKS - 1) * half_ulp * float(x.float().abs().sum(0).max())
+                err = float((got - want).abs().max())
+                if err > tol:
+                    raise AssertionError(
+                        f"reduce_scatter {size} {kind}: |ring - sum(0)| {err} "
+                        f"> {tol}")
+                if size == "16MiB":
+                    figures.setdefault("_rs_vs_sum", {})[kind] = {
+                        "max_abs_err": err, "tol": tol}
+            if kind != "f32":
+                continue
+            for name, (kern, plain, lib, moved) in cases.items():
+                iters = 20 if nbytes >= (1 << 20) else 100
+                ms = cuda_time_ms(kern, iters, flush)
+                plain_ms = cuda_time_ms(plain, max(iters // 2, 5), flush)
+                library_ms = cuda_time_ms(lib, max(iters // 2, 5), flush)
+                rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
+                       "bound_by": "bytes", "bytes": moved, "max_abs_err": 0.0,
+                       "host_us": host_us(kern), "plain_host_us": host_us(plain),
+                       "library_host_us": host_us(lib)}
+                figures.setdefault(name, {})[size] = rec
+            del cases, seg, offs, x
+    torch.cuda.synchronize()
+    emit({"phase": "gascore", "ranks": N_RANKS, "sizes_per_rank": GAS_SIZES,
+          "checked": len(checked), "byte_equal": True,
+          "reduce_scatter_vs_sum0": figures.pop("_rs_vs_sum"),
+          "f32": figures})
+    return figures
+
+
+# --------------------------------------------------------------------------- #
+# the GAS substrate's main path: programs on three backends
+# --------------------------------------------------------------------------- #
+GAS_BACKENDS = ("xla", "gascore", "xla,gascore")
+FULL_SEG = (1 << 24) // 4  # 16 MiB of f32 per rank
+FULL_PUT = (1 << 20) // 4  # 1 MiB puts and gets
+FULL_AM = 512  # AM medium payload, floats
+FULL_ROWS, FULL_COLS = 512, 8192  # 16 MiB of f32 per rank for collectives
+KV_S, KV_HEADS, KV_DIM = 2048, 8, 128  # qwen3-4b: 8 KV heads of dim 128
+
+
+def counts():
+    return {name: w.launches for name, (w, _, _) in GAS_KERNELS.items()}
+
+
+def reset_counts():
+    for w, _, _ in GAS_KERNELS.values():
+        w.launches = 0
+
+
+def quickstart_launches(backend, n):
+    """Kernel launches of ``examples.quickstart`` (sections 2-7) on a
+    backend: one per transfer of a gascore member, none on "xla"."""
+    if "gascore" not in backend:
+        return {}
+    g = min(4, 16 // n)  # section 7's segments: 4 over (16 / n) rows
+    # put 3 + get 2 + put_nb/get_nb 5 + AM exchange of 5 fields (n-1 each)
+    # + all-reduce 2(n-1) + broadcast (n-1) + exchange (n-1) + segmented
+    # all-reduce 2g(n-1)
+    return {"ring_shift": 10 + (9 + 2 * g) * (n - 1)}
+
+
+def pipeline_launches(backend, n):
+    """``pipeline_program``: n-1 blocking puts of 3 transfers each."""
+    return {"ring_shift": 3 * (n - 1)} if "gascore" in backend else {}
+
+
+def make_full_program(put=FULL_PUT, am=FULL_AM):
+    """The full-size node program: puts and gets of ``put`` floats (1 MiB)
+    along a shift and a permutation, an AM medium of ``am`` floats, and the
+    engine's and the scheduler's collectives over 16 MiB per rank."""
+
+    def program(node, seg, big):
+        n, me = node.n_nodes, node.my_id
+        local = node.local(seg)
+        payload = local[:put] + 1.0
+        seg = node.put(seg, payload, to=gasnet.Shift(1), index=put)
+        g1 = node.get(seg, frm=gasnet.Shift(3), index=put, size=put)
+        seg = node.put(seg, payload, to=gasnet.Perm(PERM), index=2 * put)
+        g2 = node.get(seg, frm=gasnet.Perm(PERM), index=2 * put, size=put)
+        node.am_medium(((me + 1) % n).to(torch.int32), "sum",
+                       payload=local[:am], args=(1,))
+        state = node.am_flush({"acc": torch.zeros((am,), device=seg.device)})
+        x = big  # this rank's (rows, cols) block
+        e = node.engine
+        ar = e.all_reduce(x)
+        ag = e.all_gather(x)
+        rs = e.reduce_scatter(x)
+        sar = sched.all_reduce(e, x)
+        return (seg, g1[None], g2[None], state["acc"][None], ar[None],
+                ag[None], rs[None], sar[None])
+
+    return program
+
+
+def full_launches(backend, n=N_RANKS, rows=FULL_ROWS, cols=FULL_COLS,
+                  am=FULL_AM, am_capacity=4):
+    """Kernel launches of the full-size program, from its static schedule
+    and the plans the scheduler makes for its payloads."""
+    if "gascore" not in backend:
+        return {}
+    eng = make_engine(backend, "node", n)
+    shift, perm = 3 + 2, 3 + 2  # a blocking put is 3 transfers, a get 2
+    out = {}
+    a2a = sched.plan_collective("all_to_all", nbytes=n * am_capacity * am * 4,
+                                n_nodes=n, engine=eng)
+    if a2a.algorithm == "direct":
+        shift += 5 * (n - 1)  # five AM fields, n-1 puts each
+    if eng.name == "map":  # the map's collectives: rings over its shifts
+        shift += 2 * (n - 1) + (n - 1) + (n - 1)
+    else:  # the fused kernels: all_reduce = RS + AG, then AG, then RS
+        out["ring_all_gather"] = 2
+        out["ring_reduce_scatter"] = 2
+    p = sched.plan_collective("all_reduce", nbytes=rows * cols * 4, n_nodes=n,
+                              engine=eng)
+    if p.algorithm == "recursive_doubling":
+        perm += int(math.log2(n))
+    else:
+        m = rows // n
+        g = (1 if p.n_segments <= 1 or m < 2
+             else len(collectives.segment_bounds(m, p.n_segments)))
+        shift += 2 * g * (n - 1)
+    out.update({"ring_shift": shift, "perm_put": perm})
+    return out
+
+
+def run_full(backend, device, n=N_RANKS, seg_elems=FULL_SEG, rows=FULL_ROWS,
+             cols=FULL_COLS, put=FULL_PUT, am=FULL_AM, seed=0):
+    ctx = gasnet.Context(n, backend=backend, device=device,
+                         am_payload_width=am, am_capacity=4)
+    ctx.handlers.register(
+        "sum", lambda st, p, a: dict(st, acc=st["acc"] + p * a[0].float()))
+    gen = torch.Generator(device=ctx.device).manual_seed(seed)
+    seg = torch.randn((n, seg_elems), generator=gen, device=ctx.device)
+    # small integers: every summation order gives the same f32 bits
+    big = torch.randint(-8, 8, (n * rows, cols), generator=gen,
+                        device=ctx.device).float()
+    out = ctx.spmd(make_full_program(put, am), seg, big,
+                   out_specs=(P("node"),) * 8)
+    return out, seg, big
+
+
+def check_full(out, seg, big, n=N_RANKS, rows=FULL_ROWS, cols=FULL_COLS,
+               put=FULL_PUT, am=FULL_AM):
+    """Full-size results against plain PyTorch on the same inputs."""
+    new, g1, g2, acc, ar, ag, rs, sar = out
+    for r in range(n):
+        want = seg[(r - 1) % n, :put] + 1.0
+        if not torch.equal(new[r, put:2 * put], want):
+            raise AssertionError(f"shift put landed wrong on rank {r}")
+    for s, d in enumerate(PERM):
+        if not torch.equal(new[d, 2 * put:3 * put], seg[s, :put] + 1.0):
+            raise AssertionError(f"perm put landed wrong on rank {d}")
+    for r in range(n):
+        if not torch.equal(g1[r], new[(r + 3) % n, put:2 * put]):
+            raise AssertionError(f"shift get wrong on rank {r}")
+        if not torch.equal(g2[r], new[PERM[r], 2 * put:3 * put]):
+            raise AssertionError(f"perm get wrong on rank {r}")
+        if not torch.equal(acc[r], seg[(r - 1) % n, :am]):
+            raise AssertionError(f"AM handler result wrong on rank {r}")
+    blocks = big.view(n, rows, cols)
+    total = blocks.sum(0)
+    for name, t in (("all_reduce", ar), ("sched.all_reduce", sar)):
+        if not torch.equal(t, total.expand(n, -1, -1)):
+            raise AssertionError(f"{name} wrong")
+    if not torch.equal(ag, big.view(1, -1, cols).expand(n, -1, -1)):
+        raise AssertionError("all_gather wrong")
+    if not torch.equal(rs, total.view(n, rows // n, cols)):
+        raise AssertionError("reduce_scatter wrong")
+
+
+def gas_phase():
+    """The GAS main path on three backends; returns the launches per
+    kernel over the whole phase (counts set to 0 just before)."""
+    reset_counts()
+    walls, launches, first = {}, {}, {}
+    for backend in GAS_BACKENDS:
+        rec = {}
+        before = counts()
+        t0 = time.perf_counter()
+        qs = quickstart.run(backend, 8, "cuda", verbose=False)
+        torch.cuda.synchronize()
+        rec["quickstart_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipe = heterogeneous_pipeline.run_pipeline(backend, 4, "cuda")
+        torch.cuda.synchronize()
+        rec["pipeline_s"] = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in counts().items()}
+        want = dict.fromkeys(GAS_KERNELS, 0)
+        for part in (quickstart_launches(backend, 8),
+                     pipeline_launches(backend, 4)):
+            for k, v in part.items():
+                want[k] += v
+        if got != want:
+            raise AssertionError(f"{backend} examples: launches {got}, "
+                                 f"schedule says {want}")
+        if not first:
+            first = {"qs": qs, "pipe": pipe}
+        else:
+            for k, v in qs.items():
+                if not torch.equal(v, first["qs"][k]):
+                    raise AssertionError(f"quickstart {k}: {backend} differs "
+                                         "from xla")
+            torch.testing.assert_close(pipe, first["pipe"], rtol=1e-6,
+                                       atol=0.0)
+        # full size: warm once, then time and check the second run
+        before = counts()
+        run_full(backend, "cuda")
+        torch.cuda.synchronize()
+        got1 = {k: v - before[k] for k, v in counts().items()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, seg, big = run_full(backend, "cuda")
+        torch.cuda.synchronize()
+        rec["full_s"] = time.perf_counter() - t0
+        rec["full_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        check_full(out, seg, big)
+        want = dict.fromkeys(GAS_KERNELS, 0)
+        want.update(full_launches(backend))
+        if got1 != want:
+            raise AssertionError(f"{backend} full size: launches {got1}, "
+                                 f"schedule says {want}")
+        rec["full_launches"] = got1
+        del out, seg, big
+        walls[backend] = rec
+    # act 3 at full size: one qwen3-4b layer's K and V for a 2,048-token
+    # prompt (16 MiB f32 per rank) into a 32 MiB segment
+    before = counts()
+    t0 = time.perf_counter()
+    seg, kv = heterogeneous_pipeline.kv_handoff(
+        N_RANKS, "cuda", S=KV_S, KH=KV_HEADS, Dh=2 * KV_DIM)
+    torch.cuda.synchronize()
+    act3_s = time.perf_counter() - t0
+    half = kv.shape[1]
+    for d in range(N_RANKS):
+        if not torch.equal(seg[d, half:], kv[(d - 1) % N_RANKS]):
+            raise AssertionError(f"act 3: KV landed wrong on rank {d}")
+    if counts()["offset_put"] - before["offset_put"] != 1:
+        raise AssertionError("act 3 did not run one offset_put launch")
+    launches = counts()
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"gas path never launched {missing}")
+    emit({"phase": "gas", "ranks": N_RANKS, "backends": walls,
+          "act3_s": act3_s, "act3_bytes": kv.numel() * 4, "launches": launches,
+          "examples_agree": True})
+    return launches
 
 
 def requests():
@@ -336,11 +728,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    seconds = build.build_all([pa.NAME])
-    emit({"phase": "build", "kernels": [pa.NAME], "seconds": seconds,
+    sources = [pa.NAME, gc.PUT, gc.RING]
+    seconds = build.build_all(sources)
+    emit({"phase": "build", "kernels": sources, "seconds": seconds,
           "arch": "sm_90a", "nvcc_flags": list(build.NVCC_FLAGS)})
 
     kernel = kernel_phase()
+    gas_figures = gascore_kernel_phase()
+    gas_launches = gas_phase()
     launches = serve_phase()
 
     smi = subprocess.run(
@@ -356,7 +751,15 @@ def main():
         "launches": launches, "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
-    }]})
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": f"src/repro/kernels/{where}",
+        "launches": gas_launches[name],
+        **{key: gas_figures[name]["16MiB"][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, (_, src, where) in GAS_KERNELS.items()]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

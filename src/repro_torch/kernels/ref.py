@@ -7,13 +7,101 @@ holds each hand-written kernel against them on the card.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["attention", "paged_attention"]
+__all__ = [
+    "ring_shift",
+    "perm_put",
+    "offset_put",
+    "all_gather",
+    "reduce_scatter",
+    "all_reduce",
+    "all_to_all",
+    "attention",
+    "paged_attention",
+]
 
 NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------- #
+# GAScore transport: every function acts on the GLOBAL rank-stacked tensor
+# (n_nodes, *local), as the reference's numpy oracles do
+# --------------------------------------------------------------------------- #
+def ring_shift(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Rank (i+k) % n receives rank i's data: a roll by +k along dim 0."""
+    return torch.roll(x, k % x.shape[0], 0)
+
+
+def perm_put(x: torch.Tensor, dst: Sequence[Optional[int]]) -> torch.Tensor:
+    """Rank i's data lands on rank ``dst[i]``; ``None`` sends nowhere and
+    ranks that receive nothing hold zeros."""
+    n = x.shape[0]
+    inv = [-1] * n
+    for s, d in enumerate(dst):
+        if d is not None:
+            inv[int(d)] = s
+    src = torch.tensor([max(s, 0) for s in inv], device=x.device)
+    got = x.index_select(0, src)
+    if min(inv) >= 0:
+        return got
+    mask = torch.tensor([s >= 0 for s in inv], device=x.device)
+    mask = mask.reshape((n,) + (1,) * (x.dim() - 1))
+    return torch.where(mask, got, torch.zeros_like(got))
+
+
+def offset_put(
+    seg: torch.Tensor, data: torch.Tensor, offset: torch.Tensor, k: int
+) -> torch.Tensor:
+    """AMLong: rank i writes ``data[i]`` (L, ...) into the partition of rank
+    (i+k) % n of ``seg`` (n, S, ...) at leading row ``offset[i]``.  Returns
+    a new segment; offsets outside [0, S-L] are clamped, as JAX clamps."""
+    n, S = seg.shape[0], seg.shape[1]
+    L = data.shape[1]
+    off = offset.reshape(-1).expand(n).long().clamp(0, S - L)
+    dst = (torch.arange(n, device=seg.device) + k) % n
+    rows = off[:, None] + torch.arange(L, device=seg.device)[None, :]
+    out = seg.clone()
+    out[dst[:, None], rows] = data
+    return out
+
+
+def all_gather(x: torch.Tensor) -> torch.Tensor:
+    """(n, m, ...) locals -> every rank holds the (n*m, ...) concatenation."""
+    n = x.shape[0]
+    full = x.reshape((1, -1) + tuple(x.shape[2:]))
+    return full.expand((n,) + tuple(full.shape[1:])).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+    """(n, n*m, ...) contributions -> rank c holds the sum over ranks of
+    chunk c, summed in RING order: the packet for chunk c starts at rank
+    c+1 and adds each rank's contribution on its way round, so
+    ``acc = x[c+1][c]; acc += x[c+2][c]; ...; acc += x[c][c]``, in the
+    input dtype — the schedule of the reference's ring reduce-scatter."""
+    n = x.shape[0]
+    m = x.shape[1] // n
+    blocks = x.reshape((n, n, m) + tuple(x.shape[2:]))
+    c = torch.arange(n, device=x.device)
+    acc = blocks[(c + 1) % n, c]
+    for j in range(2, n + 1):
+        acc = acc + blocks[(c + j) % n, c]
+    return acc
+
+
+def all_reduce(x: torch.Tensor) -> torch.Tensor:
+    s = x.sum(dim=0, keepdim=True).to(x.dtype)  # ints wrap as XLA's psum
+    return s.expand(x.shape).contiguous()
+
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """(n, n*m, ...) -> out[r, s*m:(s+1)*m] = x[s, r*m:(r+1)*m]."""
+    n = x.shape[0]
+    m = x.shape[1] // n
+    blocks = x.reshape((n, n, m) + tuple(x.shape[2:]))
+    return blocks.transpose(0, 1).reshape(x.shape)
 
 
 def attention(

@@ -34,5 +34,6 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
         capture_output=True, text=True, timeout=120, env=env, cwd=ROOT,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    # every module of the slice was imported
-    assert int(proc.stdout.split()[-1]) >= 20
+    # every module of slices 1 and 2 was imported (the GAS substrate,
+    # its kernels, the simulator, the node map and the examples among them)
+    assert int(proc.stdout.split()[-1]) >= 43
