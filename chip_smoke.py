@@ -29,6 +29,19 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              sharing a 64-token prefix; held against the dense ``Server``.
 6. profile — three steady decode steps of a separate paged run under
              ``torch.profiler``: kernels, device busy time and share.
+7. flash   — the flash-attention forward, dK/dV and dQ kernels against
+             their plain versions at qwen3-4b's training shape (batch 2 x
+             seq 2048, 32 q / 8 KV heads of dim 128, causal) in bf16 and
+             f32 and at the reference's small cases (GQA, windows,
+             non-causal, bf16); timed with CUDA events beside their bound
+             and ``scaled_dot_product_attention`` (forward, and its
+             autograd backward) as the library yardstick.
+8. train   — qwen3-4b at full width and depth (36 layers, bf16, random
+             weights from a seeded generator) through ``Trainer``: batch 2 x
+             seq 2048, full remat, AdamW with f32 moments, 6 steps (the
+             first 2 warm-up); losses and grad norms finite, the step-0
+             loss near ln(vocab), each kernel's launches per step checked;
+             then one more step under ``torch.profiler``.
 
 Then the card's name and power limit, the ``kernels`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -49,17 +62,23 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.compat import tree_leaves  # noqa: E402
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.core import collectives, gasnet, sched  # noqa: E402
 from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.gasnet import P  # noqa: E402
 from repro_torch.examples import heterogeneous_pipeline, quickstart  # noqa: E402
+from repro_torch.data.synthetic import Loader, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import gascore as gc  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.launch.serve import PagedServer, Request, Server  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.ctx import RunCtx  # noqa: E402
+from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -329,12 +348,12 @@ FULL_ROWS, FULL_COLS = 512, 8192  # 16 MiB of f32 per rank for collectives
 KV_S, KV_HEADS, KV_DIM = 2048, 8, 128  # qwen3-4b: 8 KV heads of dim 128
 
 
-def counts():
-    return {name: w.launches for name, (w, _, _) in GAS_KERNELS.items()}
+def counts(table=GAS_KERNELS):
+    return {name: w.launches for name, (w, _, _) in table.items()}
 
 
-def reset_counts():
-    for w, _, _ in GAS_KERNELS.values():
+def reset_counts(table=GAS_KERNELS):
+    for w, _, _ in table.values():
         w.launches = 0
 
 
@@ -720,6 +739,293 @@ def serve_phase():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# flash attention (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
+# --------------------------------------------------------------------------- #
+# the training path's attention: qwen3-4b, batch 2 x seq 2048, causal
+TRAIN_SHAPE = (2, 32, 8, 2048, 128, True, None)  # B, Hq, Hkv, S, D, causal, window
+# the reference's FA_CASES (tests/test_kernels.py:21-28)
+FLASH_SMALL = [
+    (2, 4, 2, 256, 64, True, None, torch.float32),
+    (1, 4, 4, 128, 128, True, None, torch.float32),
+    (2, 8, 2, 256, 64, True, 64, torch.float32),
+    (1, 2, 1, 128, 64, False, None, torch.float32),
+    (1, 4, 1, 256, 128, True, None, torch.bfloat16),
+    (1, 2, 2, 128, 64, True, 32, torch.bfloat16),
+]
+# |kernel - plain| <= tol * (1 + |plain|) elementwise.  Both sides take f32
+# products from the same inputs: f32 differs by summation order (the
+# forward at the reference's 2e-5, the gradients at its 5e-4); bf16 by the
+# outputs' rounding to 8 mantissa bits.  lse is f32 on both dtypes.
+FLASH_TOL = {torch.float32: {"fwd": 2e-5, "bwd": 5e-4},
+             torch.bfloat16: {"fwd": 2e-2, "bwd": 2e-2}}
+LSE_TOL = 2e-4
+FLASH_KERNELS = {  # wrapper, source, TPU kernel it replaces
+    "flash_attention_fwd": (fa.flash_attention_fwd, "flash_attention.cu",
+                            "flash_attention.py:117"),
+    "flash_attention_dkv": (fab.flash_attention_dkv, "flash_attention_bwd.cu",
+                            "flash_attention_bwd.py:58"),
+    "flash_attention_dq": (fab.flash_attention_dq, "flash_attention_bwd.cu",
+                           "flash_attention_bwd.py:129"),
+}
+
+
+def within(name, got, want, tol):
+    """Max |got - want|, raising past ``tol * (1 + |want|)`` anywhere."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    diff = (got - want).abs()
+    if bool((diff > tol * (1 + want.abs())).any()):
+        raise AssertionError(f"{name}: max |kernel - plain| {diff.max().item()}"
+                             f" past {tol} x (1 + |plain|)")
+    return diff.max().item()
+
+
+def flash_inputs(case, gen):
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    dev = torch.device("cuda")
+    q, dout = (torch.randn((B, Hq, S, D), generator=gen, device=dev).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, dout, dict(causal=causal, window=window)
+
+
+def flash_check(case, gen):
+    """Each kernel against its plain version on the same inputs; returns
+    the max |kernel - plain| of out, lse, dk, dv and dq, and the inputs."""
+    q, k, v, dout, kw = flash_inputs(case, gen)
+    tol = FLASH_TOL[case[-1]]
+    name = f"flash {case}"
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
+    errs = {"out": within(f"{name} out", out, want_out, tol["fwd"]),
+            "lse": within(f"{name} lse", lse, want_lse, LSE_TOL)}
+    delta = (dout.float() * want_out.float()).sum(-1)
+    args = (q, k, v, dout, want_lse, delta)
+    dk, dv = fab.flash_attention_dkv(*args, **kw)
+    want_dk, want_dv = ref.flash_attention_dkv(*args, **kw)
+    errs["dk"] = within(f"{name} dk", dk, want_dk, tol["bwd"])
+    errs["dv"] = within(f"{name} dv", dv, want_dv, tol["bwd"])
+    del want_dk, want_dv
+    dq = fab.flash_attention_dq(*args, **kw)
+    errs["dq"] = within(f"{name} dq", dq, ref.flash_attention_dq(*args, **kw),
+                        tol["bwd"])
+    torch.cuda.synchronize()
+    return errs, (args, kw)
+
+
+def flash_bounds(case):
+    """Least time per kernel: the larger of its bytes (each input read
+    once, each output written once) over 3.35 TB/s and its flops over the
+    dtype's peak.  Flops count the (q, k) pairs the mask leaves visible:
+    2 * D per pair per product, 2 products in the forward (q.k, p.v), 4 in
+    dK/dV (q.k, dO.v, p^T.dO, dS^T.q), 3 in dQ (q.k, dO.v, dS.k)."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    elem = torch.tensor([], dtype=dtype).element_size()
+    pairs = int(ref.attention_mask(S, S, causal, window, "cpu").sum())
+    qb, kb, rows = B * Hq * S * D * elem, B * Hkv * S * D * elem, B * Hq * S * 4
+    work = {  # name: (bytes, products)
+        "flash_attention_fwd": (2 * qb + 2 * kb + rows, 2),
+        "flash_attention_dkv": (2 * qb + 4 * kb + 2 * rows, 4),
+        "flash_attention_dq": (3 * qb + 2 * kb + 2 * rows, 3),
+    }
+    out = {}
+    for name, (nbytes, products) in work.items():
+        flops = products * 2 * D * pairs * B * Hq
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+        out[name] = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "flops": flops, "bytes": nbytes}
+    return out
+
+
+def sdpa_calls(q, k, v, dout, causal):
+    """The library yardstick (never on the port's path): PyTorch's
+    ``scaled_dot_product_attention`` with GQA, and its autograd backward."""
+    F = torch.nn.functional
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    try:
+        F.scaled_dot_product_attention(q[:, :, :8], k[:, :, :8], v[:, :, :8],
+                                       enable_gqa=True)
+        gqa = {"enable_gqa": True}
+    except TypeError:  # a PyTorch without enable_gqa: repeat the KV heads
+        group = q.shape[1] // k.shape[1]
+        leaves[1:] = [t.detach().repeat_interleave(group, 1).requires_grad_()
+                      for t in (k, v)]
+        gqa = {}
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal, **gqa)
+
+    out = fwd()
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    return fwd, bwd
+
+
+def flash_phase():
+    """Returns the training-shape bf16 figures per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    small = {}
+    for case in FLASH_SMALL:
+        errs, _ = flash_check(case, gen)
+        small[str(case[:-1] + (str(case[-1]).split(".")[-1],))] = errs
+    figures = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        case = TRAIN_SHAPE + (dtype,)
+        errs, (args, kw) = flash_check(case, gen)
+        q, k, v, dout, lse, delta = args
+        bounds = flash_bounds(case)
+        calls = {
+            "flash_attention_fwd": (
+                lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                lambda: ref.flash_attention_fwd(q, k, v, **kw), ("out", "lse")),
+            "flash_attention_dkv": (
+                lambda: fab.flash_attention_dkv(*args, **kw),
+                lambda: ref.flash_attention_dkv(*args, **kw), ("dk", "dv")),
+            "flash_attention_dq": (
+                lambda: fab.flash_attention_dq(*args, **kw),
+                lambda: ref.flash_attention_dq(*args, **kw), ("dq",)),
+        }
+        sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, dout, kw["causal"])
+        library = {"flash_attention_fwd": cuda_time_ms(sdpa_fwd, 10, flush)}
+        library["flash_attention_dkv"] = library["flash_attention_dq"] = (
+            cuda_time_ms(sdpa_bwd, 10, flush))
+        for name, (kern, plain, keys) in calls.items():
+            figures.setdefault(str(dtype).split(".")[-1], {})[name] = {
+                "max_abs_err": max(errs[key] for key in keys),
+                "ms": cuda_time_ms(kern, 10, flush),
+                "plain_ms": cuda_time_ms(plain, 3, flush),
+                "library_ms": library[name], **bounds[name],
+            }
+        del args, q, k, v, dout, lse, delta, calls, sdpa_fwd, sdpa_bwd
+        torch.cuda.empty_cache()
+    B, Hq, Hkv, S, D, causal, _ = TRAIN_SHAPE
+    emit({"phase": "flash", "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S,
+                                      "D": D, "causal": causal},
+          "tol": {str(d).split(".")[-1]: t for d, t in FLASH_TOL.items()},
+          "lse_tol": LSE_TOL, "small_cases": small, "train_shape": figures,
+          "library": "scaled_dot_product_attention(enable_gqa=True): forward; "
+                     "its autograd backward (dq, dk, dv in one call) for the "
+                     "dK/dV and dQ rows"})
+    return figures["bfloat16"]
+
+
+# --------------------------------------------------------------------------- #
+# training: qwen3-4b at full width and depth through Trainer
+# --------------------------------------------------------------------------- #
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 2048, 6, 2
+TRAIN_LR = 1e-3
+STEP0_LOSS = (11.0, 14.0)  # ln(151936) = 11.93, plus the logits' spread
+
+
+def train_launches(n_layers):
+    """Launches per step under full remat: the forward kernel runs in each
+    layer's forward and again in its recompute; dK/dV and dQ once each."""
+    return {"flash_attention_fwd": 2 * n_layers,
+            "flash_attention_dkv": n_layers, "flash_attention_dq": n_layers}
+
+
+GEMM_NAMES = ("nvjet", "gemm", "xmma", "cutlass")  # cuBLAS kernel names
+
+
+def profile_train_step(step_fn, params, opt_state, batch):
+    """One training step under ``torch.profiler``: device busy time (the
+    sum of its GPU kernels' durations, one stream), the wall clock, the
+    device time of the flash kernels, of cuBLAS matrix products and of the
+    rest, and the kernels that took the most device time."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ])
+    torch.cuda.synchronize()
+    with prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, n = {}, 0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + (
+            evt.time_range.elapsed_us() / 1e3)
+    busy = sum(by_name.values())
+    split = {"flash_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
+    for name, ms in by_name.items():
+        key = ("flash_ms" if "flash::" in name else "gemm_ms"
+               if any(g in name.lower() for g in GEMM_NAMES) else "other_ms")
+        split[key] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": 1e3 * wall, "kernels": n if n else None,
+            "device_busy_ms": busy if n else None,
+            "device_busy_share": busy / (1e3 * wall) if n else None,
+            **{k: (v if n else None) for k, v in split.items()},
+            "top_kernels_ms": {k[:80]: v for k, v in top}}
+
+
+def train_phase():
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS["qwen3-4b"]
+    model, ctx = build_model(cfg), RunCtx(remat="full")
+    opt = adamw.AdamWConfig(
+        lr=TRAIN_LR, weight_decay=0.0,
+        schedule=adamw.warmup_cosine(TRAIN_LR, max(TRAIN_STEPS // 20, 1),
+                                     TRAIN_STEPS))
+    trainer = Trainer(model, ctx, opt, TrainerConfig(
+        steps=TRAIN_STEPS, ga_steps=1, log_every=1, ckpt_every=0))
+    t0 = time.perf_counter()
+    params, opt_state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    loader = Loader(SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0),
+                    device="cuda")
+    step_fn = trainer.make_train_step()  # the step run() drives
+    try:
+        reset_counts(FLASH_KERNELS)  # the main path starts here
+        params, opt_state, history = trainer.run(params, opt_state, loader)
+        launches = counts(FLASH_KERNELS)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        profile = profile_train_step(step_fn, params, opt_state, next(loader))
+    finally:
+        loader.close()
+    want = {k: v * TRAIN_STEPS for k, v in train_launches(cfg.n_layers).items()}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, expected {want}")
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    if len(history) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+    if not STEP0_LOSS[0] <= losses[0] <= STEP0_LOSS[1]:
+        raise AssertionError(f"train: step-0 loss {losses[0]} outside "
+                             f"{STEP0_LOSS}")
+    step_ms = [1e3 * h["step_time_s"] for h in history]
+    median_ms = float(np.median(step_ms[TRAIN_WARMUP:]))
+    emit({
+        "phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": n_params, "dtype": "bfloat16",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": ctx.remat,
+        "steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP, "losses": losses,
+        "grad_norms": norms, "lrs": [h["lr"] for h in history],
+        "step0_loss": losses[0], "step_ms": step_ms,
+        "step_ms_median": median_ms,
+        "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+        "peak_gib": peak_gib, "init_s": init_s, "launches": launches,
+        "launches_per_step": train_launches(cfg.n_layers),
+        "profile_step": profile,
+    })
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -728,7 +1034,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    sources = [pa.NAME, gc.PUT, gc.RING]
+    sources = [pa.NAME, gc.PUT, gc.RING, fa.NAME, fab.NAME]
     seconds = build.build_all(sources)
     emit({"phase": "build", "kernels": sources, "seconds": seconds,
           "arch": "sm_90a", "nvcc_flags": list(build.NVCC_FLAGS)})
@@ -737,6 +1043,8 @@ def main():
     gas_figures = gascore_kernel_phase()
     gas_launches = gas_phase()
     launches = serve_phase()
+    flash_figures = flash_phase()
+    flash_launches = train_phase()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -759,7 +1067,15 @@ def main():
         **{key: gas_figures[name]["16MiB"][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-    } for name, (_, src, where) in GAS_KERNELS.items()]})
+    } for name, (_, src, where) in GAS_KERNELS.items()] + [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": f"src/repro/kernels/{where}",
+        "launches": flash_launches[name],
+        **{key: flash_figures[name][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, (_, src, where) in FLASH_KERNELS.items()]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

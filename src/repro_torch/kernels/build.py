@@ -3,8 +3,9 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
 for ``sm_90a`` into a shared library under ``build/repro_torch_kernels/``
 at the repository root (or ``$REPRO_TORCH_BUILD_DIR``).  The library's
-name carries a hash of its source, so an edited source is rebuilt and a
-built one is reused.  Nothing is compiled when a module is imported:
+name carries a hash of its source and of the shared ``csrc/*.cuh``
+headers, so an edited source or header is rebuilt and a built one is
+reused.  Nothing is compiled when a module is imported:
 :func:`load` builds at first use, and :func:`build_all` starts one
 ``nvcc`` per source at once so that several kernels build in parallel.
 """
@@ -56,8 +57,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the shared library of ``csrc/<name>.cu`` is built."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return _build_dir() / f"lib{name}_{digest}.so"
 
 

@@ -12,11 +12,13 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gascore as _gc
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 
 __all__ = [
+    "attention",
     "paged_attention",
     "ring_shift",
     "perm_put",
@@ -33,6 +35,25 @@ def _on(x: torch.Tensor, kernel, plain, name: str):
     if x.device.type == "cpu":
         return plain
     raise ValueError(f"no {name} for device {x.device}")
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """Differentiable blockwise attention: q (B, Hq, Sq, D) against k, v
+    (B, Hkv, Sk, D), contiguous.  ``FlashAttention`` dispatches on the
+    device in its forward and backward: on CUDA the forward, dK/dV and dQ
+    kernels, on the CPU their plain versions, elsewhere it raises."""
+    return _fab.FlashAttention.apply(q, k, v, causal, window, scale,
+                                     block_q, block_k)
 
 
 def paged_attention(

@@ -7,7 +7,7 @@ holds each hand-written kernel against them on the card.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -20,6 +20,10 @@ __all__ = [
     "all_reduce",
     "all_to_all",
     "attention",
+    "flash_attention_fwd",
+    "flash_attention_dkv",
+    "flash_attention_dq",
+    "flash_attention_bwd",
     "paged_attention",
 ]
 
@@ -104,6 +108,23 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
     return blocks.transpose(0, 1).reshape(x.shape)
 
 
+def attention_mask(
+    Sq: int, Sk: int, causal: bool, window: Optional[int], device
+) -> torch.Tensor:
+    """(Sq, Sk) bool: which keys each query sees, q and k positions both
+    counted from 0 (``_mask`` of the reference's flash kernels)."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+        if not causal:
+            mask &= (kpos - qpos) < window
+    return mask
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -124,15 +145,7 @@ def attention(
     kx = k.repeat_interleave(group, dim=1)
     vx = v.repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, kx.float())
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
-        if not causal:
-            mask &= (kpos - qpos) < window
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     # fully-masked rows give uniform p; zero them like the kernel does
@@ -140,6 +153,130 @@ def attention(
     out = torch.einsum("bhqk,bhkd->bhqd", p, vx.float())
     out = torch.where(any_visible, out, 0.0)
     return out.to(q.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# flash attention: the forward with its log-sum-exp, and the two backward
+# passes, each the plain version of one CUDA kernel (dense, f32 inside)
+# --------------------------------------------------------------------------- #
+def _scores(q, k, scale):
+    """(q * scale) . k^T in f32, k repeated over the GQA group, and the
+    f32 ``q * scale`` and repeated k."""
+    group = q.shape[1] // k.shape[1]
+    qs = q.float() * scale
+    kx = k.float().repeat_interleave(group, dim=1)
+    return qs @ kx.transpose(-1, -2), qs, kx
+
+
+def _probs(q, k, lse, causal, window, scale):
+    """p = exp(s - lse) under the mask (0 where hidden), recomputed from the
+    forward's log-sum-exp, as the backward kernels do."""
+    s, qs, kx = _scores(q, k, scale)
+    mask = attention_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    return p, qs, kx
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``: the attention in q's dtype and the row log-sum-exp
+    ``m + log(l)`` in f32, with ``out = 0`` and ``lse = -1e30 + log(1)``
+    on a row that sees no key (``flash_attention.py:98-102``)."""
+    D = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / (D**0.5)
+    group = q.shape[1] // k.shape[1]
+    s, _, _ = _scores(q, k, scale)
+    mask = attention_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)  # stays -1e30 on a row with no visible key
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    denom = torch.where(l == 0.0, 1.0, l)
+    vx = v.float().repeat_interleave(group, dim=1)
+    out = (p @ vx) / denom[..., None]
+    return out.to(q.dtype), m + torch.log(denom)
+
+
+def flash_attention_dkv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` in k's and v's dtype: ``dV = p^T dO`` and
+    ``dK = dS^T (q * scale)`` with ``dS = p * (dO V^T - delta)``, summed
+    over each KV head's group of q heads (``flash_attention_bwd.py:93-118``)."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    if scale is None:
+        scale = 1.0 / (D**0.5)
+    group = Hq // Hkv
+    p, qs, _ = _probs(q, k, lse, causal, window, scale)
+    do = dout.float()
+    vx = v.float().repeat_interleave(group, dim=1)
+    ds = p * (do @ vx.transpose(-1, -2) - delta[..., None])
+    dv = (p.transpose(-1, -2) @ do).reshape(B, Hkv, group, Sk, D).sum(2)
+    dk = (ds.transpose(-1, -2) @ qs).reshape(B, Hkv, group, Sk, D).sum(2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """dq in q's dtype: ``dS K scale`` (``flash_attention_bwd.py:158-176``)."""
+    D = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / (D**0.5)
+    group = q.shape[1] // k.shape[1]
+    p, _, kx = _probs(q, k, lse, causal, window, scale)
+    do = dout.float()
+    vx = v.float().repeat_interleave(group, dim=1)
+    ds = p * (do @ vx.transpose(-1, -2) - delta[..., None])
+    return ((ds @ kx) * scale).to(q.dtype)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` from the forward's output and log-sum-exp, with
+    ``delta = rowsum(dO * O)`` in f32."""
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    kw = dict(causal=causal, window=window, scale=scale)
+    dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta, **kw)
+    dq = flash_attention_dq(q, k, v, dout, lse, delta, **kw)
+    return dq, dk, dv
 
 
 def paged_attention(

@@ -1,4 +1,4 @@
-"""Model facade of the port: init / prefill / decode for the served arch.
+"""Model facade of the port: init / train / prefill / decode for qwen3-4b.
 
 Counterpart of ``repro.models.build``.  Parameters are plain nested dicts
 of tensors with the reference's key paths and stacked ``(L, ...)``
@@ -42,6 +42,33 @@ class Model:
         io = T.lm_io_init(self.cfg, ctx, generator)
         _, dec = T.stack_init(self.cfg.layer_kinds(), self.cfg, ctx, generator)
         return {"io": io, "dec": dec}
+
+    # ------------------------------------------------------------------ #
+    def train_hidden(self, params, ctx: RunCtx, batch: Dict) -> torch.Tensor:
+        """The decoder stack's output over the whole batch, differentiable
+        in ``params``."""
+        cfg = self.cfg
+        tokens = batch["inputs"]
+        B, S = tokens.shape
+        pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        pos = pos[None].expand(B, S)
+        x = T.embed(params["io"], cfg, ctx, tokens)
+        x, _ = T.stack_apply(
+            self.dec_segments, params["dec"], cfg, ctx, x,
+            mode="train", positions=pos,
+        )
+        return x
+
+    def train_loss(self, params, ctx: RunCtx, batch: Dict) -> torch.Tensor:
+        h = self.train_hidden(params, ctx, batch)
+        return T.chunked_ce_loss(
+            params["io"], self.cfg, ctx, h, batch["targets"], batch["mask"]
+        )
+
+    def train_logits(self, params, ctx: RunCtx, batch: Dict) -> torch.Tensor:
+        """Full logits (small configs / tests only)."""
+        h = self.train_hidden(params, ctx, batch)
+        return T.logits_fn(params["io"], self.cfg, ctx, h)
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()

@@ -153,6 +153,9 @@ def apply_attention(
     """Causal self-attention sub-block (pre-norm, residual added by caller).
 
     Modes:
+      train    — full sequence, no cache; attention is
+                 ``kernels.ops.attention`` (the flash forward and its dK/dV
+                 and dQ kernels on the card), differentiable.
       prefill  — full sequence; returns a cache of capacity ``cache_len``.
       decode   — x is (B, 1, D); updates ``cache`` in place.
 
@@ -183,7 +186,14 @@ def apply_attention(
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if mode == "prefill":
+    if mode == "train":
+        # (B, H, S, Dh), made contiguous for the kernels
+        out = ops.attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=True, scale=scale,
+        ).transpose(1, 2)
+        new_cache = None
+    elif mode == "prefill":
         W = cache_len
         # ring-buffer write of the last W positions
         kc = torch.zeros((B, W) + tuple(k.shape[2:]), dtype=k.dtype,

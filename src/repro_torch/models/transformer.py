@@ -5,16 +5,22 @@ are stacked on a leading layer axis, as in the reference; where the
 reference runs ``lax.scan`` over that axis, the port loops over it in
 Python, slicing each layer's parameters and cache as views.  Cache trees
 keep the stacked leading axis, so prefill outputs plug straight into
-decode inputs.
+decode inputs.  Training takes each segment's layers apart once with
+``torch.unbind``, so the backward stacks each leaf's per-layer gradients
+once (a ``t[li]`` per layer would add a zero tensor of the whole stacked
+leaf for every layer), and recomputes each layer under
+``torch.utils.checkpoint`` when ``ctx.remat == "full"``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.compat import tree_map
+from repro_torch.compat import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models import layers as L
 from repro_torch.models.common import ArchConfig, Segment, build_layer_program
 from repro_torch.parallel.ctx import RunCtx, shard, use_weight
@@ -76,6 +82,26 @@ def stack_init(
     return segments, seg_params
 
 
+def _maybe_remat(fn: Callable, ctx: RunCtx) -> Callable:
+    """``remat="full"``: keep only the layer's input and recompute its
+    forward in the backward (the reference's ``jax.checkpoint``)."""
+    if ctx.remat == "none":
+        return fn
+
+    def remat(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return remat
+
+
+def _unbind_layers(sp: Params, count: int) -> List[Params]:
+    """A stacked segment tree as ``count`` per-layer trees of views, taken
+    apart by one ``torch.unbind`` per leaf."""
+    parts = [t.unbind(0) for t in tree_leaves(sp)]
+    return [tree_unflatten(sp, [p[li] for p in parts]) for li in range(count)]
+
+
 def stack_apply(
     segments: List[Segment],
     seg_params: List[Params],
@@ -89,9 +115,25 @@ def stack_apply(
     positions: torch.Tensor,
     page_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[Any]]:
-    """``prefill`` builds and returns stacked caches; ``decode`` writes the
-    given stacked caches in place (through per-layer views) and returns
-    them."""
+    """``train`` returns ``(x, None)``, differentiable in ``x`` and the
+    parameters; ``prefill`` builds and returns stacked caches; ``decode``
+    writes the given stacked caches in place (through per-layer views) and
+    returns them."""
+    if mode == "train":
+        for seg, sp in zip(segments, seg_params):
+
+            def unit_body(xc, lp, seg=seg):
+                for i, kind in enumerate(seg.unit):
+                    xc, _ = block_apply(
+                        kind, lp[f"b{i}_{kind}"], cfg, ctx, xc, mode=mode,
+                        cache=None, cache_len=0, positions=positions,
+                    )
+                return xc
+
+            body = _maybe_remat(unit_body, ctx)
+            for lp in _unbind_layers(sp, seg.count):
+                x = body(x, lp)
+        return x, None
     if mode not in ("prefill", "decode"):
         raise ValueError(mode)
     new_caches: List[Any] = []
@@ -135,7 +177,9 @@ def lm_io_init(cfg: ArchConfig, ctx: RunCtx, gen) -> Params:
 
 def embed(io: Params, cfg: ArchConfig, ctx: RunCtx,
           tokens: torch.Tensor) -> torch.Tensor:
-    x = io["tok"][tokens.long()]
+    # F.embedding: its backward on the CPU sums in a fixed order, where
+    # indexing accumulates with atomics (restart must be bit-exact)
+    x = F.embedding(tokens.long(), io["tok"])
     return shard(x, ctx)
 
 
@@ -153,3 +197,37 @@ def final_hidden(io: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 def logits_fn(io: Params, cfg: ArchConfig, ctx: RunCtx,
               h: torch.Tensor) -> torch.Tensor:
     return _proj_logits(io, cfg, final_hidden(io, cfg, h), ctx)
+
+
+def chunked_ce_loss(
+    io: Params,
+    cfg: ArchConfig,
+    ctx: RunCtx,
+    h: torch.Tensor,
+    targets: torch.Tensor,
+    mask: torch.Tensor,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Cross-entropy without the full (B, S, V) logits at once: each
+    ``chunk`` of positions projects to the vocabulary in f32, reduces to
+    its summed NLL and is dropped; the result is the mask-weighted mean.
+    Under autograd each chunk keeps its f32 logits for the backward."""
+    S = h.shape[1]
+    h = final_hidden(io, cfg, h)
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, h.shape[1], chunk):
+        logits = _proj_logits(io, cfg, h[:, c0:c0 + chunk], ctx).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ts = targets[:, c0:c0 + chunk].long()
+        tgt = torch.gather(logits, -1, ts[..., None])[..., 0]
+        ms = mask[:, c0:c0 + chunk]
+        tot = tot + ((lse - tgt) * ms).sum()
+        cnt = cnt + ms.sum()
+    return tot / torch.clamp(cnt, min=1.0)

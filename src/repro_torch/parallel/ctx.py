@@ -9,12 +9,24 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["RunCtx", "shard", "use_weight"]
+__all__ = ["REMAT_POLICIES", "RunCtx", "shard", "use_weight"]
+
+
+REMAT_POLICIES = ("none", "full")
 
 
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
     attn_chunk: int = 512  # query block of the prefill attention
+    # training: "full" recomputes each layer's forward in the backward
+    # (the reference's ``jax.checkpoint``), "none" keeps its activations
+    remat: str = "full"
+
+    def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat {self.remat!r}: the port has {REMAT_POLICIES}"
+            )
 
 
 def use_weight(w, ctx: RunCtx, spec=None):

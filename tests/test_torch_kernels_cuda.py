@@ -193,3 +193,138 @@ def test_cuda_ring_reduce_scatter_ring_order(cuda, n, m, dtype):
     plain = x.float().sum(0).reshape((n,) + m)
     tol = {torch.float32: 1e-5, torch.bfloat16: 6e-2, torch.int32: 0}[dtype]
     torch.testing.assert_close(got.float(), plain, atol=tol, rtol=tol)
+
+
+# --------------------------------------------------------------------------- #
+# flash attention (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
+# --------------------------------------------------------------------------- #
+# (B, Hq, Hkv, S, D, causal, window, dtype): the reference's FA_CASES and
+# one bf16 case at qwen3-4b's head layout (32 q / 8 KV heads of dim 128)
+FLASH_CASES = [
+    (2, 4, 2, 256, 64, True, None, torch.float32),
+    (1, 4, 4, 128, 128, True, None, torch.float32),
+    (2, 8, 2, 256, 64, True, 64, torch.float32),
+    (1, 2, 1, 128, 64, False, None, torch.float32),
+    (1, 4, 1, 256, 128, True, None, torch.bfloat16),
+    (1, 2, 2, 128, 64, True, 32, torch.bfloat16),
+    (1, 32, 8, 512, 128, True, None, torch.bfloat16),
+]
+# f32: summation order only; bf16: the outputs' rounding (8 mantissa bits)
+FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[str(c) for c in FLASH_CASES])
+def test_cuda_flash_kernels_match_plain(cuda, case):
+    """Forward (out, lse), dK/dV and dQ kernels against their plain
+    versions on the same inputs, one launch each; then ops.attention's
+    gradients against autograd through the plain attention."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    q = torch.randn((B, Hq, S, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(dtype)
+    dout = torch.randn((B, Hq, S, D), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window)
+    before = (fa.flash_attention_fwd.launches, fab.flash_attention_dkv.launches,
+              fab.flash_attention_dq.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=fwd_tol,
+                               rtol=fwd_tol)
+    torch.testing.assert_close(lse, want_lse, atol=2e-4, rtol=2e-4)
+    delta = (dout.float() * want_out.float()).sum(-1)
+    dk, dv = fab.flash_attention_dkv(q, k, v, dout, want_lse, delta, **kw)
+    dq = fab.flash_attention_dq(q, k, v, dout, want_lse, delta, **kw)
+    want_dk, want_dv = ref.flash_attention_dkv(q, k, v, dout, want_lse, delta,
+                                               **kw)
+    want_dq = ref.flash_attention_dq(q, k, v, dout, want_lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fab.flash_attention_dkv.launches,
+            fab.flash_attention_dq.launches) == tuple(b + 1 for b in before)
+    for got, want in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=bwd_tol,
+                                   rtol=bwd_tol)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.attention(*leaves, **kw), leaves, dout)
+    plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.attention(*plain, **kw), plain, dout.float())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b, atol=bwd_tol, rtol=bwd_tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fully_masked_rows_and_refusals(cuda):
+    """Rows that see no key give out 0, lse -1e30 and no gradient; the
+    wrappers refuse what the kernels do not take, without a launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((1, 2, 256, 64), generator=g, device=cuda)
+    k = torch.randn((1, 1, 128, 64), generator=g, device=cuda)
+    v = torch.randn((1, 1, 128, 64), generator=g, device=cuda)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=False, window=32)
+    assert float(out[:, :, 159:].abs().max()) == 0.0
+    assert bool((lse[:, :, 159:] == -1e30).all())
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    y = ops.attention(*leaves, causal=False, window=32)
+    dq = torch.autograd.grad((y**2).sum(), leaves)[0]
+    assert float(dq[:, :, 159:].abs().max()) == 0.0
+    before = fa.flash_attention_fwd.launches
+    strided = q.detach().transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(strided, k.detach(), v.detach())
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="divisible"):
+        fa.flash_attention_fwd(q[:, :, :96], k[:, :, :96], v[:, :, :96],
+                               block_q=64, block_k=64)
+    assert fa.flash_attention_fwd.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_train_loss_and_grads_match_cpu(cuda):
+    """qwen3-4b at its SMOKE size (head dim 16, f32) through
+    ``Model.train_loss`` under full remat: on the card each layer launches
+    the forward kernel twice (its forward and the recompute) and the dK/dV
+    and dQ kernels once, and the loss and every gradient agree with the CPU
+    run of the plain versions (f32: 1e-5 of the loss, 1e-4 of each leaf's
+    largest |g|)."""
+    from repro_torch.compat import tree_leaves, tree_map
+    from repro_torch.configs.registry import SMOKE
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.models.build import build_model
+    from repro_torch.parallel.ctx import RunCtx
+
+    cfg = SMOKE["qwen3-4b"]
+    model, ctx = build_model(cfg), RunCtx(remat="full")
+    params = model.init(ctx, torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in SyntheticLM(cfg, 4, 64, seed=2).batch_at(0).items()}
+
+    def loss_and_grads(dev):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
+        loss = model.train_loss(p, ctx, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        return loss.detach().cpu(), [g.cpu() for g in grads]
+
+    def launches():
+        return (fa.flash_attention_fwd.launches,
+                fab.flash_attention_dkv.launches, fab.flash_attention_dq.launches)
+
+    want_loss, want = loss_and_grads("cpu")
+    before = launches()
+    got_loss, got = loss_and_grads(cuda)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert tuple(a - b for a, b in zip(launches(), before)) == (2 * n, n, n)
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -228,9 +228,12 @@ def test_store_matches_reference_op_for_op(n_pages, ops, seed):
             n = 1 + r % 9
             prompt = (shared + rng.integers(0, 3, size=8).tolist())[:n] if r % 2 \
                 else rng.integers(0, 3, size=n).tolist()
-            if stores[0].n_free < tl.pages_for(n):
+            lazy = bool(r % 3)
+            # an eager admission backs every page of the table, not only
+            # the prompt's
+            if stores[0].n_free < (tl.pages_for(n) if lazy else tl.n_pages):
                 continue
-            plans = [s.plan_admit(prompt, lazy=bool(r % 3)) for s in stores]
+            plans = [s.plan_admit(prompt, lazy=lazy) for s in stores]
             assert (plans[0].table, plans[0].fresh) == (
                 plans[1].table, plans[1].fresh
             )
