@@ -42,13 +42,36 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              first 2 warm-up); losses and grad norms finite, the step-0
              loss near ln(vocab), each kernel's launches per step checked;
              then one more step under ``torch.profiler``.
+9. scan    — the selective-scan (mamba-1) and gated-linear-scan (RG-LRU)
+             kernels against their plain versions, bf16 and f32, at the
+             serving prefill's full widths (falcon-mamba: B 1 and 4 x S
+             512 x Di 8192 x N 16, with the final state; recurrentgemma:
+             B 1 and 4 x S 2560 x W 4096), at an odd S and at the
+             reference tests' small shapes, with the model's value ranges;
+             timed with CUDA events (L2 flushed) beside their bound.
+10. serve_falcon — falcon-mamba-7b at full width and depth (64 layers,
+             bf16, random weights from a seeded generator) through the
+             dense ``Server``: 16 requests of 512 prompt tokens, 64 new
+             tokens each, batch 8; one scan launch per layer per prefill.
+             Then prefill of S + 4 tokens against prefill of S and 4
+             decode steps: held to a tolerance in f32 at full width on 2
+             layers, printed for bf16 at full depth.
+11. serve_recurrentgemma — recurrentgemma-9b at full width and depth (38
+             layers, bf16, seeded random weights) through ``Server``: 8
+             requests of 2,560 prompt tokens (past the 2,048 window, so
+             the window mask and the decode ring both bite), 64 new tokens
+             each, batch 4, cache 4096; one scan launch per ``rec`` layer
+             per prefill; the same consistency check (f32 on 3 layers).
 
+Phases 10 and 11 run after the training phase has freed its memory.
 Then the card's name and power limit, the ``kernels`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and the
 script exits non-zero before that line.  Without CUDA it exits non-zero
 and prints nothing on stdout.
 """
 
+import dataclasses
+import gc as pygc  # "gc" names the GAScore kernels below
 import json
 import math
 import subprocess
@@ -74,6 +97,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import gascore as gc  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import rglru  # noqa: E402
+from repro_torch.kernels import ssm_scan  # noqa: E402
 from repro_torch.launch.serve import PagedServer, Request, Server  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -934,19 +959,20 @@ def train_launches(n_layers):
 GEMM_NAMES = ("nvjet", "gemm", "xmma", "cutlass")  # cuBLAS kernel names
 
 
-def profile_train_step(step_fn, params, opt_state, batch):
-    """One training step under ``torch.profiler``: device busy time (the
+def profile_call(fn, own_key="flash_ms", own_tag="flash::"):
+    """One call of ``fn`` under ``torch.profiler``: device busy time (the
     sum of its GPU kernels' durations, one stream), the wall clock, the
-    device time of the flash kernels, of cuBLAS matrix products and of the
-    rest, and the kernels that took the most device time."""
+    device time of the port's own kernels (names holding ``own_tag``), of
+    cuBLAS matrix products and of the rest, and the kernels that took the
+    most device time.  Device figures are null when the profiler saw no
+    GPU kernel."""
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
     ])
     torch.cuda.synchronize()
     with prof:
         t0 = time.perf_counter()
-        params, opt_state, m = step_fn(params, opt_state, batch)
-        float(m["loss"])
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name, n = {}, 0
@@ -957,9 +983,9 @@ def profile_train_step(step_fn, params, opt_state, batch):
         by_name[evt.name] = by_name.get(evt.name, 0.0) + (
             evt.time_range.elapsed_us() / 1e3)
     busy = sum(by_name.values())
-    split = {"flash_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
+    split = {own_key: 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
     for name, ms in by_name.items():
-        key = ("flash_ms" if "flash::" in name else "gemm_ms"
+        key = (own_key if own_tag in name else "gemm_ms"
                if any(g in name.lower() for g in GEMM_NAMES) else "other_ms")
         split[key] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -968,6 +994,16 @@ def profile_train_step(step_fn, params, opt_state, batch):
             "device_busy_share": busy / (1e3 * wall) if n else None,
             **{k: (v if n else None) for k, v in split.items()},
             "top_kernels_ms": {k[:80]: v for k, v in top}}
+
+
+def profile_train_step(step_fn, params, opt_state, batch):
+    """One training step under ``torch.profiler`` (``profile_call``)."""
+
+    def step():
+        _, _, m = step_fn(params, opt_state, batch)
+        float(m["loss"])
+
+    return profile_call(step)
 
 
 def train_phase():
@@ -1026,6 +1062,320 @@ def train_phase():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# the scans (csrc/ssm_scan.cu, csrc/rglru.cu)
+# --------------------------------------------------------------------------- #
+# (B, S, Di, N): falcon-mamba's prefill at full width (B 1 is the serving
+# path's: one request per prefill), an odd S, the reference's small shapes
+SSM_FULL = [(1, 512, 8192, 16), (4, 512, 8192, 16)]
+SSM_OTHER = [(2, 77, 8192, 16), (2, 128, 256, 16), (1, 64, 512, 16),
+             (2, 96, 128, 8)]
+# (B, S, W): recurrentgemma's prefill at full width, odd S, small shapes
+LRU_FULL = [(1, 2560, 4096), (4, 2560, 4096)]
+LRU_OTHER = [(2, 77, 4096), (2, 128, 256), (1, 64, 512)]
+# |kernel - plain| <= tol * (1 + |plain|).  f32: the state update rounds
+# as the plain version does, the kernel sums C.h over N in another order;
+# bf16: the outputs' rounding to 8 mantissa bits.  The final state is f32
+# on both dtypes.
+SCAN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCAN_KERNELS = {  # wrapper, source, TPU kernel it replaces
+    "selective_scan": (ssm_scan.selective_scan, "ssm_scan.cu",
+                       "ssm_scan.py:73"),
+    "gated_linear_scan": (rglru.gated_linear_scan, "rglru.cu", "rglru.py:49"),
+}
+
+
+def ssm_inputs(case, dtype, gen):
+    """The model's value ranges: dt = softplus(.) log-uniform in [1e-3,
+    1e-1], A = -(1..N) per channel; B and C strided views of one
+    (B, S, R + 2N) projection, as the layer slices them."""
+    B, S, Di, N = case
+    dev = torch.device("cuda")
+    x = torch.randn((B, S, Di), generator=gen, device=dev).to(dtype)
+    u = torch.rand((B, S, Di), generator=gen, device=dev)
+    dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    a = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(Di, 1)
+    dbc = torch.randn((B, S, 256 + 2 * N), generator=gen, device=dev).to(dtype)
+    d = torch.ones((Di,), device=dev)
+    return x, dt, a, dbc[..., 256:256 + N], dbc[..., 256 + N:], d
+
+
+def lru_inputs(case, dtype, gen):
+    """a in [0.1, 0.99] (the RG-LRU's decay range), b of order one."""
+    dev = torch.device("cuda")
+    a = 0.1 + 0.89 * torch.rand(case, generator=gen, device=dev)
+    b = torch.randn(case, generator=gen, device=dev)
+    return a.to(dtype), b.to(dtype)
+
+
+def scan_bounds(name, case, dtype):
+    """Least time: bytes (each input read once, each output written once)
+    over 3.35 TB/s, or f32 operations over 67 TFLOP/s (the arithmetic is
+    f32 on both dtypes; an exponential counts as one operation)."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    if name == "selective_scan":
+        B, S, Di, N = case
+        nbytes = (B * S * Di * (2 * elem + 4) + 2 * B * S * N * elem
+                  + Di * N * 4 + Di * 4 + B * Di * N * 4)
+        # per (b, t, channel, state): dt*A, exp, decay*h, dx*B, +, C*h +;
+        # per (b, t, channel): dt*x, D*x, +
+        flops = B * S * Di * (7 * N + 3)
+    else:
+        B, S, W = case
+        nbytes = 3 * B * S * W * elem
+        flops = 2 * B * S * W
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def scan_phase():
+    """Each scan against its plain version on every case and dtype; times
+    at the full-width cases.  Returns the serving path's figures per
+    kernel (falcon B 1 bf16; recurrentgemma B 1 f32, the model's a and b)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    checked, figures = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for case in SSM_FULL + SSM_OTHER:
+            args = ssm_inputs(case, dtype, gen)
+            y, h = ssm_scan.selective_scan(*args, final_state=True)
+            want_y = ref.selective_scan(*args)
+            want_h = ref.mamba_final_state(*args[:4])
+            torch.cuda.synchronize()
+            errs = {"y": within(f"selective_scan {case} {dname} y", y, want_y,
+                                SCAN_TOL[dtype]),
+                    "h": within(f"selective_scan {case} {dname} h", h, want_h,
+                                SCAN_TOL[torch.float32])}
+            checked[f"selective_scan {case} {dname}"] = errs
+            if case in SSM_FULL:
+                figures.setdefault("selective_scan", {})[f"{case} {dname}"] = {
+                    "max_abs_err": max(errs.values()),
+                    "ms": cuda_time_ms(lambda: ssm_scan.selective_scan(
+                        *args, final_state=True), 20, flush),
+                    "plain_ms": cuda_time_ms(lambda: (
+                        ref.selective_scan(*args),
+                        ref.mamba_final_state(*args[:4])), 2, flush),
+                    "library_ms": None,
+                    **scan_bounds("selective_scan", case, dtype)}
+            del args, y, h, want_y, want_h
+        for case in LRU_FULL + LRU_OTHER:
+            a, b = lru_inputs(case, dtype, gen)
+            err = within(f"gated_linear_scan {case} {dname}",
+                         rglru.gated_linear_scan(a, b),
+                         ref.gated_linear_scan(a, b), SCAN_TOL[dtype])
+            checked[f"gated_linear_scan {case} {dname}"] = {"y": err}
+            if case in LRU_FULL:
+                figures.setdefault("gated_linear_scan", {})[
+                    f"{case} {dname}"] = {
+                    "max_abs_err": err,
+                    "ms": cuda_time_ms(lambda: rglru.gated_linear_scan(a, b),
+                                       20, flush),
+                    "plain_ms": cuda_time_ms(
+                        lambda: ref.gated_linear_scan(a, b), 2, flush),
+                    "library_ms": None,
+                    **scan_bounds("gated_linear_scan", case, dtype)}
+            del a, b
+    torch.cuda.empty_cache()
+    emit({"phase": "scan", "tol": {str(d).split(".")[-1]: t
+                                   for d, t in SCAN_TOL.items()},
+          "checked": checked, "full_width": figures,
+          "library": "none: no single PyTorch call computes either scan"})
+    return {"selective_scan": figures["selective_scan"][
+                f"{SSM_FULL[0]} bfloat16"],
+            "gated_linear_scan": figures["gated_linear_scan"][
+                f"{LRU_FULL[0]} float32"]}
+
+
+# --------------------------------------------------------------------------- #
+# serving falcon-mamba-7b and recurrentgemma-9b at full width and depth
+# --------------------------------------------------------------------------- #
+# f32 at full width on a few layers: prefill of S + j tokens against prefill
+# of S and j decode steps.  The two paths run the same f32 arithmetic in
+# another order (the scan kernel against the closed-form step, cuBLAS
+# products of other shapes); summation-order noise of ~1e-6 relative per
+# layer leaves 100x headroom under 1e-3 of the largest |logit|.
+CONSIST_REL_TOL = 1e-3
+CONSIST_STEPS = 4
+RECURRENT_SERVING = {
+    # arch: (scan kind, requests, prompt, new tokens, batch, cache_len,
+    #        (f32 consistency layers, its prompt))
+    "falcon-mamba-7b": ("mamba", 16, 512, 64, 8, 1024, (2, 512)),
+    "recurrentgemma-9b": ("rec", 8, 2560, 64, 4, 4096, (3, 2060)),
+}
+
+
+class RecordingServer(Server):
+    """The dense ``Server``, keeping each decode step's wall time (the step
+    ends in a synchronize) and whether every step's logits were finite."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.step_s, self.all_finite = [], True
+        decode = self._decode
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = decode(*args)
+            torch.cuda.synchronize()
+            self.step_s.append(time.perf_counter() - t0)
+            return out
+
+        self._decode = timed
+
+    def _advance(self, live, logits):
+        self.all_finite &= bool(np.isfinite(logits[live]).all())
+        super()._advance(live, logits)
+
+
+def consistency(model, ctx, params, S, steps, cache_len, gen):
+    """Two rows of S + steps tokens: the logits of prefill(S + j) against
+    those of prefill(S) followed by j decode steps, j = 1..steps.  Returns
+    the max |difference|, the max |logit| and the share of (row, step)
+    whose top token agrees."""
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab, (2, S + steps), generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+    logits, caches = model.prefill(params, ctx, {"inputs": toks[:, :S]},
+                                   cache_len)
+    diff, scale, agree = 0.0, 0.0, 0
+    for j in range(steps):
+        logits, caches = model.decode_step(
+            params, ctx, toks[:, S + j:S + j + 1],
+            torch.full((2,), S + j, dtype=torch.int32, device="cuda"), caches)
+        want, _ = model.prefill(params, ctx, {"inputs": toks[:, :S + j + 1]},
+                                cache_len)
+        got, want = logits.float(), want.float()
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+        diff = max(diff, float((got - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+    return diff, scale, agree / (2 * steps)
+
+
+def profile_serving(model, ctx, params, batch, prompt_len, cache_len, gen,
+                    kind):
+    """Apart from the measured run: one prefill of one prompt (the
+    served shape) and one decode step of a full batch at that depth,
+    each warmed once, under ``torch.profiler``."""
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab, (batch, prompt_len + 2), generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+    tag = "ssm_scan_kernel" if kind == "mamba" else "rglru_kernel"
+
+    def prefill():
+        model.prefill(params, ctx, {"inputs": toks[:1, :prompt_len]},
+                      cache_len)
+
+    _, caches = model.prefill(params, ctx, {"inputs": toks[:, :prompt_len]},
+                              cache_len)
+    pos = torch.full((batch,), prompt_len, dtype=torch.int32, device="cuda")
+
+    def decode():
+        model.decode_step(params, ctx, toks[:, prompt_len:prompt_len + 1],
+                          pos, caches)
+
+    out = {}
+    for name, fn in (("prefill", prefill), ("decode_step", decode)):
+        fn()  # warm (decode rewrites the same position: same work)
+        out[name] = profile_call(fn, "scan_ms", tag)
+    del caches
+    return out
+
+
+def serve_recurrent_phase(arch):
+    """One recurrent arch at full width and depth through ``Server``, then
+    the prefill/decode consistency checks.  Returns the scan kernel's
+    launches in the served run."""
+    kind, n_req, prompt_len, max_new, batch, cache_len, (f32_layers, f32_S) = (
+        RECURRENT_SERVING[arch])
+    wrapper = (ssm_scan.selective_scan if kind == "mamba"
+               else rglru.gated_linear_scan)
+    cfg = ARCHS[arch]
+    model, ctx = build_model(cfg), RunCtx()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init(ctx, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    server = RecordingServer(model, ctx, params, batch, cache_len,
+                             device="cuda")
+    for rid in range(n_req):
+        server.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab, size=prompt_len).tolist(), max_new=max_new))
+    torch.cuda.reset_peak_memory_stats()
+    wrapper.launches = 0  # the main path starts here
+    stats = server.run_until_drained()
+    launches = wrapper.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    want = cfg.layer_kinds().count(kind) * n_req
+    if launches != want:
+        raise AssertionError(f"{arch}: {wrapper.__name__} launched {launches} "
+                             f"times, want {want} (one per {kind} layer per "
+                             "prefill)")
+    outs = {r.rid: r.out for r in server.finished}
+    if sorted(outs) != list(range(n_req)) or any(
+            len(o) != max_new for o in outs.values()):
+        raise AssertionError(f"{arch}: finished {sorted(outs)}, lengths "
+                             f"{sorted({len(o) for o in outs.values()})}")
+    if not server.all_finite or any(
+            not 0 <= t < cfg.vocab for o in outs.values() for t in o):
+        raise AssertionError(f"{arch}: non-finite logits or tokens out of range")
+    step_s = server.step_s
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    profile = profile_serving(model, ctx, params, batch, prompt_len,
+                              cache_len, gen, kind)
+    bf16 = consistency(model, ctx, params, prompt_len, CONSIST_STEPS,
+                       cache_len, gen)
+    del server, params  # the server's decode closure holds it in a cycle
+    pygc.collect()
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, n_layers=f32_layers, dtype=torch.float32)
+    smodel = build_model(small)
+    sparams = smodel.init(ctx, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    f32 = consistency(smodel, ctx, sparams, f32_S, CONSIST_STEPS, cache_len,
+                      gen)
+    del sparams
+    torch.cuda.empty_cache()
+    if f32[0] > CONSIST_REL_TOL * f32[1]:
+        raise AssertionError(
+            f"{arch} f32 x {f32_layers} layers: prefill and prefill + decode "
+            f"differ by {f32[0]} (> {CONSIST_REL_TOL} x max |logit| {f32[1]})")
+    emit({
+        "phase": "serve_" + arch.split("-")[0], "arch": arch,
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "params": n_params,
+        "dtype": "bfloat16", "batch": batch, "cache_len": cache_len,
+        "prompt_len": prompt_len, "max_new": max_new,
+        "requests": stats["requests"], "decoded_tokens": stats["decoded_tokens"],
+        "tok_per_s": stats["tok_per_s"], "p50_latency_s": stats["p50_latency_s"],
+        "p50_ttft_s": stats["p50_ttft_s"], "wall_s": stats["wall_s"],
+        "decode_steps": len(step_s),
+        "decode_step_ms_median": 1e3 * float(np.median(step_s)),
+        "decode_step_ms_mean": 1e3 * float(np.mean(step_s)),
+        "peak_device_mem_gib": peak_gib, "init_s": init_s,
+        "scan_launches": launches, "scan_launches_expected": want,
+        "profile": profile,
+        "consistency_bf16_full_depth": {
+            "prompt": prompt_len, "steps": CONSIST_STEPS,
+            "max_abs_logit_diff": bf16[0], "max_abs_logit": bf16[1],
+            "top1_agreement": bf16[2]},
+        "consistency_f32": {
+            "layers": f32_layers, "prompt": f32_S, "steps": CONSIST_STEPS,
+            "max_abs_logit_diff": f32[0], "max_abs_logit": f32[1],
+            "rel_tol": CONSIST_REL_TOL, "top1_agreement": f32[2]},
+    })
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1034,7 +1384,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    sources = [pa.NAME, gc.PUT, gc.RING, fa.NAME, fab.NAME]
+    sources = build.sources()  # every csrc/*.cu: seven libraries
     seconds = build.build_all(sources)
     emit({"phase": "build", "kernels": sources, "seconds": seconds,
           "arch": "sm_90a", "nvcc_flags": list(build.NVCC_FLAGS)})
@@ -1044,7 +1394,14 @@ def main():
     gas_launches = gas_phase()
     launches = serve_phase()
     flash_figures = flash_phase()
+    scan_figures = scan_phase()
     flash_launches = train_phase()
+    pygc.collect()  # the training phase's ~48 GiB
+    torch.cuda.empty_cache()
+    scan_launches = {
+        "selective_scan": serve_recurrent_phase("falcon-mamba-7b"),
+        "gated_linear_scan": serve_recurrent_phase("recurrentgemma-9b"),
+    }
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1075,7 +1432,15 @@ def main():
         **{key: flash_figures[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-    } for name, (_, src, where) in FLASH_KERNELS.items()]})
+    } for name, (_, src, where) in FLASH_KERNELS.items()] + [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": f"src/repro/kernels/{where}",
+        "launches": scan_launches[name],
+        **{key: scan_figures[name][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, (_, src, where) in SCAN_KERNELS.items()]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 from typing import Dict, List, Sequence
 
-__all__ = ["CSRC", "build_all", "library_path", "load"]
+__all__ = ["CSRC", "build_all", "library_path", "load", "sources"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
@@ -53,6 +53,11 @@ def _nvcc() -> str:
     if not path.exists():
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build")
     return str(path)
+
+
+def sources() -> List[str]:
+    """The name of every kernel source, ``csrc/<name>.cu``, sorted."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def library_path(name: str) -> Path:

@@ -16,6 +16,8 @@ from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gascore as _gc
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as _rglru
+from repro_torch.kernels import ssm_scan as _ssm
 
 __all__ = [
     "attention",
@@ -25,6 +27,8 @@ __all__ = [
     "offset_put",
     "ring_all_gather",
     "ring_reduce_scatter",
+    "selective_scan",
+    "gated_linear_scan",
 ]
 
 
@@ -77,6 +81,36 @@ def paged_attention(
             q, k_pages, v_pages, page_table, lengths, scale=scale
         )
     raise ValueError(f"no paged_attention for device {q.device}")
+
+
+def selective_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+    *,
+    final_state: bool = False,
+):
+    """The mamba-1 scan: y (B, S, Di) in x's dtype, and with
+    ``final_state`` also h_S (B, Di, N) f32.  On CUDA one kernel launch
+    computes both; on the CPU the plain scan and, for the state, the
+    reference's second scan (``ref.mamba_final_state``)."""
+    if x.device.type == "cuda":
+        return _ssm.selective_scan(x, dt, a, b, c, d, final_state=final_state)
+    if x.device.type == "cpu":
+        y = ref.selective_scan(x, dt, a, b, c, d)
+        if final_state:
+            return y, ref.mamba_final_state(x, dt, a, b)
+        return y
+    raise ValueError(f"no selective_scan for device {x.device}")
+
+
+def gated_linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over axis 1, every h_t in b's dtype."""
+    return _on(b, _rglru.gated_linear_scan, ref.gated_linear_scan,
+               "gated_linear_scan")(a, b)
 
 
 # --------------------------------------------------------------------------- #

@@ -25,6 +25,9 @@ __all__ = [
     "flash_attention_dq",
     "flash_attention_bwd",
     "paged_attention",
+    "selective_scan",
+    "mamba_final_state",
+    "gated_linear_scan",
 ]
 
 NEG_INF = -1e30
@@ -320,3 +323,64 @@ def paged_attention(
     out = torch.einsum("bhs,bhsd->bhd", p, vx)
     any_visible = valid.any(dim=-1)[:, None, None]
     return torch.where(any_visible, out, 0.0).to(q.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# scans (the mamba-1 selective scan and the RG-LRU gated linear scan)
+# --------------------------------------------------------------------------- #
+def selective_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+) -> torch.Tensor:
+    """The mamba-1 recurrence over axis 1, f32 inside, y in x's dtype:
+
+      h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t,
+      y_t = C_t . h_t + D * x_t,
+
+    x, dt (B, S, Di); a (Di, N); b, c (B, S, N); d (Di,); h_0 = 0."""
+    B, S, Di = x.shape
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf, cf, df = b.float(), c.float(), d.float()
+    h = torch.zeros((B, Di, a.shape[1]), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        xt, dtt = xf[:, t], dtf[:, t]
+        decay = torch.exp(dtt[..., None] * af[None])  # (B, Di, N)
+        drive = (dtt * xt)[..., None] * bf[:, t, None, :]
+        h = decay * h + drive
+        ys.append((h * cf[:, t, None, :]).sum(-1) + df[None] * xt)
+    if not ys:
+        return torch.empty_like(x)
+    return torch.stack(ys, 1).to(x.dtype)
+
+
+def mamba_final_state(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """The state h_S (B, Di, N) f32 the same recurrence ends in (the
+    reference's ``_mamba_final_state``, a second scan without the y)."""
+    B, S, Di = x.shape
+    xf, dtf, af, bf = x.float(), dt.float(), a.float(), b.float()
+    h = torch.zeros((B, Di, a.shape[1]), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        decay = torch.exp(dtf[:, t, :, None] * af[None])
+        h = decay * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+    return h
+
+
+def gated_linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1 of (B, S, W), f32 inside,
+    h_0 = 0; returns every h_t in b's dtype."""
+    af, bf = a.float(), b.float()
+    h = torch.zeros_like(af[:, 0])
+    ys = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        ys.append(h)
+    if not ys:
+        return torch.empty_like(b)
+    return torch.stack(ys, 1).to(b.dtype)

@@ -6,14 +6,19 @@ the fixed-width decode batch -> finished (EOS or max tokens) -> row
 recycled for the next queued request.  The decode step runs the whole
 batch; per-row positions let rows be at different generation depths.
 
-- :class:`Server` keeps a dense cache row per request.
+- :class:`Server` keeps a dense cache row per request: attention KV
+  rings and, for falcon-mamba-7b and recurrentgemma-9b, the recurrent
+  states (conv windows, SSM and RG-LRU states).  Their prefill runs the
+  hand-written scan kernels on the card.
 - :class:`PagedServer` keeps the KV cache in the paged pool
   (``repro_torch.serving.pool``): pages allocated lazily per request,
   prompt prefixes shared by page table, SLO-aware preemption with swap
   to a host memory tier or recompute.  Its decode step runs THROUGH the
   page table, with attention on the hand-written CUDA kernel on the card.
 
-Run: ``python -m repro_torch.launch.serve --role decode --paged``
+Run: ``python -m repro_torch.launch.serve --role decode --paged``, or
+``--arch falcon-mamba-7b`` / ``--arch recurrentgemma-9b`` without
+``--paged`` (their blocks cannot be paged; ``--paged`` raises)
 (``--device cpu`` runs on the CPU, with the kernels' plain versions).
 The tensor-parallel, pooled and disaggregated servers are not ported yet.
 """
@@ -348,6 +353,12 @@ class PagedServer(Server):
                  eos_id: int = -1, device: Any = None, page_tokens: int = 8,
                  n_pool_pages: Optional[int] = None,
                  decode_step_us: float = 2000.0, prefill_us: float = 4000.0):
+        unpaged = sorted(set(model.cfg.layer_kinds()) - {"global"})
+        if unpaged:  # the reference fails here too (no token axis to page)
+            raise ValueError(
+                f"paged decode unsupported for {unpaged} blocks: serve "
+                f"{model.cfg.name} through the dense Server"
+            )
         super().__init__(model, ctx, params, batch_size, cache_len,
                          eos_id=eos_id, device=device)
         from repro_torch.serving.pool import PagedKVStore, PagedLayout
@@ -692,7 +703,8 @@ class PagedServer(Server):
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="qwen3-4b, falcon-mamba-7b or recurrentgemma-9b")
     ap.add_argument("--role", choices=("decode",), default="decode",
                     help="decode = colocated continuous batching (the only "
                          "role ported so far)")
@@ -703,6 +715,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--cache-len", type=int, default=64)
+    ap.add_argument("--full", action="store_true",
+                    help="serve the published widths and depth (bf16) "
+                         "instead of the SMOKE cut")
     ap.add_argument("--paged", action="store_true",
                     help="KV lives in the paged pool: pages allocated/freed "
                          "per request, prompt prefixes shared by page table")
@@ -710,12 +725,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="tokens per KV page (must divide --cache-len)")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs.registry import SMOKE
+    from repro_torch.configs.registry import ARCHS, SMOKE
     from repro_torch.models.build import build_model
     from repro_torch.parallel.ctx import RunCtx
 
     device = resolve_device(args.device)
-    cfg = SMOKE[args.arch]  # the reference serves the SMOKE cut too
+    # the reference serves the SMOKE cut; --full the published config
+    cfg = (ARCHS if args.full else SMOKE)[args.arch]
     model = build_model(cfg)
     ctx = RunCtx()
     gen = torch.Generator(device=device).manual_seed(0)

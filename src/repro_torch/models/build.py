@@ -1,4 +1,4 @@
-"""Model facade of the port: init / train / prefill / decode for qwen3-4b.
+"""Model facade of the port: init / train / prefill / decode.
 
 Counterpart of ``repro.models.build``.  Parameters are plain nested dicts
 of tensors with the reference's key paths and stacked ``(L, ...)``
@@ -140,25 +140,46 @@ class Model:
     def kv_block_struct(
         self, ctx: RunCtx, prompt_len: int, cache_len: int, batch: int = 1
     ) -> Any:
-        """Shapes of the per-request KV-cache tree :meth:`prefill` returns,
+        """Shapes of the per-request cache tree :meth:`prefill` returns,
         computed from the config (the reference traces ``prefill`` with
         ``eval_shape``).  Independent of ``prompt_len``: prefill pads
-        every cache to ``cache_len``."""
+        every attention cache to ``cache_len`` slots (a ``local`` block
+        to its ring of ``min(local_window, cache_len)``); the recurrent
+        blocks keep their conv window and state."""
         del prompt_len
         cfg = self.cfg
-        tail = (cfg.n_kv_heads, cfg.resolved_head_dim)
-        out = []
-        for seg in self.dec_segments:
-            lead = (seg.count, batch, cache_len)
-            out.append({
-                f"b{i}_{kind}": {"attn": {
-                    "k": TensorSpec(lead + tail, cfg.dtype),
-                    "pos": TensorSpec(lead, torch.int32),
-                    "v": TensorSpec(lead + tail, cfg.dtype),
+        f32 = torch.float32
+
+        def block(kind: str, lead) -> Dict[str, Any]:
+            if kind in ("global", "local"):
+                W = (cache_len if kind == "global"
+                     else min(cfg.local_window, cache_len))
+                tail = (cfg.n_kv_heads, cfg.resolved_head_dim)
+                return {"attn": {
+                    "k": TensorSpec(lead + (W,) + tail, cfg.dtype),
+                    "pos": TensorSpec(lead + (W,), torch.int32),
+                    "v": TensorSpec(lead + (W,) + tail, cfg.dtype),
                 }}
-                for i, kind in enumerate(seg.unit)
-            })
-        return out
+            conv = (cfg.conv_width - 1,)
+            if kind == "mamba":
+                Di = cfg.resolved_d_inner
+                return {"mix": {
+                    "conv": TensorSpec(lead + conv + (Di,), cfg.dtype),
+                    "ssm": TensorSpec(lead + (Di, cfg.ssm_state), f32),
+                }}
+            if kind == "rec":
+                W = cfg.resolved_lru_width
+                return {"mix": {
+                    "conv": TensorSpec(lead + conv + (W,), cfg.dtype),
+                    "h": TensorSpec(lead + (W,), f32),
+                }}
+            raise ValueError(f"block kind {kind!r} is not ported yet")
+
+        return [
+            {f"b{i}_{kind}": block(kind, (seg.count, batch))
+             for i, kind in enumerate(seg.unit)}
+            for seg in self.dec_segments
+        ]
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -6,8 +6,10 @@ maximal runs of identical repeating units.  The reference scans each
 segment over stacked layer parameters; the port loops over the stacked
 leading axis, with the same parameter layout.
 
-This slice runs the ``global`` kind (GQA self-attention + gated MLP);
-the other kinds are validated here and fail where a block is built.
+The port runs the ``global`` and ``local`` kinds (GQA self-attention,
+full or sliding-window, + gated MLP), ``mamba`` (the mamba-1 selective
+SSM mixer) and ``rec`` (the RG-LRU mixer + MLP); the other kinds are
+validated here and fail where a block is built.
 """
 
 from __future__ import annotations
@@ -47,9 +49,19 @@ class ArchConfig:
     pattern: Tuple[str, ...] = ("global",)
     head_dim: Optional[int] = None
     qk_norm: bool = False
+    local_window: int = 1024
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
+    # --- SSM (mamba1) ---
+    ssm_state: int = 16
+    d_inner: int = 0  # 0 -> 2 * d_model
+    conv_width: int = 4
+    dt_rank: int = 0  # 0 -> d_model // 16
+    # --- hybrid (RG-LRU) ---
+    lru_width: int = 0  # 0 -> d_model
+    # --- numerics ---
     dtype: torch.dtype = torch.bfloat16
+    sub_quadratic: bool = False  # eligible for long_500k decode
 
     def __post_init__(self):
         for k in self.pattern:
@@ -59,6 +71,18 @@ class ArchConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // max(self.n_heads, 1)
+
+    @property
+    def resolved_d_inner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.dt_rank or max(self.d_model // 16, 1)
+
+    @property
+    def resolved_lru_width(self) -> int:
+        return self.lru_width or self.d_model
 
     def layer_kinds(self) -> List[str]:
         """Per-layer kinds for the decoder stack (length n_layers)."""

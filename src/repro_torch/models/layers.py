@@ -1,14 +1,17 @@
 """Model layers of the port (params as plain dicts of tensors).
 
-Counterpart of ``repro.models.layers``, the subset qwen3-4b runs: RMS
-norm, RoPE, causal GQA self-attention with its prefill, dense-decode and
-paged-decode branches, and the gated SiLU MLP.  Parameter trees have the
+Counterpart of ``repro.models.layers``, the subset qwen3-4b,
+falcon-mamba-7b and recurrentgemma-9b run: RMS norm, RoPE, causal GQA
+self-attention (full or sliding-window) with its prefill, dense-decode
+and paged-decode branches, the gated SiLU MLP, the depthwise causal conv,
+the mamba-1 mixer and the RG-LRU mixer.  Parameter trees have the
 reference's keys and shapes, so a tree crosses from JAX by value
 (``repro_torch.models.build.params_from_jax``).
 
 Decode updates caches IN PLACE (the reference returns new arrays): the
-dense cache rows and the page pools are written where they lie and the
-same tensors are returned.  Callers that need the old cache clone it.
+dense cache rows, the page pools and the recurrent states (conv windows,
+SSM and RG-LRU states) are written where they lie and the same tensors
+are returned.  Callers that need the old cache clone it.
 """
 
 from __future__ import annotations
@@ -115,11 +118,12 @@ def _gqa_scores_softmax_v(q, k, v, mask, scale):
     return o.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
-def _chunked_attention(q, k, v, qpos, kpos, *, scale, chunk):
+def _chunked_attention(q, k, v, qpos, kpos, *, scale, chunk, window=None):
     """Blockwise-over-queries causal attention (O(S·chunk) memory).
 
     qpos: (B, Sq) absolute query positions; kpos: (B, Sk) key positions
-    (-1 = empty cache slot).
+    (-1 = empty cache slot).  ``window``: a query sees only the keys less
+    than ``window`` positions behind it.
     """
     B, Sq, H, Dh = q.shape
     chunk = min(chunk, Sq)
@@ -133,6 +137,8 @@ def _chunked_attention(q, k, v, qpos, kpos, *, scale, chunk):
         qp = qpos[:, c0 : c0 + chunk]
         mask = kpos[:, None, :] >= 0
         mask = mask & (qp[:, :, None] >= kpos[:, None, :])
+        if window is not None:
+            mask = mask & ((qp[:, :, None] - kpos[:, None, :]) < window)
         mask = mask & (qp[:, :, None] >= 0)
         outs.append(_gqa_scores_softmax_v(qs, k, v, mask, scale))
     return torch.cat(outs, dim=1)[:, :Sq]
@@ -145,12 +151,16 @@ def apply_attention(
     x: torch.Tensor,
     *,
     positions: torch.Tensor,
+    window: Optional[int] = None,
     mode: str = "prefill",
     cache: Optional[Params] = None,
     cache_len: int = 0,
     page_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Causal self-attention sub-block (pre-norm, residual added by caller).
+    ``window`` (the ``local`` kind) limits each query to the keys less
+    than ``window`` positions behind it; its cache is a ring of
+    ``min(window, cache_len)`` slots.
 
     Modes:
       train    — full sequence, no cache; attention is
@@ -190,11 +200,12 @@ def apply_attention(
         # (B, H, S, Dh), made contiguous for the kernels
         out = ops.attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=True, scale=scale,
+            v.transpose(1, 2).contiguous(), causal=True, window=window,
+            scale=scale,
         ).transpose(1, 2)
         new_cache = None
     elif mode == "prefill":
-        W = cache_len
+        W = cache_len if window is None else min(window, cache_len)
         # ring-buffer write of the last W positions
         kc = torch.zeros((B, W) + tuple(k.shape[2:]), dtype=k.dtype,
                          device=k.device)
@@ -208,10 +219,13 @@ def apply_attention(
         vc[b_idx, idx] = v[:, sl]
         pc[b_idx, idx] = positions[:, sl].to(torch.int32)
         out = _chunked_attention(
-            q, k, v, positions, positions, scale=scale, chunk=ctx.attn_chunk
+            q, k, v, positions, positions, scale=scale, chunk=ctx.attn_chunk,
+            window=window,
         )
         new_cache = {"k": kc, "v": vc, "pos": pc}
     elif mode == "decode" and page_table is not None:
+        if window is not None:
+            raise ValueError("paged decode does not support local windows")
         kp, vp, pp = cache["k"], cache["v"], cache["pos"]  # page pools
         T = kp.shape[1]  # page_tokens
         pos = positions[:, 0]  # (B,)
@@ -242,6 +256,8 @@ def apply_attention(
         pc[b_idx, slot] = pos.to(pc.dtype)
         mask = pc[:, None, :] >= 0  # (B, 1, W)
         mask = mask & (pc[:, None, :] <= pos[:, None, None])
+        if window is not None:
+            mask = mask & ((pos[:, None, None] - pc[:, None, :]) < window)
         out = _gqa_scores_softmax_v(q, kc, vc, mask, scale)
         new_cache = cache
     else:
@@ -273,3 +289,194 @@ def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor,
     wg = use_weight(p["wg"], ctx)
     z = F.silu(h @ wg) * (h @ wi)
     return (z @ wo).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# causal conv (width w, depthwise)
+# --------------------------------------------------------------------------- #
+def causal_conv(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d.  x: (B, S, C), w: (W, C).
+
+    With ``state`` (B, W-1, C): uses it as left context (decode);
+    returns ``(y, new_state)``, new_state the last W-1 inputs (a view).
+    Sums the taps in the reference's order, in x's dtype."""
+    W = w.shape[0]
+    S = x.shape[1]
+    if state is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + S] * w[i][None, None, :] for i in range(W))
+    if b is not None:
+        y = y + b[None, None, :]
+    new_state = xp[:, -(W - 1):] if W > 1 else torch.zeros_like(x[:, :0])
+    return y.to(x.dtype), new_state
+
+
+def _write_state(cache: Params, new: Params) -> Params:
+    """Decode: copy each new recurrent state into the cache's tensor (a
+    view into the stacked cache), in place."""
+    for k, t in new.items():
+        cache[k].copy_(t)
+    return cache
+
+
+# --------------------------------------------------------------------------- #
+# mamba1 mixer
+# --------------------------------------------------------------------------- #
+def mamba_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
+    D, Di, N = cfg.d_model, cfg.resolved_d_inner, cfg.ssm_state
+    R, Wc = cfg.resolved_dt_rank, cfg.conv_width
+    dev, lead = gen.device, tuple(lead)
+    f32 = torch.float32
+    # dt_bias = softplus^-1(dt) for dt log-uniform in [1e-3, 1e-1]
+    u = torch.rand(lead + (Di,), generator=gen, device=dev, dtype=f32)
+    log_dt = math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))
+    a_log = torch.log(torch.arange(1, N + 1, dtype=f32, device=dev))
+    return {
+        "norm": norm_init(D, dev, lead),
+        "in_x": linear_init(gen, D, (Di,), cfg.dtype, lead=lead),
+        "in_gate": linear_init(gen, D, (Di,), cfg.dtype, lead=lead),
+        "conv_w": _normal(gen, lead + (Wc, Di), cfg.dtype, 1.0 / math.sqrt(Wc)),
+        "conv_b": torch.zeros(lead + (Di,), dtype=cfg.dtype, device=dev),
+        "x_proj": linear_init(gen, Di, (R + 2 * N,), cfg.dtype, lead=lead),
+        "dt_proj": linear_init(gen, R, (Di,), cfg.dtype, lead=lead),
+        "dt_bias": torch.log(torch.expm1(torch.exp(log_dt))),
+        "a_log": a_log.expand(lead + (Di, N)).contiguous(),
+        "d_skip": torch.ones(lead + (Di,), dtype=f32, device=dev),
+        "out_proj": linear_init(gen, Di, (D,), cfg.dtype, lead=lead),
+    }
+
+
+def apply_mamba(
+    p: Params,
+    cfg: ArchConfig,
+    ctx: RunCtx,
+    x: torch.Tensor,
+    *,
+    mode: str = "train",
+    cache: Optional[Params] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Mamba-1 mixer (pre-norm, residual added by caller).
+
+    train/prefill run the selective scan (``kernels.ops.selective_scan``:
+    the CUDA kernel on the card, which also returns the final state the
+    prefill caches); decode is the one-step closed form in plain torch,
+    writing the conv window and the SSM state in place."""
+    N, R = cfg.ssm_state, cfg.resolved_dt_rank
+    h = apply_norm(p["norm"], x)
+    xin = h @ use_weight(p["in_x"], ctx)  # (B, S, Di)
+    gate = h @ use_weight(p["in_gate"], ctx)
+    w_out = use_weight(p["out_proj"], ctx)
+
+    conv_state = cache["conv"] if cache is not None else None
+    xin, new_conv = causal_conv(xin, p["conv_w"], p["conv_b"], conv_state)
+    xin = F.silu(xin)
+
+    dbc = xin @ p["x_proj"]  # (B, S, R + 2N)
+    dt_low, bmat, cmat = dbc[..., :R], dbc[..., R:R + N], dbc[..., R + N:]
+    # bf16 @ bf16 + f32 bias promotes to f32, as in the reference
+    dt = F.softplus(dt_low @ p["dt_proj"] + p["dt_bias"]).float()
+    a = -torch.exp(p["a_log"])  # (Di, N)
+
+    if mode == "decode":
+        hprev = cache["ssm"]  # (B, Di, N) f32
+        dtt = dt[:, 0]
+        xt = xin[:, 0].float()
+        bt = bmat[:, 0].float()
+        ct = cmat[:, 0].float()
+        decay = torch.exp(dtt[..., None] * a[None])
+        hnew = decay * hprev + (dtt * xt)[..., None] * bt[:, None, :]
+        y = (hnew * ct[:, None, :]).sum(-1) + p["d_skip"][None] * xt
+        y = y[:, None, :]
+        new_cache = _write_state(cache, {"conv": new_conv, "ssm": hnew})
+    elif mode == "prefill":
+        y, hfin = ops.selective_scan(
+            xin, dt, a, bmat, cmat, p["d_skip"], final_state=True
+        )
+        new_cache = {"conv": new_conv, "ssm": hfin}
+    elif mode == "train":
+        y = ops.selective_scan(xin, dt, a, bmat, cmat, p["d_skip"])
+        new_cache = None
+    else:
+        raise ValueError(mode)
+
+    y = (y * F.silu(gate.float())).to(x.dtype)
+    out = y @ w_out
+    return out.to(x.dtype), new_cache
+
+
+# --------------------------------------------------------------------------- #
+# RG-LRU mixer (griffin / recurrentgemma)
+# --------------------------------------------------------------------------- #
+_RGLRU_C = 8.0
+
+
+def rec_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
+    D, W, Wc = cfg.d_model, cfg.resolved_lru_width, cfg.conv_width
+    dev, lead = gen.device, tuple(lead)
+    lam = torch.rand(lead + (W,), generator=gen, device=dev,
+                     dtype=torch.float32)
+    return {
+        "norm": norm_init(D, dev, lead),
+        "in_x": linear_init(gen, D, (W,), cfg.dtype, lead=lead),
+        "in_gate": linear_init(gen, D, (W,), cfg.dtype, lead=lead),
+        "conv_w": _normal(gen, lead + (Wc, W), cfg.dtype, 1.0 / math.sqrt(Wc)),
+        "conv_b": torch.zeros(lead + (W,), dtype=cfg.dtype, device=dev),
+        "w_rgate": linear_init(gen, W, (W,), cfg.dtype, lead=lead),
+        "w_igate": linear_init(gen, W, (W,), cfg.dtype, lead=lead),
+        "lam": 0.5 + 3.5 * lam,  # uniform in [0.5, 4)
+        "out_proj": linear_init(gen, W, (D,), cfg.dtype, lead=lead),
+    }
+
+
+def apply_rec(
+    p: Params,
+    cfg: ArchConfig,
+    ctx: RunCtx,
+    x: torch.Tensor,
+    *,
+    mode: str = "train",
+    cache: Optional[Params] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """RG-LRU mixer (pre-norm, residual added by caller).
+
+    train/prefill run the gated linear scan (``kernels.ops.
+    gated_linear_scan``: the CUDA kernel on the card); decode is the
+    one-step update in plain torch, writing the conv window and the state
+    in place."""
+    h = apply_norm(p["norm"], x)
+    w_rg = use_weight(p["w_rgate"], ctx)
+    w_ig = use_weight(p["w_igate"], ctx)
+    xb = h @ use_weight(p["in_x"], ctx)  # (B, S, W)
+    # jax.nn.gelu's default is the tanh approximation
+    gb = F.gelu((h @ use_weight(p["in_gate"], ctx)).float(), approximate="tanh")
+
+    conv_state = cache["conv"] if cache is not None else None
+    xb, new_conv = causal_conv(xb, p["conv_w"], p["conv_b"], conv_state)
+
+    xf = xb.float()
+    r = torch.sigmoid(xf @ w_rg.float())
+    i = torch.sigmoid(xf @ w_ig.float())
+    log_a = -_RGLRU_C * F.softplus(p["lam"])[None, None] * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * xf)
+
+    if mode == "decode":
+        hnew = a[:, 0] * cache["h"] + b[:, 0]  # (B, W) f32
+        y = hnew[:, None, :]
+        new_cache = _write_state(cache, {"conv": new_conv, "h": hnew})
+    elif mode in ("prefill", "train"):
+        y = ops.gated_linear_scan(a, b)
+        new_cache = ({"conv": new_conv, "h": y[:, -1, :].float()}
+                     if mode == "prefill" else None)
+    else:
+        raise ValueError(mode)
+
+    out = (y * gb).to(x.dtype) @ use_weight(p["out_proj"], ctx)
+    return out.to(x.dtype), new_cache

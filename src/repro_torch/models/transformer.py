@@ -32,12 +32,19 @@ Params = Dict[str, Any]
 # blocks
 # --------------------------------------------------------------------------- #
 def block_init(kind: str, cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
-    if kind != "global":
-        raise ValueError(f"block kind {kind!r} is not ported yet")
-    return {
-        "attn": L.attention_init(cfg, ctx, gen, lead),
-        "mlp": L.mlp_init(cfg, ctx, gen, lead=lead),
-    }
+    if kind in ("global", "local"):
+        return {
+            "attn": L.attention_init(cfg, ctx, gen, lead),
+            "mlp": L.mlp_init(cfg, ctx, gen, lead=lead),
+        }
+    if kind == "mamba":
+        return {"mix": L.mamba_init(cfg, ctx, gen, lead)}
+    if kind == "rec":
+        return {
+            "mix": L.rec_init(cfg, ctx, gen, lead),
+            "mlp": L.mlp_init(cfg, ctx, gen, lead=lead),
+        }
+    raise ValueError(f"block kind {kind!r} is not ported yet")
 
 
 def block_apply(
@@ -53,17 +60,30 @@ def block_apply(
     positions: torch.Tensor,
     page_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    if kind != "global":
+    if kind in ("global", "local"):
+        a, ac = L.apply_attention(
+            p["attn"], cfg, ctx, x, positions=positions,
+            window=cfg.local_window if kind == "local" else None, mode=mode,
+            cache=None if cache is None else cache["attn"],
+            cache_len=cache_len, page_table=page_table,
+        )
+        x = x + a
+        x = x + L.apply_mlp(p["mlp"], cfg, x, ctx)
+        new_cache = {"attn": ac}
+    elif kind in ("mamba", "rec"):
+        if page_table is not None:
+            raise ValueError(f"paged decode unsupported for {kind!r} blocks")
+        apply = L.apply_mamba if kind == "mamba" else L.apply_rec
+        m, mc = apply(p["mix"], cfg, ctx, x, mode=mode,
+                      cache=None if cache is None else cache["mix"])
+        x = x + m
+        if kind == "rec":
+            x = x + L.apply_mlp(p["mlp"], cfg, x, ctx)
+        new_cache = {"mix": mc}
+    else:
         raise ValueError(f"block kind {kind!r} is not ported yet")
-    a, ac = L.apply_attention(
-        p["attn"], cfg, ctx, x, positions=positions, mode=mode,
-        cache=None if cache is None else cache["attn"],
-        cache_len=cache_len, page_table=page_table,
-    )
-    x = x + a
-    x = x + L.apply_mlp(p["mlp"], cfg, x, ctx)
     x = shard(x, ctx)
-    return x, {"attn": ac}
+    return x, new_cache
 
 
 # --------------------------------------------------------------------------- #

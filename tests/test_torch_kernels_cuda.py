@@ -328,3 +328,146 @@ def test_cuda_train_loss_and_grads_match_cpu(cuda):
     assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# --------------------------------------------------------------------------- #
+# the scans (csrc/ssm_scan.cu, csrc/rglru.cu)
+# --------------------------------------------------------------------------- #
+# (B, S, Di, N): the reference's selective-scan shapes, B > 1 at an odd S,
+# and the smallest and largest state sizes the kernel takes
+SSM_CASES = [(2, 128, 256, 16), (1, 64, 512, 16), (2, 96, 128, 8),
+             (3, 77, 192, 16), (2, 33, 96, 4), (1, 45, 64, 32)]
+# |kernel - plain| <= tol * (1 + |plain|): f32 differs by the order of the
+# C.h sum over N (the state update rounds as the plain version does); bf16
+# by the outputs' rounding to 8 mantissa bits
+SCAN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _ssm_inputs(cuda, B, S, Di, N, dtype, seed):
+    """The model's value ranges (dt in [1e-3, 1e-1], A = -(1..N)); B and
+    C sliced out of one (B, S, R + 2N) projection, as the layer does."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((B, S, Di), generator=g, device=cuda).to(dtype)
+    dt = 1e-3 + (1e-1 - 1e-3) * torch.rand((B, S, Di), generator=g, device=cuda)
+    a = -torch.arange(1, N + 1, dtype=torch.float32, device=cuda).repeat(Di, 1)
+    dbc = torch.randn((B, S, 5 + 2 * N), generator=g, device=cuda).to(dtype)
+    d = torch.randn((Di,), generator=g, device=cuda)
+    return x, dt, a, dbc[..., 5:5 + N], dbc[..., 5 + N:], d
+
+
+def _close(got, want, tol):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= tol * (1 + want.abs())).all()), float(
+        (got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N", SSM_CASES)
+def test_cuda_selective_scan_matches_plain(cuda, B, S, Di, N, dtype):
+    """y and the final state against the plain scans, one launch, B and C
+    read through their strides."""
+    from repro_torch.kernels import ssm_scan
+
+    x, dt, a, b, c, d = _ssm_inputs(cuda, B, S, Di, N, dtype, S + Di)
+    assert not b.is_contiguous()
+    before = ssm_scan.selective_scan.launches
+    y, h = ops.selective_scan(x, dt, a, b, c, d, final_state=True)
+    torch.cuda.synchronize()
+    assert ssm_scan.selective_scan.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    _close(y, ref.selective_scan(x, dt, a, b, c, d), SCAN_TOL[dtype])
+    _close(h, ref.mamba_final_state(x, dt, a, b), SCAN_TOL[torch.float32])
+    assert torch.equal(ops.selective_scan(x, dt, a, b, c, d), y)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_refusals(cuda):
+    """No backward kernel: a call that needs a gradient raises; wrong
+    dtypes and state sizes are refused; none of them launches."""
+    from repro_torch.kernels import ssm_scan
+
+    x, dt, a, b, c, d = _ssm_inputs(cuda, 1, 8, 32, 16, torch.float32, 0)
+    before = ssm_scan.selective_scan.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssm_scan.selective_scan(x.requires_grad_(), dt, a, b, c, d)
+    x = x.detach()
+    with pytest.raises(TypeError):
+        ssm_scan.selective_scan(x, dt.bfloat16(), a, b, c, d)
+    with pytest.raises(TypeError):
+        ssm_scan.selective_scan(x.bfloat16(), dt, a, b, c, d)
+    with pytest.raises(ValueError, match="state size"):
+        ssm_scan.selective_scan(x, dt, a[:, :12].contiguous(), b[..., :12],
+                                c[..., :12], d)
+    assert ssm_scan.selective_scan.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [(2, 128, 256), (1, 64, 512), (3, 77, 200),
+                                   (1, 1, 32)])
+def test_cuda_gated_linear_scan_matches_plain(cuda, B, S, W, dtype):
+    """Against the plain scan: the kernel rounds its multiply and add as
+    the plain version does, so f32 agrees to the last bit; bf16 within the
+    outputs' rounding."""
+    from repro_torch.kernels import rglru
+
+    g = torch.Generator(device=cuda).manual_seed(S + W)
+    a = (0.1 + 0.89 * torch.rand((B, S, W), generator=g, device=cuda)).to(dtype)
+    b = torch.randn((B, S, W), generator=g, device=cuda).to(dtype)
+    before = rglru.gated_linear_scan.launches
+    got = ops.gated_linear_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru.gated_linear_scan.launches == before + 1
+    assert got.dtype == dtype
+    _close(got, ref.gated_linear_scan(a, b), SCAN_TOL[dtype])
+    with pytest.raises(RuntimeError, match="no backward"):
+        rglru.gated_linear_scan(a.float().clone().requires_grad_(), b.float())
+    with pytest.raises(TypeError):
+        rglru.gated_linear_scan(a.float(), b.bfloat16())
+    assert rglru.gated_linear_scan.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", [("falcon-mamba-7b", "mamba"),
+                                       ("recurrentgemma-9b", "rec")])
+def test_cuda_prefill_and_decode_match_cpu(cuda, arch, kind):
+    """The SMOKE model (f32) on the card against the CPU run of the plain
+    versions: a prefill launches the scan kernel once per ``kind`` layer,
+    and the logits and every cache leaf agree (summation order: 1e-4),
+    then over three decode steps."""
+    from repro_torch.compat import tree_leaves, tree_map
+    from repro_torch.configs.registry import SMOKE
+    from repro_torch.kernels import rglru, ssm_scan
+    from repro_torch.models.build import build_model
+    from repro_torch.parallel.ctx import RunCtx
+
+    cfg = SMOKE[arch]
+    model, ctx = build_model(cfg), RunCtx()
+    params = model.init(ctx, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+    wrapper = (ssm_scan.selective_scan if kind == "mamba"
+               else rglru.gated_linear_scan)
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = wrapper.launches
+        t_dev = toks.to(dev)
+        logits, caches = model.prefill(p, ctx, {"inputs": t_dev[:, :21]}, 32)
+        n = wrapper.launches - before
+        steps = [logits]
+        for t in range(21, 24):  # teacher-forced: the same tokens on both
+            logits, caches = model.decode_step(
+                p, ctx, t_dev[:, t:t + 1], torch.full((2,), t, dtype=torch.int32,
+                                                      device=dev), caches)
+            steps.append(logits)
+        runs[str(dev)] = (n, [s.cpu() for s in steps],
+                          [c.cpu() for c in tree_leaves(caches)])
+    assert runs["cpu"][0] == 0
+    assert runs["cuda"][0] == cfg.layer_kinds().count(kind)
+    for got, want in zip(runs["cuda"][1] + runs["cuda"][2],
+                         runs["cpu"][1] + runs["cpu"][2]):
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=1e-4)
