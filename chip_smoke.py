@@ -62,8 +62,29 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              the window mask and the decode ring both bite), 64 new tokens
              each, batch 4, cache 4096; one scan launch per ``rec`` layer
              per prefill; the same consistency check (f32 on 3 layers).
+12. router — the MoE router kernel against its plain version: at
+             kimi-k2's (E 384, K 8) and arctic's (E 128, K 2) widths at T 8
+             (a decode batch), 128 (a prefill) and 8,192, at T 1 and 77,
+             without renormalisation, on rows with repeated logits (the tie
+             rule) and at the reference tests' four cases; indices, slots
+             and keep equal, weights within 1e-6; its device time under
+             ``torch.profiler`` (back-to-back calls, the logits in L2 as
+             the model leaves them) beside its bound, the host's enqueue
+             apart.
+13. serve_kimi — kimi-k2-1t-a32b at full width on 2 layers (the dense
+             first layer and one ``moe`` layer of 384 experts, bf16, seeded
+             random weights) through ``PagedServer`` with slice 1's
+             traffic (phase 5); one router launch per ``moe`` layer per
+             forward call; the first decode step held against the dense
+             ``Server``'s on the rows (at least half) whose expert choices
+             agree in every ``moe`` layer; the router kernel against its
+             plain version on logits captured from the served model's MoE
+             layer; a prefill and a decode step under ``torch.profiler``.
+14. serve_arctic — arctic-480b the same way, 2 ``moe`` layers of 128
+             experts with the dense residual FFN.
 
-Phases 10 and 11 run after the training phase has freed its memory.
+Phases 10-14 run after the training phase has freed its memory, each
+after the one before it has freed its own.
 Then the card's name and power limit, the ``kernels`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and the
 script exits non-zero before that line.  Without CUDA it exits non-zero
@@ -96,10 +117,13 @@ from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import gascore as gc  # noqa: E402
+from repro_torch.kernels import moe_router as mr  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import rglru  # noqa: E402
 from repro_torch.kernels import ssm_scan  # noqa: E402
 from repro_torch.launch.serve import PagedServer, Request, Server  # noqa: E402
+from repro_torch.models import layers as moe_layers  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.ctx import RunCtx  # noqa: E402
@@ -581,12 +605,12 @@ def gas_phase():
     return launches
 
 
-def requests():
+def requests(vocab=151936):
     rng = np.random.default_rng(0)
-    shared = rng.integers(0, 151936, size=SHARED).tolist()
+    shared = rng.integers(0, vocab, size=SHARED).tolist()
     reqs = []
     for rid in range(N_REQ):
-        prompt = rng.integers(0, 151936, size=PROMPT_LEN).tolist()
+        prompt = rng.integers(0, vocab, size=PROMPT_LEN).tolist()
         if rid < 4:
             prompt = shared + prompt[SHARED:]
         reqs.append(Request(rid=rid, prompt=prompt, max_new=MAX_NEW))
@@ -1376,6 +1400,362 @@ def serve_recurrent_phase(arch):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# the MoE router (csrc/moe_router.cu)
+# --------------------------------------------------------------------------- #
+ROUTER_ARCHS = ("kimi-k2-1t-a32b", "arctic-480b")  # E 384, K 8; E 128, K 2
+ROUTER_T = (8, 128, 8192)  # a decode batch, a prefill, a long prefill
+ROUTER_OTHER_T = (1, 77)
+# (T, E, K, capacity): the reference's four cases (tests/test_kernels.py)
+ROUTER_REF_CASES = [(512, 16, 2, 80), (256, 8, 1, 64), (512, 64, 8, 72),
+                    (256, 128, 2, 8)]
+# weights: the probabilities are bit-equal (the kernel sums as torch's warp
+# softmax does); the renormalising sum over K may round apart
+ROUTER_W_TOL = 1e-6
+ROUTER_KERNELS = {"moe_router": (mr.moe_router, "moe_router.cu",
+                                 "moe_dispatch.py:103")}
+
+
+def router_check(name, logits, k, capacity, renormalize=True):
+    """The kernel against the plain version on the same logits: indices,
+    slots and keep equal, weights within ``ROUTER_W_TOL``.  Returns the
+    max |weight difference|."""
+    got = mr.moe_router(logits, k=k, capacity=capacity,
+                        renormalize=renormalize)
+    want = ref.route_topk(logits, k=k, capacity=capacity,
+                          renormalize=renormalize)
+    torch.cuda.synchronize()
+    for part, i in (("expert_idx", 0), ("slot", 1), ("keep", 3)):
+        g, w = got[i], want[i]
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(f"{name}: {part} differs at {bad} places")
+    err = float((got[2] - want[2]).abs().max())
+    if not err <= ROUTER_W_TOL:
+        raise AssertionError(f"{name}: weights differ by {err}")
+    return err
+
+
+def router_logits(T, E, gen, ties=False):
+    """Normal logits (the model's router logits are of order one); with
+    ``ties``, rounded to halves and every fourth row constant."""
+    x = torch.randn((T, E), generator=gen, device="cuda")
+    if ties:
+        x = torch.round(x * 2) / 2
+        x[::4] = 0.5
+    return x
+
+
+def router_bounds(T, E, K):
+    """Least time: the logits read once and 13 bytes written per choice
+    over 3.35 TB/s, or the f32 operations (per logit: subtract, exp, add,
+    divide, and a compare in each of K rounds) over 67 TFLOP/s."""
+    nbytes = 4 * T * E + 13 * T * K
+    flops = T * E * (4 + K)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def device_ms(fn, iters, tag=None):
+    """Device time per call of ``fn``: the durations of its GPU kernels
+    (those whose names hold ``tag``, when given) summed under
+    ``torch.profiler`` over ``iters`` back-to-back calls after a warm one.
+    For work of a few microseconds, CUDA events around one call time the
+    host's enqueue instead: the device waits for the launch."""
+    fn()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ])
+    with prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [evt.time_range.elapsed_us() for evt in prof.events()
+          if evt.device_type == torch.autograd.DeviceType.CUDA
+          and (tag is None or tag in evt.name)]
+    if not us:
+        raise AssertionError("the profiler saw no kernel of the call")
+    return sum(us) / 1e3 / iters
+
+
+def router_phase():
+    """The kernel against its plain version on every case; times at the
+    served widths: device time (profiler), and the host's enqueue per
+    call.  The logits are not flushed from L2: the model's router reads
+    them straight after the product that wrote them.  Returns kimi-k2's
+    prefill figures (T 128)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    checked, figures = {}, {}
+    for arch in ROUTER_ARCHS:
+        cfg = ARCHS[arch]
+        E, K = cfg.n_experts, cfg.top_k
+        for T in ROUTER_T:
+            x = router_logits(T, E, gen)
+            cap = moe_layers.moe_capacity(cfg, T)
+            name = f"E{E} K{K} T{T}"
+            err = router_check(name, x, K, cap)
+            checked[name] = err
+            kernel = lambda: mr.moe_router(x, k=K, capacity=cap)  # noqa: E731
+            plain = lambda: ref.route_topk(x, k=K, capacity=cap)  # noqa: E731
+            figures[name] = {
+                "arch": arch, "capacity": cap, "max_abs_err": err,
+                "ms": device_ms(kernel, 50, "moe_router_"),
+                "plain_ms": device_ms(plain, 10),
+                "host_us": host_us(kernel), "plain_host_us": host_us(plain, 10),
+                "library_ms": None, **router_bounds(T, E, K)}
+        # (T, ties, renormalize): a lone token, a ragged block, no
+        # renormalisation, and repeated logits across one and many blocks
+        extra = [(t, False, rn) for t in ROUTER_OTHER_T for rn in (True, False)]
+        extra += [(t, True, True) for t in (77, 128, 8192)]
+        for T, ties, renormalize in extra:
+            tag = f"E{E} K{K} T{T} ties={ties} renormalize={renormalize}"
+            checked[tag] = router_check(tag, router_logits(T, E, gen, ties),
+                                        K, moe_layers.moe_capacity(cfg, T),
+                                        renormalize)
+    for T, E, K, C in ROUTER_REF_CASES:
+        for ties in (False, True):
+            tag = f"E{E} K{K} T{T} C{C} ties={ties}"
+            checked[tag] = router_check(tag, router_logits(T, E, gen, ties),
+                                        K, C)
+    emit({"phase": "router", "name": mr.NAME, "weight_tol": ROUTER_W_TOL,
+          "checked": checked, "served": figures,
+          "library": "none: no single PyTorch call computes the router"})
+    return figures["E384 K8 T128"]
+
+
+# --------------------------------------------------------------------------- #
+# serving kimi-k2-1t-a32b and arctic-480b at full width, two layers
+# --------------------------------------------------------------------------- #
+# 2 layers at full width: kimi-k2's dense layer and one moe layer hold
+# 19.92 B parameters (39.8 GB in bf16), arctic's two moe layers 27.68 B
+# (55.4 GB); a third kimi layer would need ~74 GB of the card's 80
+MOE_LAYERS = 2
+
+
+class RouteLog:
+    """While installed, ``ops.moe_router`` passes through and, while
+    ``on``, keeps each call's inputs and expert choices (no launch of its
+    own): (logits, k, capacity, renormalize, expert_idx)."""
+
+    def __init__(self, on=False):
+        self.on, self.calls, self.real = on, [], ops.moe_router
+
+    def __enter__(self):
+        def logged(logits, *, k, capacity, renormalize=True):
+            out = self.real(logits, k=k, capacity=capacity,
+                            renormalize=renormalize)
+            if self.on:
+                self.calls.append((logits.clone(), k, capacity, renormalize,
+                                   out[0].clone()))
+            return out
+
+        ops.moe_router = logged
+        return self
+
+    def __exit__(self, *exc):
+        ops.moe_router = self.real
+
+
+def log_first_call(fn, log):
+    """``fn``, with ``log`` on during its first call only."""
+    def first(*a):
+        log.on = not log.calls
+        try:
+            return fn(*a)
+        finally:
+            log.on = False
+    return first
+
+
+def routing_agreement(dense_calls, paged_calls, k):
+    """Per row of the first decode step, whether every ``moe`` layer chose
+    the same set of experts in both servers; and, at each row that chose
+    apart, the dense path's gap between its k-th and (k+1)-th router
+    probability in the first layer that did (a near tie that bf16-level
+    differences of the attention flip)."""
+    same, gaps = None, []
+    for dense, paged in zip(dense_calls, paged_calls):
+        de, pe = dense[-1].cpu(), paged[-1].cpu()
+        agree = (de.sort(-1).values == pe.sort(-1).values).all(-1)
+        p = torch.softmax(dense[0].float().cpu(), -1)
+        p = p.sort(-1, descending=True).values
+        gap = p[:, k - 1] - p[:, k]
+        for r in torch.nonzero(~agree).flatten().tolist():
+            if same is None or same[r]:
+                gaps.append(float(gap[r]))
+        same = agree if same is None else same & agree
+    return same.numpy(), gaps
+
+
+def capture_router_calls(model, ctx, params, toks):
+    """The router's calls on the served model while one prompt prefills
+    (T = its length), a batch prefills (T = batch x length) and that batch
+    decodes one step (T = batch)."""
+    S = toks.shape[1] - 1
+    with RouteLog(on=True) as log:
+        model.prefill(params, ctx, {"inputs": toks[:1, :S]}, CACHE_LEN)
+        _, caches = model.prefill(params, ctx, {"inputs": toks[:, :S]},
+                                  CACHE_LEN)
+        model.decode_step(params, ctx, toks[:, S:], torch.full(
+            (toks.shape[0],), S, dtype=torch.int32, device="cuda"), caches)
+    return log.calls
+
+
+def serve_moe_phase(arch):
+    """One MoE arch at full width on ``MOE_LAYERS`` layers through
+    ``PagedServer`` (slice 1's traffic), the dense ``Server`` beside it.
+    Returns the router's launches in the served run."""
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=MOE_LAYERS)
+    n_moe = cfg.layer_kinds().count("moe")
+    model, ctx = build_model(cfg), RunCtx()
+    pygc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init(ctx, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+
+    dense = Server(model, ctx, params, BATCH, CACHE_LEN, device="cuda")
+    dense_logits, decode = [], dense._decode
+
+    def recording_decode(*a):
+        logits, caches = decode(*a)
+        if not dense_logits:
+            dense_logits.append(logits.float().cpu().numpy())
+        return logits, caches
+
+    dense_log, paged_log = RouteLog(), RouteLog()
+    dense._decode = log_first_call(recording_decode, dense_log)
+    for r in requests(cfg.vocab):
+        dense.submit(r)
+    with dense_log:
+        dense_stats = dense.run_until_drained()
+    dense_out = {r.rid: r.out for r in dense.finished}
+    del dense, decode, recording_decode
+
+    server = RecordingPagedServer(model, ctx, params, BATCH, CACHE_LEN,
+                                  device="cuda", page_tokens=PAGE_TOKENS)
+    prefills, prefill_one = [0], server._prefill_one
+
+    def counted_prefill(*a):
+        prefills[0] += 1
+        return prefill_one(*a)
+
+    server._prefill_one = counted_prefill
+    server._decode_paged = log_first_call(server._decode_paged, paged_log)
+    for r in requests(cfg.vocab):
+        server.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    with paged_log:
+        mr.moe_router.launches = 0  # the main path starts here
+        stats = server.run_until_drained()
+        launches = mr.moe_router.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    outs = {r.rid: r.out for r in server.finished}
+    if sorted(outs) != list(range(N_REQ)) or any(
+            len(o) != MAX_NEW for o in outs.values()):
+        raise AssertionError(f"{arch}: finished {sorted(outs)}, lengths "
+                             f"{sorted({len(o) for o in outs.values()})}")
+    if not server.all_finite or any(
+            not 0 <= t < cfg.vocab for o in outs.values() for t in o):
+        raise AssertionError(f"{arch}: non-finite logits or tokens out of range")
+    steps = server.paged_decode_steps
+    calls = prefills[0] + steps
+    if launches != n_moe * calls or steps == 0:
+        raise AssertionError(
+            f"{arch}: moe_router launched {launches} times in {prefills[0]} "
+            f"prefills + {steps} decode steps; want {n_moe} per call")
+    first_p, first_d = server.first_logits, dense_logits[0]
+    if first_p.shape != (BATCH, cfg.vocab) or first_d.shape != first_p.shape:
+        raise AssertionError(f"{arch}: logits shapes {first_p.shape}, "
+                             f"{first_d.shape}")
+    if len(dense_log.calls) != n_moe or len(paged_log.calls) != n_moe:
+        raise AssertionError(f"{arch}: {len(dense_log.calls)} and "
+                             f"{len(paged_log.calls)} router calls logged in "
+                             f"the first decode step, want {n_moe}")
+    # top-k is discontinuous: where the paged kernel's f32 attention
+    # weights and the dense path's bf16 ones flip a near-tied expert
+    # choice, that row's logits differ by the expert's share; rows that
+    # chose alike are held to slice 1's tolerance, and must be most rows
+    same, flip_gaps = routing_agreement(dense_log.calls, paged_log.calls,
+                                        cfg.top_k)
+    diff_all = float(np.abs(first_p - first_d).max())
+    diff = float(np.abs(first_p[same] - first_d[same]).max()) if same.any() \
+        else float("inf")
+    scale = float(np.abs(first_d).max())
+    if 2 * int(same.sum()) < BATCH or diff > LOGIT_REL_TOL * scale:
+        raise AssertionError(
+            f"{arch} first decode step: {int(same.sum())} of {BATCH} rows "
+            f"routed alike; their paged vs dense logits differ by {diff} "
+            f"(> {LOGIT_REL_TOL} x max |logit| {scale}?); router gaps at "
+            f"the rows that flipped: {flip_gaps}")
+    if stats["pool_prefix_hits"] < 3 * (SHARED // PAGE_TOKENS):
+        raise AssertionError(f"{arch}: prefix sharing did not run: {stats}")
+    agree = [sum(a == b for a, b in zip(outs[r], dense_out[r])) for r in outs]
+    step_s = server.step_s
+    del server, prefill_one, counted_prefill
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (BATCH, PROMPT_LEN + 1), generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+    served_router = {}
+    for logits, k, cap, renormalize, _ in capture_router_calls(
+            model, ctx, params, toks):
+        tag = f"T{logits.shape[0]} C{cap}"
+        served_router[tag] = router_check(f"{arch} served router {tag}",
+                                          logits, k, cap, renormalize)
+    caches = model.prefill(params, ctx, {"inputs": toks[:, :PROMPT_LEN]},
+                           CACHE_LEN)[1]
+    pos = torch.full((BATCH,), PROMPT_LEN, dtype=torch.int32, device="cuda")
+    profile = {}
+    for name, fn in (
+            ("prefill", lambda: model.prefill(
+                params, ctx, {"inputs": toks[:1, :PROMPT_LEN]}, CACHE_LEN)),
+            ("decode_step", lambda: model.decode_step(
+                params, ctx, toks[:, PROMPT_LEN:], pos, caches))):
+        fn()  # warm (decode rewrites the same position: same work)
+        profile[name] = profile_call(fn, "router_ms", "moe_router_")
+    del caches, params
+    pygc.collect()
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "serve_" + arch.split("-")[0], "arch": arch,
+        "layers": cfg.n_layers, "layer_kinds": cfg.layer_kinds(),
+        "layers_published": ARCHS[arch].n_layers, "d_model": cfg.d_model,
+        "n_experts": cfg.n_experts, "top_k": cfg.top_k, "params": n_params,
+        "dtype": "bfloat16", "batch": BATCH, "cache_len": CACHE_LEN,
+        "page_tokens": PAGE_TOKENS, "prompt_len": PROMPT_LEN,
+        "max_new": MAX_NEW, "requests": stats["requests"],
+        "decoded_tokens": stats["decoded_tokens"],
+        "tok_per_s": stats["tok_per_s"], "p50_latency_s": stats["p50_latency_s"],
+        "p50_ttft_s": stats["p50_ttft_s"], "wall_s": stats["wall_s"],
+        "prefills": prefills[0], "decode_steps": steps,
+        "decode_step_ms_median": 1e3 * float(np.median(step_s)),
+        "decode_step_ms_mean": 1e3 * float(np.mean(step_s)),
+        "peak_device_mem_gib": peak_gib, "init_s": init_s,
+        "router_launches": launches,
+        "router_launches_expected": f"{n_moe} x ({prefills[0]} + {steps})",
+        "first_step_rows_routed_alike": int(same.sum()),
+        "first_step_logit_max_abs_diff": diff,
+        "first_step_logit_max_abs_diff_all_rows": diff_all,
+        "first_step_logit_max_abs": scale,
+        "first_step_router_gaps_at_flips": flip_gaps,
+        "greedy_token_agreement_with_dense": sum(agree) / (N_REQ * MAX_NEW),
+        "prefix_hits": stats["pool_prefix_hits"],
+        "preemptions": stats["sched_evictions"],
+        "dense_tok_per_s": dense_stats["tok_per_s"],
+        "dense_p50_latency_s": dense_stats["p50_latency_s"],
+        "served_router_max_abs_err": served_router, "profile": profile,
+    })
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1384,7 +1764,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    sources = build.sources()  # every csrc/*.cu: seven libraries
+    sources = build.sources()  # every csrc/*.cu: eight libraries
     seconds = build.build_all(sources)
     emit({"phase": "build", "kernels": sources, "seconds": seconds,
           "arch": "sm_90a", "nvcc_flags": list(build.NVCC_FLAGS)})
@@ -1402,6 +1782,9 @@ def main():
         "selective_scan": serve_recurrent_phase("falcon-mamba-7b"),
         "gated_linear_scan": serve_recurrent_phase("recurrentgemma-9b"),
     }
+    router_figures = router_phase()
+    router_launches = (serve_moe_phase("kimi-k2-1t-a32b")
+                       + serve_moe_phase("arctic-480b"))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1440,7 +1823,15 @@ def main():
         **{key: scan_figures[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-    } for name, (_, src, where) in SCAN_KERNELS.items()]})
+    } for name, (_, src, where) in SCAN_KERNELS.items()] + [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": f"src/repro/kernels/{where}",
+        "launches": router_launches,
+        **{key: router_figures[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, (_, src, where) in ROUTER_KERNELS.items()]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

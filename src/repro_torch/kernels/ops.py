@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gascore as _gc
+from repro_torch.kernels import moe_router as _moe
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru as _rglru
@@ -22,6 +23,9 @@ from repro_torch.kernels import ssm_scan as _ssm
 __all__ = [
     "attention",
     "paged_attention",
+    "moe_router",
+    "moe_dispatch",
+    "moe_combine",
     "ring_shift",
     "perm_put",
     "offset_put",
@@ -81,6 +85,22 @@ def paged_attention(
             q, k_pages, v_pages, page_table, lengths, scale=scale
         )
     raise ValueError(f"no paged_attention for device {q.device}")
+
+
+def moe_router(
+    logits: torch.Tensor, *, k: int, capacity: int, renormalize: bool = True
+):
+    """Top-k routing with capacity slots in token order: expert_idx,
+    slot, weight and keep, each (T, K), from (T, E) f32 logits."""
+    return _on(logits, _moe.moe_router, ref.route_topk, "moe_router")(
+        logits, k=k, capacity=capacity, renormalize=renormalize
+    )
+
+
+# dispatch/combine are the plain scatter and gather on both devices, as
+# in the reference (where XLA handles them)
+moe_dispatch = ref.moe_dispatch
+moe_combine = ref.moe_combine
 
 
 def selective_scan(

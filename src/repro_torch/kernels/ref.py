@@ -25,6 +25,9 @@ __all__ = [
     "flash_attention_dq",
     "flash_attention_bwd",
     "paged_attention",
+    "route_topk",
+    "moe_dispatch",
+    "moe_combine",
     "selective_scan",
     "mamba_final_state",
     "gated_linear_scan",
@@ -323,6 +326,84 @@ def paged_attention(
     out = torch.einsum("bhs,bhsd->bhd", p, vx)
     any_visible = valid.any(dim=-1)[:, None, None]
     return torch.where(any_visible, out, 0.0).to(q.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# MoE routing
+# --------------------------------------------------------------------------- #
+def route_topk(
+    logits: torch.Tensor, *, k: int, capacity: int, renormalize: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing with capacity slots in token order (the oracle).
+
+    f32 softmax over the E experts of each of the T tokens, then the k
+    largest probabilities, equal ones lower expert index first (as
+    ``jax.lax.top_k``; a stable descending sort keeps that order), the
+    weights optionally renormalised by ``max(sum, 1e-9)``.  ``slot`` is the
+    exclusive rank of each (token, choice) among the choices of the same
+    expert, in flat token-major order; ``keep = slot < capacity``.
+    Returns expert_idx (T, K) int32, slot (T, K) int32, weight (T, K) f32
+    and keep (T, K) bool."""
+    T, E = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)
+    w, e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, e = w[:, :k], e[:, :k]
+    if renormalize:
+        w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    oh = torch.nn.functional.one_hot(e.reshape(-1), E)  # (T*K, E)
+    excl = torch.cumsum(oh, dim=0) - oh
+    slot = (excl * oh).sum(-1)
+    keep = slot < capacity
+    return (
+        e.to(torch.int32),
+        slot.reshape(T, k).to(torch.int32),
+        w.float(),
+        keep.reshape(T, k),
+    )
+
+
+def moe_dispatch(
+    tokens: torch.Tensor,
+    expert_idx: torch.Tensor,
+    slot: torch.Tensor,
+    keep: torch.Tensor,
+    *,
+    n_experts: int,
+    capacity: int,
+) -> torch.Tensor:
+    """(T, D) tokens -> (E, C, D) expert buffers (dropped rows zero).  A
+    dropped choice adds zeros at (e, 0), as the reference does; kept
+    (e, s) pairs are unique, so the accumulation is exact in any order."""
+    T, D = tokens.shape
+    buf = tokens.new_zeros((n_experts, capacity, D))
+    for j in range(expert_idx.shape[1]):
+        e = expert_idx[:, j].long()
+        s = torch.where(keep[:, j], slot[:, j], 0).long()
+        contrib = torch.where(keep[:, j, None], tokens, 0)
+        buf.index_put_((e, s), contrib, accumulate=True)
+    return buf
+
+
+def moe_combine(
+    expert_out: torch.Tensor,
+    expert_idx: torch.Tensor,
+    slot: torch.Tensor,
+    weight: torch.Tensor,
+    keep: torch.Tensor,
+) -> torch.Tensor:
+    """(E, C, D) expert outputs -> (T, D) weighted combination.  A dropped
+    choice's slot (>= C) is clamped to C - 1, where the reference's gather
+    clamps it silently (a CUDA index out of range is a fault), and its row
+    is multiplied by a zero weight, as there: a NaN in that row gives NaN.
+    The K choices are summed in order from zero, in f32."""
+    C = expert_out.shape[1]
+    rows = expert_out[expert_idx.long(), slot.clamp(max=C - 1).long()]
+    w = torch.where(keep, weight, 0.0)
+    out = torch.zeros(rows.shape[:1] + rows.shape[2:], dtype=torch.float32,
+                      device=rows.device)
+    for j in range(rows.shape[1]):
+        out = out + rows[:, j] * w[:, j, None]
+    return out.to(expert_out.dtype)
 
 
 # --------------------------------------------------------------------------- #

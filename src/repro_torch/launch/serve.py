@@ -15,9 +15,14 @@ batch; per-row positions let rows be at different generation depths.
   prompt prefixes shared by page table, SLO-aware preemption with swap
   to a host memory tier or recompute.  Its decode step runs THROUGH the
   page table, with attention on the hand-written CUDA kernel on the card.
+  It serves the archs of ``global``, ``dense`` and ``moe`` blocks
+  (qwen3-4b, kimi-k2-1t-a32b, arctic-480b); every ``moe`` layer of every
+  forward, in either server, routes its tokens on the hand-written
+  router kernel on the card.
 
-Run: ``python -m repro_torch.launch.serve --role decode --paged``, or
-``--arch falcon-mamba-7b`` / ``--arch recurrentgemma-9b`` without
+Run: ``python -m repro_torch.launch.serve --role decode --paged``
+(``--arch kimi-k2-1t-a32b`` or ``--arch arctic-480b`` for the MoE archs),
+or ``--arch falcon-mamba-7b`` / ``--arch recurrentgemma-9b`` without
 ``--paged`` (their blocks cannot be paged; ``--paged`` raises)
 (``--device cpu`` runs on the CPU, with the kernels' plain versions).
 The tensor-parallel, pooled and disaggregated servers are not ported yet.
@@ -35,6 +40,12 @@ import torch
 
 from repro_torch.compat import resolve_device, tree_leaves, tree_map
 from repro_torch.obs import trace as obs_trace
+
+
+# block kinds whose caches have no token axis to page (recurrent states)
+# or a ring the paged path cannot address (sliding windows); ``global``,
+# ``dense`` and ``moe`` blocks page their attention KV
+UNPAGED_KINDS = frozenset({"local", "mamba", "rec"})
 
 
 def _paged_decode_views_fn(model, ctx, layout, device):
@@ -353,7 +364,7 @@ class PagedServer(Server):
                  eos_id: int = -1, device: Any = None, page_tokens: int = 8,
                  n_pool_pages: Optional[int] = None,
                  decode_step_us: float = 2000.0, prefill_us: float = 4000.0):
-        unpaged = sorted(set(model.cfg.layer_kinds()) - {"global"})
+        unpaged = sorted(set(model.cfg.layer_kinds()) & UNPAGED_KINDS)
         if unpaged:  # the reference fails here too (no token axis to page)
             raise ValueError(
                 f"paged decode unsupported for {unpaged} blocks: serve "
@@ -704,7 +715,8 @@ class PagedServer(Server):
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-4b",
-                    help="qwen3-4b, falcon-mamba-7b or recurrentgemma-9b")
+                    help="qwen3-4b, falcon-mamba-7b, recurrentgemma-9b, "
+                         "kimi-k2-1t-a32b or arctic-480b")
     ap.add_argument("--role", choices=("decode",), default="decode",
                     help="decode = colocated continuous batching (the only "
                          "role ported so far)")

@@ -144,16 +144,17 @@ class Model:
         computed from the config (the reference traces ``prefill`` with
         ``eval_shape``).  Independent of ``prompt_len``: prefill pads
         every attention cache to ``cache_len`` slots (a ``local`` block
-        to its ring of ``min(local_window, cache_len)``); the recurrent
-        blocks keep their conv window and state."""
+        to its ring of ``min(local_window, cache_len)``; ``dense`` and
+        ``moe`` blocks keep the ``global`` attention leaves); the
+        recurrent blocks keep their conv window and state."""
         del prompt_len
         cfg = self.cfg
         f32 = torch.float32
 
         def block(kind: str, lead) -> Dict[str, Any]:
-            if kind in ("global", "local"):
-                W = (cache_len if kind == "global"
-                     else min(cfg.local_window, cache_len))
+            if kind in ("global", "local", "dense", "moe"):
+                W = (min(cfg.local_window, cache_len) if kind == "local"
+                     else cache_len)
                 tail = (cfg.n_kv_heads, cfg.resolved_head_dim)
                 return {"attn": {
                     "k": TensorSpec(lead + (W,) + tail, cfg.dtype),

@@ -7,9 +7,11 @@ segment over stacked layer parameters; the port loops over the stacked
 leading axis, with the same parameter layout.
 
 The port runs the ``global`` and ``local`` kinds (GQA self-attention,
-full or sliding-window, + gated MLP), ``mamba`` (the mamba-1 selective
-SSM mixer) and ``rec`` (the RG-LRU mixer + MLP); the other kinds are
-validated here and fail where a block is built.
+full or sliding-window, + gated MLP), ``dense`` (``global`` with the
+dense FFN width, for MoE models' leading layers), ``moe`` (GQA
+self-attention + the mixture-of-experts FFN), ``mamba`` (the mamba-1
+selective SSM mixer) and ``rec`` (the RG-LRU mixer + MLP); the other
+kinds are validated here and fail where a block is built.
 """
 
 from __future__ import annotations
@@ -52,6 +54,14 @@ class ArchConfig:
     local_window: int = 1024
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_dense_residual: bool = False  # arctic: parallel dense FFN
+    n_shared_experts: int = 0  # kimi: always-on experts
+    first_dense_layers: int = 0  # kimi: leading dense layers
+    d_ff_dense: Optional[int] = None  # d_ff of dense/residual FFN if different
     # --- SSM (mamba1) ---
     ssm_state: int = 16
     d_inner: int = 0  # 0 -> 2 * d_model
@@ -84,9 +94,17 @@ class ArchConfig:
     def resolved_lru_width(self) -> int:
         return self.lru_width or self.d_model
 
+    @property
+    def resolved_d_ff_dense(self) -> int:
+        return self.d_ff_dense or self.d_ff
+
     def layer_kinds(self) -> List[str]:
-        """Per-layer kinds for the decoder stack (length n_layers)."""
-        return [self.pattern[i % len(self.pattern)] for i in range(self.n_layers)]
+        """Per-layer kinds for the decoder stack (length n_layers): the
+        leading ``dense`` layers, then the pattern repeated."""
+        kinds = ["dense"] * self.first_dense_layers
+        kinds += [self.pattern[i % len(self.pattern)]
+                  for i in range(max(self.n_layers - len(kinds), 0))]
+        return kinds[: self.n_layers]
 
 
 @dataclasses.dataclass(frozen=True)

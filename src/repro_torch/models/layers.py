@@ -1,9 +1,10 @@
 """Model layers of the port (params as plain dicts of tensors).
 
 Counterpart of ``repro.models.layers``, the subset qwen3-4b,
-falcon-mamba-7b and recurrentgemma-9b run: RMS norm, RoPE, causal GQA
-self-attention (full or sliding-window) with its prefill, dense-decode
-and paged-decode branches, the gated SiLU MLP, the depthwise causal conv,
+falcon-mamba-7b, recurrentgemma-9b, kimi-k2-1t-a32b and arctic-480b
+run: RMS norm, RoPE, causal GQA self-attention (full or sliding-window)
+with its prefill, dense-decode and paged-decode branches, the gated SiLU
+MLP, the mixture-of-experts FFN on one device, the depthwise causal conv,
 the mamba-1 mixer and the RG-LRU mixer.  Parameter trees have the
 reference's keys and shapes, so a tree crosses from JAX by value
 (``repro_torch.models.build.params_from_jax``).
@@ -270,8 +271,9 @@ def apply_attention(
 # --------------------------------------------------------------------------- #
 # MLP
 # --------------------------------------------------------------------------- #
-def mlp_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
-    D, Fd = cfg.d_model, cfg.d_ff
+def mlp_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=(),
+             d_ff: Optional[int] = None) -> Params:
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
     return {
         "norm": norm_init(D, gen.device, lead),
         "wi": linear_init(gen, D, (Fd,), cfg.dtype, lead=lead),
@@ -289,6 +291,80 @@ def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor,
     wg = use_weight(p["wg"], ctx)
     z = F.silu(h @ wg) * (h @ wi)
     return (z @ wo).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# MoE
+# --------------------------------------------------------------------------- #
+def _normal_per_matrix(gen, shape, dtype, scale: float) -> torch.Tensor:
+    """``_normal`` drawn one trailing matrix at a time, so that the f32
+    draw of a stacked expert tensor (kimi-k2's three are 5.6 G elements
+    each) never lies on the device whole."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for m in out.view((-1,) + tuple(shape[-2:])):
+        m.copy_(_normal(gen, tuple(shape[-2:]), dtype, scale))
+    return out
+
+
+def moe_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    lead = tuple(lead)
+    params = {
+        "norm": norm_init(D, gen.device, lead),
+        "router": linear_init(gen, D, (E,), torch.float32, lead=lead),
+        "wi": _normal_per_matrix(gen, lead + (E, D, Fd), cfg.dtype,
+                                 1.0 / math.sqrt(D)),
+        "wg": _normal_per_matrix(gen, lead + (E, D, Fd), cfg.dtype,
+                                 1.0 / math.sqrt(D)),
+        "wo": _normal_per_matrix(gen, lead + (E, Fd, D), cfg.dtype,
+                                 1.0 / math.sqrt(Fd)),
+    }
+    if cfg.n_shared_experts:
+        params["shared"] = mlp_init(cfg, ctx, gen, lead,
+                                    d_ff=cfg.d_ff * cfg.n_shared_experts)
+    if cfg.moe_dense_residual:
+        params["dense_res"] = mlp_init(cfg, ctx, gen, lead,
+                                       d_ff=cfg.resolved_d_ff_dense)
+    return params
+
+
+def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Slots per expert for one call of ``n_tokens`` tokens (the
+    reference's ``max(4, ceil(B S K cf / E))``): a token's output depends
+    on the other tokens of the same call."""
+    return max(4, int(math.ceil(n_tokens * cfg.top_k * cfg.capacity_factor
+                                / cfg.n_experts)))
+
+
+def _moe_local(p: Params, cfg: ArchConfig, ctx: RunCtx, x2d: torch.Tensor,
+               capacity: int) -> torch.Tensor:
+    """Single-device MoE: the router (the CUDA kernel on the card), the
+    dense dispatch into (E, C, D) buffers, the experts' products as
+    batched matrix products, the weighted combine."""
+    logits = x2d.float() @ p["router"]
+    e, s, w, keep = ops.moe_router(logits, k=cfg.top_k, capacity=capacity)
+    buf = ops.moe_dispatch(x2d, e, s, keep, n_experts=cfg.n_experts,
+                           capacity=capacity)
+    hidden = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
+    out_buf = torch.bmm(hidden, p["wo"])
+    return ops.moe_combine(out_buf, e, s, w, keep).to(x2d.dtype)
+
+
+def apply_moe(p: Params, cfg: ArchConfig, ctx: RunCtx,
+              x: torch.Tensor) -> torch.Tensor:
+    """The MoE FFN of a ``moe`` block (pre-norm, residual added by the
+    caller), plus the shared expert (kimi) or the dense residual FFN
+    (arctic), each with its own norm.  Local mode only: the reference's
+    expert-parallel ``_moe_ep`` needs a mesh."""
+    B, S, D = x.shape
+    h = apply_norm(p["norm"], x)
+    y = _moe_local(p, cfg, ctx, h.reshape(B * S, D),
+                   moe_capacity(cfg, B * S)).reshape(B, S, D)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], cfg, x, ctx)
+    if "dense_res" in p:
+        y = y + apply_mlp(p["dense_res"], cfg, x, ctx)
+    return y.to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #

@@ -32,10 +32,16 @@ Params = Dict[str, Any]
 # blocks
 # --------------------------------------------------------------------------- #
 def block_init(kind: str, cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
-    if kind in ("global", "local"):
+    if kind in ("global", "local", "dense"):
+        d_ff = cfg.resolved_d_ff_dense if kind == "dense" else cfg.d_ff
         return {
             "attn": L.attention_init(cfg, ctx, gen, lead),
-            "mlp": L.mlp_init(cfg, ctx, gen, lead=lead),
+            "mlp": L.mlp_init(cfg, ctx, gen, lead=lead, d_ff=d_ff),
+        }
+    if kind == "moe":
+        return {
+            "attn": L.attention_init(cfg, ctx, gen, lead),
+            "moe": L.moe_init(cfg, ctx, gen, lead),
         }
     if kind == "mamba":
         return {"mix": L.mamba_init(cfg, ctx, gen, lead)}
@@ -60,7 +66,7 @@ def block_apply(
     positions: torch.Tensor,
     page_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    if kind in ("global", "local"):
+    if kind in ("global", "local", "dense", "moe"):
         a, ac = L.apply_attention(
             p["attn"], cfg, ctx, x, positions=positions,
             window=cfg.local_window if kind == "local" else None, mode=mode,
@@ -68,7 +74,10 @@ def block_apply(
             cache_len=cache_len, page_table=page_table,
         )
         x = x + a
-        x = x + L.apply_mlp(p["mlp"], cfg, x, ctx)
+        if kind == "moe":
+            x = x + L.apply_moe(p["moe"], cfg, ctx, x)
+        else:
+            x = x + L.apply_mlp(p["mlp"], cfg, x, ctx)
         new_cache = {"attn": ac}
     elif kind in ("mamba", "rec"):
         if page_table is not None:

@@ -471,3 +471,109 @@ def test_cuda_prefill_and_decode_match_cpu(cuda, arch, kind):
                          runs["cpu"][1] + runs["cpu"][2]):
         torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
                                    rtol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# MoE router (csrc/moe_router.cu)
+# --------------------------------------------------------------------------- #
+# (T, E, K): kimi-k2's and arctic's widths at a lone token, a decode batch,
+# a ragged T, a prefill and a long prefill (many blocks); the reference
+# tests' four cases
+ROUTER_CASES = ([(T, 384, 8) for T in (1, 8, 77, 128, 8192)]
+                + [(T, 128, 2) for T in (1, 8, 77, 128, 8192)]
+                + [(512, 16, 2), (256, 8, 1), (512, 64, 8), (256, 128, 2)])
+
+
+def _router_logits(T, E, ties, seed):
+    x = np.random.default_rng(seed).normal(size=(T, E)).astype(np.float32)
+    if ties:  # repeated logits in every row, every fourth row constant
+        x = np.round(x * 2) / 2
+        x[::4] = 0.5
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("T,E,K", ROUTER_CASES)
+def test_cuda_moe_router_matches_plain(cuda, T, E, K, ties):
+    """Indices, slots and keep equal to the plain version's on the card,
+    weights within 1e-6, with and without renormalisation, at the model's
+    capacity for T tokens."""
+    from repro_torch.kernels import moe_router as mr
+
+    logits = torch.from_numpy(_router_logits(T, E, ties, T + E)).to(cuda)
+    cap = max(4, -(-T * K * 5 // (4 * E)))  # ceil(T K 1.25 / E)
+    for renormalize in (True, False):
+        before = mr.moe_router.launches
+        got = ops.moe_router(logits, k=K, capacity=cap,
+                             renormalize=renormalize)
+        torch.cuda.synchronize()
+        assert mr.moe_router.launches == before + 1
+        want = ref.route_topk(logits, k=K, capacity=cap,
+                              renormalize=renormalize)
+        assert [t.dtype for t in got] == [t.dtype for t in want]
+        for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
+            assert torch.equal(g, w)
+        torch.testing.assert_close(got[2], want[2], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_router_refusals(cuda):
+    from repro_torch.kernels import moe_router as mr
+
+    x = torch.randn((16, 384), device=cuda)
+    before = mr.moe_router.launches
+    with pytest.raises(TypeError):
+        mr.moe_router(x.bfloat16(), k=8, capacity=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        mr.moe_router(x.t(), k=8, capacity=4)
+    with pytest.raises(ValueError, match="experts"):
+        mr.moe_router(torch.randn((4, 1025), device=cuda), k=2, capacity=4)
+    with pytest.raises(ValueError, match="k="):
+        mr.moe_router(x[:, :4].contiguous(), k=5, capacity=4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mr.moe_router(x.clone().requires_grad_(), k=8, capacity=4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mr.moe_router(x.cpu(), k=8, capacity=4)
+    assert mr.moe_router.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "arctic-480b"])
+def test_cuda_moe_prefill_and_decode_match_cpu(cuda, arch):
+    """The SMOKE model (f32) on the card against the CPU run of the plain
+    versions: every forward launches the router once per ``moe`` layer,
+    and the logits and every cache leaf agree (summation order: 1e-4),
+    then over three decode steps."""
+    from repro_torch.compat import tree_leaves, tree_map
+    from repro_torch.configs.registry import SMOKE
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.models.build import build_model
+    from repro_torch.parallel.ctx import RunCtx
+
+    cfg = SMOKE[arch]
+    model, ctx = build_model(cfg), RunCtx()
+    params = model.init(ctx, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = mr.moe_router.launches
+        t_dev = toks.to(dev)
+        logits, caches = model.prefill(p, ctx, {"inputs": t_dev[:, :21]}, 48)
+        steps = [logits]
+        for t in range(21, 24):  # teacher-forced: the same tokens on both
+            logits, caches = model.decode_step(
+                p, ctx, t_dev[:, t:t + 1], torch.full((2,), t, dtype=torch.int32,
+                                                      device=dev), caches)
+            steps.append(logits)
+        runs[str(dev)] = (mr.moe_router.launches - before,
+                          [s.cpu() for s in steps],
+                          [c.cpu() for c in tree_leaves(caches)])
+    assert runs["cpu"][0] == 0
+    assert runs["cuda"][0] == 4 * cfg.layer_kinds().count("moe")
+    for got, want in zip(runs["cuda"][1] + runs["cuda"][2],
+                         runs["cpu"][1] + runs["cpu"][2]):
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=1e-4)
