@@ -184,12 +184,12 @@ def cuda_time_ms(fn, iters, flush):
     return total / iters
 
 
-def kernel_inputs(dtype, gen, lengths):
+def kernel_inputs(dtype, gen, lengths, hq=HQ, hkv=HKV):
     dev = torch.device("cuda")
     P = B * NP + 1  # the last page is NaN garbage
-    q = torch.randn((B, HQ, D), generator=gen, device=dev).to(dtype)
-    kp = torch.randn((P, T, HKV, D), generator=gen, device=dev).to(dtype)
-    vp = torch.randn((P, T, HKV, D), generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, hq, D), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((P, T, hkv, D), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((P, T, hkv, D), generator=gen, device=dev).to(dtype)
     kp[-1] = float("nan")
     vp[-1] = float("nan")
     perm = torch.randperm(B * NP, generator=gen, device=dev)
@@ -214,25 +214,43 @@ def kernel_bound_ms(dtype, lengths):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_check(name, q, kp, vp, table, lens, scale=None, relative=False):
+    """The kernel against the plain version on the same inputs: finite,
+    and within ``KERNEL_ATOL`` (with ``relative``, times the output's
+    scale where that exceeds 1: bf16 rounds relative to the value).
+    Returns the max |difference|."""
+    got = pa.paged_attention(q, kp, vp, table, lens, scale=scale)
+    want = ref.paged_attention(q, kp, vp, table, lens, scale=scale)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    tol = KERNEL_ATOL[q.dtype]
+    if relative:
+        tol *= max(1.0, want.float().abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"{name}: max |kernel - plain| {err} > {tol}")
+    return err
+
+
+# the MoE archs' head shapes: kimi-k2 64 q / 8 KV heads (a group of 8),
+# arctic 56 / 8 (a group of 7, not a power of two)
+MOE_HEADS = ((64, 8), (56, 8))
+
+
 def kernel_phase():
     gen = torch.Generator(device="cuda").manual_seed(1)
     rng = np.random.default_rng(1)
     lengths = [1, CACHE_LEN] + rng.integers(1, CACHE_LEN + 1, size=B - 2).tolist()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    out = {}
+    out, heads = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         args = kernel_inputs(dtype, gen, lengths)
-        got = pa.paged_attention(*args)
-        want = ref.paged_attention(*args)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got.float()).all():
-            raise AssertionError(f"paged_attention {dtype}: non-finite output")
-        err = (got.float() - want.float()).abs().max().item()
-        if err > KERNEL_ATOL[dtype]:
-            raise AssertionError(
-                f"paged_attention {dtype}: max |kernel - plain| {err} "
-                f"> {KERNEL_ATOL[dtype]}"
-            )
+        err = paged_check(f"paged_attention {dtype}", *args)
+        for hq, hkv in MOE_HEADS:
+            tag = f"Hq{hq} Hkv{hkv} {str(dtype).split('.')[-1]}"
+            heads[tag] = paged_check(f"paged_attention {tag}", *kernel_inputs(
+                dtype, gen, lengths, hq, hkv))
         ms = cuda_time_ms(lambda: pa.paged_attention(*args), 50, flush)
         plain_ms = cuda_time_ms(lambda: ref.paged_attention(*args), 10, flush)
         bound_ms, bound_by = kernel_bound_ms(dtype, lengths)
@@ -242,7 +260,7 @@ def kernel_phase():
         }
     emit({"phase": "kernel", "name": pa.NAME, "shape": {
         "B": B, "Hq": HQ, "Hkv": HKV, "D": D, "T": T, "NP": NP,
-        "lengths": lengths}, "results": out})
+        "lengths": lengths}, "results": out, "other_heads_max_abs_err": heads})
     return out
 
 
@@ -1409,6 +1427,10 @@ ROUTER_OTHER_T = (1, 77)
 # (T, E, K, capacity): the reference's four cases (tests/test_kernels.py)
 ROUTER_REF_CASES = [(512, 16, 2, 80), (256, 8, 1, 64), (512, 64, 8, 72),
                     (256, 128, 2, 8)]
+# (T, E, K): E 256 and E 1024, the kernel's 8 and 32 experts per lane,
+# which no served arch reaches; K 32 is the kernel's largest
+ROUTER_WIDE_CASES = [(77, 256, 8), (8192, 256, 8), (128, 1024, 8),
+                     (77, 1024, 32), (8192, 1024, 8)]
 # weights: the probabilities are bit-equal (the kernel sums as torch's warp
 # softmax does); the renormalising sum over K may round apart
 ROUTER_W_TOL = 1e-6
@@ -1458,12 +1480,14 @@ def router_bounds(T, E, K):
             "bytes": nbytes, "flops": flops}
 
 
-def device_ms(fn, iters, tag=None):
+def device_ms(fn, iters, tag=None, flush=None):
     """Device time per call of ``fn``: the durations of its GPU kernels
     (those whose names hold ``tag``, when given) summed under
-    ``torch.profiler`` over ``iters`` back-to-back calls after a warm one.
-    For work of a few microseconds, CUDA events around one call time the
-    host's enqueue instead: the device waits for the launch."""
+    ``torch.profiler`` over ``iters`` back-to-back calls after a warm one;
+    with ``flush`` (and a ``tag``, which leaves the flush's own kernel
+    out), the 50 MB L2 is overwritten before every call.  For work of a
+    few microseconds, CUDA events around one call time the host's enqueue
+    instead: the device waits for the launch."""
     fn()
     torch.cuda.synchronize()
     prof = torch.profiler.profile(activities=[
@@ -1471,6 +1495,8 @@ def device_ms(fn, iters, tag=None):
     ])
     with prof:
         for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     us = [evt.time_range.elapsed_us() for evt in prof.events()
@@ -1484,10 +1510,12 @@ def device_ms(fn, iters, tag=None):
 def router_phase():
     """The kernel against its plain version on every case; times at the
     served widths: device time (profiler), and the host's enqueue per
-    call.  The logits are not flushed from L2: the model's router reads
-    them straight after the product that wrote them.  Returns kimi-k2's
-    prefill figures (T 128)."""
+    call.  ``ms`` leaves the logits in L2, as the model's router finds
+    them straight after the product that wrote them; ``ms_l2_flushed``
+    reads them from HBM, as the bound assumes.  Returns kimi-k2's prefill
+    figures (T 128)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     checked, figures = {}, {}
     for arch in ROUTER_ARCHS:
         cfg = ARCHS[arch]
@@ -1503,6 +1531,7 @@ def router_phase():
             figures[name] = {
                 "arch": arch, "capacity": cap, "max_abs_err": err,
                 "ms": device_ms(kernel, 50, "moe_router_"),
+                "ms_l2_flushed": device_ms(kernel, 50, "moe_router_", flush),
                 "plain_ms": device_ms(plain, 10),
                 "host_us": host_us(kernel), "plain_host_us": host_us(plain, 10),
                 "library_ms": None, **router_bounds(T, E, K)}
@@ -1516,6 +1545,12 @@ def router_phase():
                                         K, moe_layers.moe_capacity(cfg, T),
                                         renormalize)
     for T, E, K, C in ROUTER_REF_CASES:
+        for ties in (False, True):
+            tag = f"E{E} K{K} T{T} C{C} ties={ties}"
+            checked[tag] = router_check(tag, router_logits(T, E, gen, ties),
+                                        K, C)
+    for T, E, K in ROUTER_WIDE_CASES:
+        C = max(4, -(-T * K * 5 // (4 * E)))  # ceil(T K 1.25 / E)
         for ties in (False, True):
             tag = f"E{E} K{K} T{T} C{C} ties={ties}"
             checked[tag] = router_check(tag, router_logits(T, E, gen, ties),
@@ -1535,59 +1570,87 @@ def router_phase():
 MOE_LAYERS = 2
 
 
-class RouteLog:
-    """While installed, ``ops.moe_router`` passes through and, while
-    ``on``, keeps each call's inputs and expert choices (no launch of its
-    own): (logits, k, capacity, renormalize, expert_idx)."""
+class OpLog:
+    """While installed, ``ops.<name>`` passes through and, while ``on``,
+    keeps ``record(out, *args, **kwargs)`` of each call (no launch of its
+    own)."""
 
-    def __init__(self, on=False):
-        self.on, self.calls, self.real = on, [], ops.moe_router
+    def __init__(self, name, record, on=False):
+        self.name, self.record, self.on, self.calls = name, record, on, []
+        self.real = getattr(ops, name)
 
     def __enter__(self):
-        def logged(logits, *, k, capacity, renormalize=True):
-            out = self.real(logits, k=k, capacity=capacity,
-                            renormalize=renormalize)
+        def logged(*a, **kw):
+            out = self.real(*a, **kw)
             if self.on:
-                self.calls.append((logits.clone(), k, capacity, renormalize,
-                                   out[0].clone()))
+                self.calls.append(self.record(out, *a, **kw))
             return out
 
-        ops.moe_router = logged
+        setattr(ops, self.name, logged)
         return self
 
     def __exit__(self, *exc):
-        ops.moe_router = self.real
+        setattr(ops, self.name, self.real)
 
 
-def log_first_call(fn, log):
-    """``fn``, with ``log`` on during its first call only."""
+def route_record(out, logits, *, k, capacity, renormalize=True):
+    """A router call's inputs and expert choices: (logits, k, capacity,
+    renormalize, expert_idx)."""
+    return logits.clone(), k, capacity, renormalize, out[0].clone()
+
+
+def attn_record(out, q, k_pages, v_pages, page_table, lengths, *, scale=None):
+    """A paged-attention call's inputs, copied (later steps write the
+    pool): ((q, k_pages, v_pages, page_table, lengths), scale)."""
+    args = (q, k_pages, v_pages, page_table, lengths)
+    return tuple(t.clone() for t in args), scale
+
+
+def log_first_call(fn, *logs):
+    """``fn``, with ``logs`` on during its first call only."""
+    first_call = [True]
+
     def first(*a):
-        log.on = not log.calls
+        for log in logs:
+            log.on = first_call[0]
+        first_call[0] = False
         try:
             return fn(*a)
         finally:
-            log.on = False
+            for log in logs:
+                log.on = False
     return first
 
 
 def routing_agreement(dense_calls, paged_calls, k):
-    """Per row of the first decode step, whether every ``moe`` layer chose
-    the same set of experts in both servers; and, at each row that chose
-    apart, the dense path's gap between its k-th and (k+1)-th router
-    probability in the first layer that did (a near tie that bf16-level
-    differences of the attention flip)."""
-    same, gaps = None, []
+    """The first decode step's ``moe`` layers, dense server against paged.
+    Returns per row whether every layer chose the same set of experts in
+    both; at each row that chose apart, the dense path's gap between its
+    k-th and (k+1)-th router probability in the first layer that did (a
+    near tie that bf16-level differences of the attention flip); and per
+    layer the max |router logit difference| on the rows that routed alike
+    in every earlier layer (all rows in the first ``moe`` layer: its
+    logits are continuous in the attention's outputs), with their count
+    and the max |router logit|."""
+    same, gaps, logit_diffs = None, [], []
     for dense, paged in zip(dense_calls, paged_calls):
+        dl, pl = dense[0].float().cpu(), paged[0].float().cpu()
+        rows = torch.ones(dl.shape[0], dtype=torch.bool) if same is None \
+            else same
+        logit_diffs.append({
+            "rows": int(rows.sum()),
+            "max_abs_diff": float((dl - pl)[rows].abs().max())
+            if rows.any() else 0.0,
+            "max_abs": float(dl.abs().max())})
         de, pe = dense[-1].cpu(), paged[-1].cpu()
         agree = (de.sort(-1).values == pe.sort(-1).values).all(-1)
-        p = torch.softmax(dense[0].float().cpu(), -1)
-        p = p.sort(-1, descending=True).values
+        p = torch.softmax(dl, -1).sort(-1, descending=True).values
         gap = p[:, k - 1] - p[:, k]
         for r in torch.nonzero(~agree).flatten().tolist():
             if same is None or same[r]:
                 gaps.append(float(gap[r]))
         same = agree if same is None else same & agree
-    return same.numpy(), gaps
+    return same.numpy(), gaps, logit_diffs
 
 
 def capture_router_calls(model, ctx, params, toks):
@@ -1595,7 +1658,7 @@ def capture_router_calls(model, ctx, params, toks):
     (T = its length), a batch prefills (T = batch x length) and that batch
     decodes one step (T = batch)."""
     S = toks.shape[1] - 1
-    with RouteLog(on=True) as log:
+    with OpLog("moe_router", route_record, on=True) as log:
         model.prefill(params, ctx, {"inputs": toks[:1, :S]}, CACHE_LEN)
         _, caches = model.prefill(params, ctx, {"inputs": toks[:, :S]},
                                   CACHE_LEN)
@@ -1629,7 +1692,9 @@ def serve_moe_phase(arch):
             dense_logits.append(logits.float().cpu().numpy())
         return logits, caches
 
-    dense_log, paged_log = RouteLog(), RouteLog()
+    dense_log = OpLog("moe_router", route_record)
+    paged_log = OpLog("moe_router", route_record)
+    attn_log = OpLog("paged_attention", attn_record)
     dense._decode = log_first_call(recording_decode, dense_log)
     for r in requests(cfg.vocab):
         dense.submit(r)
@@ -1647,11 +1712,12 @@ def serve_moe_phase(arch):
         return prefill_one(*a)
 
     server._prefill_one = counted_prefill
-    server._decode_paged = log_first_call(server._decode_paged, paged_log)
+    server._decode_paged = log_first_call(server._decode_paged, paged_log,
+                                          attn_log)
     for r in requests(cfg.vocab):
         server.submit(r)
     torch.cuda.reset_peak_memory_stats()
-    with paged_log:
+    with paged_log, attn_log:
         mr.moe_router.launches = 0  # the main path starts here
         stats = server.run_until_drained()
         launches = mr.moe_router.launches
@@ -1679,12 +1745,33 @@ def serve_moe_phase(arch):
         raise AssertionError(f"{arch}: {len(dense_log.calls)} and "
                              f"{len(paged_log.calls)} router calls logged in "
                              f"the first decode step, want {n_moe}")
+    # the paged-attention kernel at this arch's head shape, on every row
+    # of the served step's own inputs (shared prefix pages included)
+    if len(attn_log.calls) != cfg.n_layers:
+        raise AssertionError(f"{arch}: {len(attn_log.calls)} paged attention "
+                             f"calls logged in the first decode step, want "
+                             f"{cfg.n_layers}")
+    served_attn = [paged_check(f"{arch} served paged_attention layer {i}",
+                               *args, scale=scale, relative=True)
+                   for i, (args, scale) in enumerate(attn_log.calls)]
+    attn_shape = {"Hq": int(attn_log.calls[0][0][0].shape[1]),
+                  "Hkv": int(attn_log.calls[0][0][1].shape[2]),
+                  "lengths": attn_log.calls[0][0][4].tolist()}
+    del attn_log
     # top-k is discontinuous: where the paged kernel's f32 attention
     # weights and the dense path's bf16 ones flip a near-tied expert
-    # choice, that row's logits differ by the expert's share; rows that
-    # chose alike are held to slice 1's tolerance, and must be most rows
-    same, flip_gaps = routing_agreement(dense_log.calls, paged_log.calls,
-                                        cfg.top_k)
+    # choice, that row's logits differ by the expert's share.  The router
+    # logits are held to slice 1's tolerance on every row that routed
+    # alike upstream (every row in the first moe layer); the model's
+    # logits on the rows that chose alike in every layer, most rows
+    same, flip_gaps, router_diffs = routing_agreement(
+        dense_log.calls, paged_log.calls, cfg.top_k)
+    for i, d in enumerate(router_diffs):
+        if d["max_abs_diff"] > LOGIT_REL_TOL * d["max_abs"]:
+            raise AssertionError(
+                f"{arch} first decode step, moe layer {i}: paged vs dense "
+                f"router logits differ by {d['max_abs_diff']} on {d['rows']} "
+                f"rows (> {LOGIT_REL_TOL} x max |logit| {d['max_abs']})")
     diff_all = float(np.abs(first_p - first_d).max())
     diff = float(np.abs(first_p[same] - first_d[same]).max()) if same.any() \
         else float("inf")
@@ -1746,6 +1833,8 @@ def serve_moe_phase(arch):
         "first_step_logit_max_abs_diff_all_rows": diff_all,
         "first_step_logit_max_abs": scale,
         "first_step_router_gaps_at_flips": flip_gaps,
+        "first_step_router_logits": router_diffs,
+        "served_paged_attention": {**attn_shape, "max_abs_err": served_attn},
         "greedy_token_agreement_with_dense": sum(agree) / (N_REQ * MAX_NEW),
         "prefix_hits": stats["pool_prefix_hits"],
         "preemptions": stats["sched_evictions"],

@@ -1,7 +1,13 @@
 """kimi-k2-1t-a32b — trillion-param MoE: 384 experts top-8, one shared
 expert, first layer dense [Kimi K2 paper table].  The dense first layer's
 d_ff is set active-parameter-matched (top_k * expert d_ff) since the
-assignment table specifies only the expert width."""
+assignment table specifies only the expert width.
+
+Copied by value from the reference package's config.  It departs from the
+published model (moonshotai/Kimi-K2-Instruct): GQA with 8 KV heads in
+place of multi-head latent attention, a dense d_ff of 16384 in place of
+18432, and a softmax router in place of a sigmoid one with a
+bias-corrected top-k and a routed scaling factor."""
 
 import dataclasses
 

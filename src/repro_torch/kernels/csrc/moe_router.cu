@@ -37,7 +37,7 @@
 //   3. finish: one thread per choice adds its block's offset for its
 //      expert and writes keep.
 // Blocks hold 8 warps of 1-8 tokens each (the wrapper picks the tokens a
-// warp takes so that a call fills about one wave of the 132 SMs).
+// warp takes so that a call fills about one wave of the card's SMs).
 // Non-finite logits give unspecified choices, always within [0, E).
 
 #include <cuda_runtime.h>

@@ -27,7 +27,6 @@ __all__ = ["moe_router", "tokens_per_warp", "NAME"]
 NAME = "moe_router"
 MAX_EXPERTS = 1024  # 32 per lane of the warp that routes a token
 MAX_K = 32  # lane j keeps choice j
-SMS = 132  # H100 SXM: the grid aims at about one wave
 
 _fns = None
 
@@ -47,10 +46,10 @@ def _kernel():
     return _fns
 
 
-def tokens_per_warp(T: int) -> int:
+def tokens_per_warp(T: int, sms: int) -> int:
     """Tokens each warp routes: 1 while 8-token blocks fit one wave of the
-    SMs, up to 8 (64-token blocks) for long prefills."""
-    return max(1, min(8, -(-T // (8 * SMS))))
+    ``sms`` SMs, up to 8 (64-token blocks) for long prefills."""
+    return max(1, min(8, -(-T // (8 * sms))))
 
 
 def moe_router(
@@ -89,7 +88,8 @@ def moe_router(
     if T == 0:
         return eidx, slot, weight, keep
     launch, blocks = _kernel()
-    tpw = tokens_per_warp(T)
+    tpw = tokens_per_warp(
+        T, torch.cuda.get_device_properties(dev).multi_processor_count)
     nblocks = blocks(T, tpw)
     counts = (torch.empty((nblocks, E), dtype=torch.int32, device=dev)
               if nblocks > 1 else None)

@@ -478,10 +478,13 @@ def test_cuda_prefill_and_decode_match_cpu(cuda, arch, kind):
 # --------------------------------------------------------------------------- #
 # (T, E, K): kimi-k2's and arctic's widths at a lone token, a decode batch,
 # a ragged T, a prefill and a long prefill (many blocks); the reference
-# tests' four cases
+# tests' four cases; E 256 and E 1024 (the kernel's 8 and 32 experts per
+# lane), with K 32 at the largest E
 ROUTER_CASES = ([(T, 384, 8) for T in (1, 8, 77, 128, 8192)]
                 + [(T, 128, 2) for T in (1, 8, 77, 128, 8192)]
-                + [(512, 16, 2), (256, 8, 1), (512, 64, 8), (256, 128, 2)])
+                + [(512, 16, 2), (256, 8, 1), (512, 64, 8), (256, 128, 2)]
+                + [(77, 256, 8), (8192, 256, 8), (128, 1024, 8),
+                   (77, 1024, 32), (8192, 1024, 8)])
 
 
 def _router_logits(T, E, ties, seed):

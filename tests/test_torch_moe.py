@@ -105,8 +105,9 @@ def test_router_wrapper_refuses_cpu_tensors():
 
 def test_tokens_per_warp_fills_a_wave():
     tpw = moe_router.tokens_per_warp
-    assert [tpw(t) for t in (1, 8, 128, 1056, 1057, 8192, 10**6)] == [
+    assert [tpw(t, 132) for t in (1, 8, 128, 1056, 1057, 8192, 10**6)] == [
         1, 1, 1, 1, 2, 8, 8]
+    assert [tpw(t, 114) for t in (912, 913, 8192)] == [1, 2, 8]
 
 
 def test_dispatch_and_combine_bit_exact():
