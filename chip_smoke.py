@@ -67,10 +67,10 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              (a decode batch), 128 (a prefill) and 8,192, at T 1 and 77,
              without renormalisation, on rows with repeated logits (the tie
              rule) and at the reference tests' four cases; indices, slots
-             and keep equal, weights within 1e-6; its device time under
-             ``torch.profiler`` (back-to-back calls, the logits in L2 as
-             the model leaves them) beside its bound, the host's enqueue
-             apart.
+             and keep equal, weights within 1e-6; its device time by CUDA
+             events behind a sleep kernel (the logits in L2 as the model
+             leaves them, and with L2 flushed) beside its bound, the
+             host's enqueue apart.
 13. serve_kimi — kimi-k2-1t-a32b at full width on 2 layers (the dense
              first layer and one ``moe`` layer of 384 experts, bf16, seeded
              random weights) through ``PagedServer`` with slice 1's
@@ -1480,39 +1480,45 @@ def router_bounds(T, E, K):
             "bytes": nbytes, "flops": flops}
 
 
-def device_ms(fn, iters, tag=None, flush=None):
-    """Device time per call of ``fn``: the durations of its GPU kernels
-    (those whose names hold ``tag``, when given) summed under
-    ``torch.profiler`` over ``iters`` back-to-back calls after a warm one;
-    with ``flush`` (and a ``tag``, which leaves the flush's own kernel
-    out), the 50 MB L2 is overwritten before every call.  For work of a
-    few microseconds, CUDA events around one call time the host's enqueue
-    instead: the device waits for the launch."""
+def device_ms(fn, iters, flush=None):
+    """Median device time of one call of ``fn``: CUDA events around the
+    call, with a sleep kernel queued ahead of them, so the device reaches
+    the start event only once the host has enqueued the call and the stop
+    event; the events then time the device's work and not the host's
+    enqueue (tens of microseconds against the router's few).  Where the
+    device reached the start event first, the sleep is doubled and the
+    call timed again.  With ``flush``, the 50 MB L2 is overwritten between
+    the sleep and the start event."""
     fn()
     torch.cuda.synchronize()
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
-    ])
-    with prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = [evt.time_range.elapsed_us() for evt in prof.events()
-          if evt.device_type == torch.autograd.DeviceType.CUDA
-          and (tag is None or tag in evt.name)]
-    if not us:
-        raise AssertionError("the profiler saw no kernel of the call")
-    return sum(us) / 1e3 / iters
+    cycles, times = 1 << 21, []
+    while len(times) < iters:
+        torch.cuda._sleep(cycles)
+        if flush is not None:
+            flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        late = e0.query()
+        e1.synchronize()
+        if not late:
+            times.append(e0.elapsed_time(e1))
+        elif cycles >= 1 << 30:
+            raise AssertionError("the host never enqueued a call ahead of "
+                                 "the device")
+        else:
+            cycles *= 2
+    return float(np.median(times))
 
 
 def router_phase():
     """The kernel against its plain version on every case; times at the
-    served widths: device time (profiler), and the host's enqueue per
-    call.  ``ms`` leaves the logits in L2, as the model's router finds
-    them straight after the product that wrote them; ``ms_l2_flushed``
-    reads them from HBM, as the bound assumes.  Returns kimi-k2's prefill
+    served widths: device time (CUDA events, ``device_ms``), and the
+    host's enqueue per call.  ``ms`` leaves the logits in L2, as the
+    model's router finds them straight after the product that wrote them;
+    ``ms_l2_flushed`` reads them from HBM, as the bound assumes.  Returns kimi-k2's prefill
     figures (T 128)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -1530,8 +1536,8 @@ def router_phase():
             plain = lambda: ref.route_topk(x, k=K, capacity=cap)  # noqa: E731
             figures[name] = {
                 "arch": arch, "capacity": cap, "max_abs_err": err,
-                "ms": device_ms(kernel, 50, "moe_router_"),
-                "ms_l2_flushed": device_ms(kernel, 50, "moe_router_", flush),
+                "ms": device_ms(kernel, 50),
+                "ms_l2_flushed": device_ms(kernel, 50, flush),
                 "plain_ms": device_ms(plain, 10),
                 "host_us": host_us(kernel), "plain_host_us": host_us(plain, 10),
                 "library_ms": None, **router_bounds(T, E, K)}
