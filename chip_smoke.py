@@ -32,10 +32,17 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
 7. flash   — the flash-attention forward, dK/dV and dQ kernels against
              their plain versions at qwen3-4b's training shape (batch 2 x
              seq 2048, 32 q / 8 KV heads of dim 128, causal) in bf16 and
-             f32 and at the reference's small cases (GQA, windows,
-             non-causal, bf16); timed with CUDA events beside their bound
-             and ``scaled_dot_product_attention`` (forward, and its
-             autograd backward) as the library yardstick.
+             f32, at the reference's small cases (GQA, windows,
+             non-causal, bf16) and at the edges of the bf16 kernels'
+             tiles (ragged S, Sq != Sk, D 16 and 32, narrow windows, a
+             GQA group of 7); timed with CUDA events beside their bound
+             (``ms``: events around one call, the host's enqueue
+             included; ``device_ms``, and the µs, TFLOP/s and share of
+             the bound: the device's time alone) and
+             ``scaled_dot_product_attention`` (forward, and its autograd
+             backward) as the library yardstick; ``cuobjdump`` shows
+             HGMMA in the bf16 forward and dK/dV kernels and none in the
+             SIMT ones (dQ, f32).
 8. train   — qwen3-4b at full width and depth (36 layers, bf16, random
              weights from a seeded generator) through ``Trainer``: batch 2 x
              seq 2048, full remat, AdamW with f32 moments, 6 steps (the
@@ -95,6 +102,7 @@ import dataclasses
 import gc as pygc  # "gc" names the GAScore kernels below
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -811,7 +819,9 @@ def serve_phase():
 # --------------------------------------------------------------------------- #
 # the training path's attention: qwen3-4b, batch 2 x seq 2048, causal
 TRAIN_SHAPE = (2, 32, 8, 2048, 128, True, None)  # B, Hq, Hkv, S, D, causal, window
-# the reference's FA_CASES (tests/test_kernels.py:21-28)
+# the reference's FA_CASES (tests/test_kernels.py:21-28), then bf16 cases at
+# the edges of the tensor-core kernels' tiles (128 q x 128 kv rows forward,
+# 64 q x 128 kv dK/dV); S is (Sq, Sk) where they differ
 FLASH_SMALL = [
     (2, 4, 2, 256, 64, True, None, torch.float32),
     (1, 4, 4, 128, 128, True, None, torch.float32),
@@ -819,6 +829,16 @@ FLASH_SMALL = [
     (1, 2, 1, 128, 64, False, None, torch.float32),
     (1, 4, 1, 256, 128, True, None, torch.bfloat16),
     (1, 2, 2, 128, 64, True, 32, torch.bfloat16),
+    (2, 4, 2, 96, 64, True, None, torch.bfloat16),  # S not a tile multiple
+    (1, 4, 2, 192, 128, True, None, torch.bfloat16),  # blocks of 64
+    (1, 4, 2, (128, 384), 64, True, None, torch.bfloat16),
+    (1, 4, 2, (128, 384), 128, False, None, torch.bfloat16),
+    (1, 4, 2, (384, 128), 64, False, 32, torch.bfloat16),  # rows see no key
+    (2, 4, 2, 256, 16, True, None, torch.bfloat16),
+    (2, 4, 2, 256, 32, False, None, torch.bfloat16),
+    (1, 4, 2, 256, 64, True, 20, torch.bfloat16),  # window < one tile
+    (1, 4, 2, 256, 128, False, 20, torch.bfloat16),
+    (1, 56, 8, 256, 128, True, None, torch.bfloat16),  # a group of 7
 ]
 # |kernel - plain| <= tol * (1 + |plain|) elementwise.  Both sides take f32
 # products from the same inputs: f32 differs by summation order (the
@@ -851,32 +871,36 @@ def within(name, got, want, tol):
 
 def flash_inputs(case, gen):
     B, Hq, Hkv, S, D, causal, window, dtype = case
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
     dev = torch.device("cuda")
-    q, dout = (torch.randn((B, Hq, S, D), generator=gen, device=dev).to(dtype)
+    q, dout = (torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dtype)
                for _ in range(2))
-    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, Hkv, Sk, D), generator=gen, device=dev).to(dtype)
             for _ in range(2))
-    return q, k, v, dout, dict(causal=causal, window=window)
+    # the reference's largest blocks (128, then 64) that tile both sequences
+    block = 128 if all(n % min(128, n) == 0 for n in (Sq, Sk)) else 64
+    return q, k, v, dout, dict(causal=causal, window=window), dict(
+        block_q=block, block_k=block)
 
 
 def flash_check(case, gen):
     """Each kernel against its plain version on the same inputs; returns
     the max |kernel - plain| of out, lse, dk, dv and dq, and the inputs."""
-    q, k, v, dout, kw = flash_inputs(case, gen)
+    q, k, v, dout, kw, blocks = flash_inputs(case, gen)
     tol = FLASH_TOL[case[-1]]
     name = f"flash {case}"
-    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw, **blocks)
     want_out, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
     errs = {"out": within(f"{name} out", out, want_out, tol["fwd"]),
             "lse": within(f"{name} lse", lse, want_lse, LSE_TOL)}
     delta = (dout.float() * want_out.float()).sum(-1)
     args = (q, k, v, dout, want_lse, delta)
-    dk, dv = fab.flash_attention_dkv(*args, **kw)
+    dk, dv = fab.flash_attention_dkv(*args, **kw, **blocks)
     want_dk, want_dv = ref.flash_attention_dkv(*args, **kw)
     errs["dk"] = within(f"{name} dk", dk, want_dk, tol["bwd"])
     errs["dv"] = within(f"{name} dv", dv, want_dv, tol["bwd"])
     del want_dk, want_dv
-    dq = fab.flash_attention_dq(*args, **kw)
+    dq = fab.flash_attention_dq(*args, **kw, **blocks)
     errs["dq"] = within(f"{name} dq", dq, ref.flash_attention_dq(*args, **kw),
                         tol["bwd"])
     torch.cuda.synchronize()
@@ -934,8 +958,54 @@ def sdpa_calls(q, k, v, dout, causal):
     return fwd, bwd
 
 
+# each flash kernel's name in the libraries' SASS: (library, count of
+# instantiations, whether its products run on the tensor cores)
+FLASH_SASS = {
+    "fwd_bf16_kernel": (fa.NAME, 4, True),  # D 16, 32, 64, 128
+    "dkv_bf16_kernel": (fab.NAME, 4, True),
+    "dq_kernel": (fab.NAME, 8, False),  # f32 and bf16
+    "fwd_kernel": (fa.NAME, 4, False),  # f32
+    "dkv_kernel": (fab.NAME, 4, False),  # f32
+}
+SASS_OPS = ("HGMMA", "HMMA", "FFMA")
+
+
+def flash_sass():
+    """``cuobjdump --dump-sass`` of the two flash libraries: every
+    instantiation of the bf16 forward and dK/dV kernels issues HGMMA
+    (wgmma); the dQ kernel (both dtypes) and the f32 kernels stay SIMT
+    (FFMA, no HGMMA or HMMA).  Returns the opcode counts per kernel and
+    instantiation."""
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    found = {}
+    for lib in sorted({lib for lib, _, _ in FLASH_SASS.values()}):
+        text = subprocess.run(
+            [str(tool), "--dump-sass", str(build.library_path(lib))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        for body in text.split("Function : ")[1:]:
+            mangled = body.split()[0]
+            m = re.search(r"\d(fwd_bf16|dkv_bf16|dq|fwd|dkv)_kernelI(.*?)"
+                          r"Li(\d+)E", mangled)
+            if m is None:
+                continue
+            dtype = "float32" if m.group(2) == "f" else "bfloat16"
+            found[f"{m.group(1)}_kernel<{dtype},{m.group(3)}>"] = {
+                op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPS}
+    for kernel, (lib, n, tensor_cores) in FLASH_SASS.items():
+        mine = {k: v for k, v in found.items() if k.startswith(kernel + "<")}
+        if len(mine) != n:
+            raise AssertionError(f"SASS of lib{lib}: {sorted(mine)}, want {n} "
+                                 f"instantiations of {kernel}")
+        for name, ops in mine.items():
+            on_tc = ops["HGMMA"] + ops["HMMA"] > 0
+            if on_tc != tensor_cores or (not tensor_cores and not ops["FFMA"]):
+                raise AssertionError(f"SASS of {name}: {ops}")
+    return found
+
+
 def flash_phase():
     """Returns the training-shape bf16 figures per kernel."""
+    sass = flash_sass()
     gen = torch.Generator(device="cuda").manual_seed(3)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     small = {}
@@ -963,12 +1033,20 @@ def flash_phase():
         library = {"flash_attention_fwd": cuda_time_ms(sdpa_fwd, 10, flush)}
         library["flash_attention_dkv"] = library["flash_attention_dq"] = (
             cuda_time_ms(sdpa_bwd, 10, flush))
+        # the same calls with the host's enqueue kept out (device_ms)
+        library_dev = {"flash_attention_fwd": device_ms(sdpa_fwd, 10, flush)}
+        library_dev["flash_attention_dkv"] = library_dev[
+            "flash_attention_dq"] = device_ms(sdpa_bwd, 10, flush)
         for name, (kern, plain, keys) in calls.items():
+            dev = device_ms(kern, 10, flush)
             figures.setdefault(str(dtype).split(".")[-1], {})[name] = {
                 "max_abs_err": max(errs[key] for key in keys),
-                "ms": cuda_time_ms(kern, 10, flush),
+                "ms": cuda_time_ms(kern, 10, flush), "device_ms": dev,
                 "plain_ms": cuda_time_ms(plain, 3, flush),
-                "library_ms": library[name], **bounds[name],
+                "library_ms": library[name],
+                "library_device_ms": library_dev[name], **bounds[name],
+                "us": 1e3 * dev, "tflops": bounds[name]["flops"] / dev / 1e9,
+                "bound_share": bounds[name]["bound_ms"] / dev,
             }
         del args, q, k, v, dout, lse, delta, calls, sdpa_fwd, sdpa_bwd
         torch.cuda.empty_cache()
@@ -977,6 +1055,7 @@ def flash_phase():
                                       "D": D, "causal": causal},
           "tol": {str(d).split(".")[-1]: t for d, t in FLASH_TOL.items()},
           "lse_tol": LSE_TOL, "small_cases": small, "train_shape": figures,
+          "sass": sass,
           "library": "scaled_dot_product_attention(enable_gqa=True): forward; "
                      "its autograd backward (dq, dk, dv in one call) for the "
                      "dK/dV and dQ rows"})
@@ -1908,8 +1987,10 @@ def main():
         "replaces": f"src/repro/kernels/{where}",
         "launches": flash_launches[name],
         **{key: flash_figures[name][key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+            "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
+        # the device's time alone, the kernel's and the library call's
+        "ms": flash_figures[name]["device_ms"],
+        "library_ms": flash_figures[name]["library_device_ms"],
     } for name, (_, src, where) in FLASH_KERNELS.items()] + [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",

@@ -6,10 +6,10 @@
 // pallas_call :270) that `flash_attention_vjp` (:186) runs. Same function:
 // from q, k, v, dO, the forward's lse and delta = rowsum(dO * O) (computed
 // in plain torch, as the reference does in jnp), recompute
-//   p  = exp((q * scale) . k^T - lse) under the mask (0 where hidden),
+//   p  = exp((q . k^T) * scale - lse) under the mask (0 where hidden),
 //   dS = p * (dO . V^T - delta),
 // and accumulate in f32
-//   dV = p^T . dO and dK = dS^T . (q * scale), summed over the q heads of
+//   dV = p^T . dO and dK = dS^T . q * scale, summed over the q heads of
 //   the KV head's GQA group, in k's and v's dtype;
 //   dQ = dS . K * scale, in q's dtype.
 // Masks are those of `_mask` (:44-52), q and k positions counted from 0.
@@ -17,20 +17,40 @@
 // Bound: operations. At the training shape (B 2, Hq 32, Hkv 8, S 2048,
 // D 128, causal) the dK/dV kernel does 4 products of 2 * D flops per
 // visible (q, k) pair (s recomputed, dO . V^T, p^T . dO, dS^T . q), 137.5
-// GFLOP, least time 139 us at 989 TFLOP/s (bf16); the dQ kernel does 3
+// GFLOP, least time 139.04 us at 989 TFLOP/s (bf16); the dQ kernel does 3
 // (s, dO . V^T, dS . K), 103.1 GFLOP, 104 us. Their bytes (q, k, v, dO, lse,
 // delta in; dK, dV or dQ out) are under 100 MB, 30 us at 3.35 TB/s.
-// What this first design does about it: the dK/dV kernel runs one CTA per
-// (KV block of 64, KV head, batch) that holds its K and V tiles and its
-// dK and dV accumulators (4 x (D / 16) each per thread) for the whole loop
-// over the group's q heads x q blocks, so dK and dV are written once and
-// need no atomics; the dQ kernel runs one CTA per (q block, q head, batch)
-// that holds q, dO and its dQ accumulator and loops over the KV blocks,
-// reading K and V of head h / G in place (no repeated copy). Both skip the
-// blocks the mask hides whole. Products are SIMT f32 FMAs; tensor-core
-// tiles are for a later change.
+//
+// What the design does about it. The bf16 dK/dV kernel runs on the tensor
+// cores: one CTA per (KV block of 128, KV head, batch), the KV blocks that
+// see the most q blocks (the first, under a causal mask) launched first,
+// of three warpgroups. The CTA keeps K and V in shared memory and dK and
+// dV in registers for the whole loop over the group's q heads x the q
+// blocks of 64 it can see (a contiguous run; the rest are never loaded),
+// so dK and dV are written once, with no atomics. A producer warpgroup (24
+// registers after setmaxnreg) has TMA bring K, V and then each step's q
+// and dO tiles into a ring of three stages, swizzled as wgmma reads them,
+// and writes the step's lse and delta rows; mbarriers say when a stage has
+// landed and when the consumers are done with it. Two consumer warpgroups
+// (240 registers) own 64 kv rows each. Per step: S^T = K . q^T and dP^T =
+// V . dO^T by wgmma m64n64k16 from shared memory into f32 registers;
+// p^T = exp(S^T * scale - lse) and dS^T = p^T * (dP^T - delta) in f32, the
+// mask only on blocks it or the ragged edge cuts; p^T and dS^T rounded to
+// bf16 and fed from registers as A of dV += p^T . dO and dK += dS^T . q
+// (wgmma m64nDk16, dO and q read MN-major). The consumers take turns to
+// issue their products (named barriers), so that one's elementwise work
+// overlaps the other's products. scale is applied to dK at the store,
+// which leaves through shared memory in 16-byte rows. Budget at D 128: K
+// and V 64 KB + 3 x (q 16 KB + dO 16 KB + 512 B) = 161.5 KB.
+// The f32 dK/dV kernel and the dQ kernel (both dtypes) stay SIMT: the
+// dK/dV one per (KV block of 64, KV head, batch) with the same loop and
+// 4 x (D / 16) accumulators per thread; the dQ one per (q block, q head,
+// batch) holding q, dO and its dQ accumulator and looping over the KV
+// blocks, reading K and V of head h / G in place. Both skip the blocks the
+// mask hides whole. Their products are f32 FMAs.
 
 #include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace flash {
 namespace {
@@ -67,6 +87,7 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* k_s,
   }
 }
 
+// f32 dK/dV on the SIMT cores (the header's last paragraph).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -186,6 +207,267 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, D>(dq + qoff, dq_acc, q0, Sq, ty, tx, scale);
 }
 
+// bf16 dK/dV on the tensor cores (the header's design).
+constexpr int kTcN = 128;  // kv rows per CTA: two consumer warpgroups of 64
+constexpr int kTcM = 64;   // q rows per tile
+constexpr int kTcThreads = 384;  // the two consumers and a producer warpgroup
+// registers per thread after setmaxnreg: 2 x 128 x 240 + 128 x 24 <= 65,536
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kStages = 3;  // q, dO, lse and delta in flight
+  static constexpr int kKV = kTcN * D * 2;  // k, and v
+  static constexpr int kQ = kTcM * D * 2;   // q, and dO, per stage
+  static constexpr int kRows = 2 * kTcM * 4;  // lse then delta, per stage
+  static constexpr int kRowsAt = 2 * kKV + 2 * kStages * kQ;
+  static constexpr int kBars = kRowsAt + kStages * kRows;  // kv, full, empty
+  // k, v; (q, dO) per stage; (lse, delta) per stage; the barriers; 1 KB to
+  // align the start
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int B, int Hq, int Hkv,
+                    int Sq, int Sk, float scale, int causal, int window) {
+  using L = tc::Tile<D>;
+  using S = DkvSmem<D>;
+  constexpr int NO = D / 2;     // accumulator floats per thread (64 x D)
+  constexpr int NS = kTcM / 2;  // score floats per thread (64 x 64)
+  constexpr int NP = kTcM / 16;  // A fragments of p^T and dS^T
+  const int heads = B * Hkv;
+  const int kb = blockIdx.x / heads;  // the first kv blocks first
+  const int hk = blockIdx.x % heads % Hkv;
+  const int b = blockIdx.x % heads / Hkv;
+  const int G = Hq / Hkv;
+  const int k0 = kb * kTcN;
+  const int k1 = min(k0 + kTcN, Sk);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;  // 0, 1: consumers; 2: the producer
+  const int lane = tid % 32;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  uint8_t* k_p = smem_raw + (k_s - raw);
+  const uint32_t v_s = k_s + S::kKV;
+  // step it reads stage it % kStages: q at q_tile(it), dO after it, and its
+  // lse then delta rows at rows(it)
+  auto q_tile = [&](int it) {
+    return v_s + S::kKV + (it % S::kStages) * 2 * S::kQ;
+  };
+  auto rows = [&](int it) {
+    return reinterpret_cast<float*>(k_p + S::kRowsAt +
+                                    (it % S::kStages) * S::kRows);
+  };
+  // barriers: k and v landed; stage st landed (the TMA copies and the
+  // producer's 128 threads' rows); the 8 consumer warps are done with it
+  const uint32_t kv_full = k_s + S::kBars;
+  auto full = [&](int st) { return kv_full + 8 + 8 * st; };
+  auto empty = [&](int st) { return kv_full + 8 + 8 * (S::kStages + st); };
+
+  const int nq = (Sq + kTcM - 1) / kTcM;
+  int qb_lo = nq, qb_hi = -1;
+  for (int qb = 0; qb < nq; ++qb) {
+    if (!block_hidden(qb * kTcM, min(qb * kTcM + kTcM, Sq), k0, k1, causal,
+                      window)) {
+      qb_lo = min(qb_lo, qb);
+      qb_hi = qb;
+    }
+  }
+  const int nqv = max(qb_hi - qb_lo + 1, 0);
+  const int n_it = G * nqv;  // (q head, q block) pairs: it = g * nqv + i
+
+  if (tid == 0) {
+    tc::mbar_init(kv_full, 1);
+    for (int st = 0; st < S::kStages; ++st) {
+      tc::mbar_init(full(st), 1 + 128);
+      tc::mbar_init(empty(st), 8);
+    }
+    tc::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // The producer: one thread asks TMA for k and v, then for each step's
+    // q and dO tiles once the consumers have released its stage; all 128
+    // threads write the step's lse and delta rows.
+    tc::regs_dec<kProducerRegs>();
+    const int pt = tid - 256;
+    if (pt == 0) {
+      tc::mbar_expect(kv_full, 2 * S::kKV);
+      tc::tma_tile<D, kTcN>(k_s, &tm_k, k0, b * Hkv + hk, kv_full);
+      tc::tma_tile<D, kTcN>(v_s, &tm_v, k0, b * Hkv + hk, kv_full);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % S::kStages;
+      const int h = hk * G + it / nqv;
+      const int q0 = (qb_lo + it % nqv) * kTcM;
+      if (it >= S::kStages)
+        tc::mbar_wait(empty(st), (it / S::kStages - 1) & 1);
+      if (pt == 0) {
+        tc::mbar_expect(full(st), 2 * S::kQ);
+        tc::tma_tile<D, kTcM>(q_tile(it), &tm_q, q0, b * Hq + h, full(st));
+        tc::tma_tile<D, kTcM>(q_tile(it) + S::kQ, &tm_do, q0, b * Hq + h,
+                              full(st));
+      }
+      const int r = q0 + pt % kTcM;
+      const float* src = pt < kTcM ? lse : delta;
+      rows(it)[pt] = r < Sq ? src[((size_t)b * Hq + h) * Sq + r] : 0.f;
+      tc::mbar_arrive(full(st));
+    }
+  } else {
+    tc::regs_inc<kConsumerRegs>();
+    // Warpgroup wg owns kv rows [64 wg, 64 wg + 64) of the block; this
+    // thread kv rows row0 and row0 + 8, q columns 8j + col + {0, 1}.
+    const int row0 = k0 + 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
+    const int col = 2 * (lane % 4);
+    // The warpgroups take turns to issue their products (barriers 1 and
+    // 2), so that one's elementwise work runs while the other's products
+    // are on the tensor cores. Warpgroup 1 opens the first turn; warpgroup
+    // 0 takes the last arrival after its last turn. No branch lies between
+    // a product's issue and its wait: ptxas would serialise every product.
+    auto turn_begin = [&]() { tc::bar_sync(1 + wg, 256); };
+    auto turn_end = [&]() { tc::bar_arrive(2 - wg, 256); };
+    if (wg == 1 && n_it > 0) tc::bar_arrive(1, 256);
+
+    float dk_acc[NO], dv_acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    tc::mbar_wait(kv_full, 0);
+    const float sl = scale * tc::kLog2e;
+    for (int it = 0; it < n_it; ++it) {
+      const int q0 = (qb_lo + it % nqv) * kTcM;
+      const uint32_t qt = q_tile(it);
+      const uint32_t do_t = qt + S::kQ;
+      tc::mbar_wait(full(it % S::kStages), (it / S::kStages) & 1);
+
+      // S^T = K . q^T and dP^T = V . dO^T
+      float s[NS], dp[NS];
+      turn_begin();
+      tc::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        tc::mma_ss<kTcM, 0>(s, tc::desc_k<D>(k_s, kTcN, 64 * wg, kk),
+                            tc::desc_k<D>(qt, kTcM, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        tc::mma_ss<kTcM, 0>(dp, tc::desc_k<D>(v_s, kTcN, 64 * wg, kk),
+                            tc::desc_k<D>(do_t, kTcM, 0, kk), kk);
+      tc::mma_commit();
+      turn_end();
+      tc::mma_wait<0>();
+      tc::hold(s);
+      tc::hold(dp);
+
+      // p^T = exp(S^T * scale - lse) and dS^T = p^T * (dP^T - delta)
+      const float* lse_s = rows(it);
+      const float* delta_s = lse_s + kTcM;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int qc = 8 * (i >> 2) + col + (i & 1);  // within the q block
+        s[i] = tc::exp2_approx(fmaf(s[i], sl, -lse_s[qc] * tc::kLog2e));
+      }
+      if (!block_full(q0, kTcM, k0, kTcN, Sq, Sk, causal, window)) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int kr = row0 + 8 * ((i >> 1) & 1);
+          const int qc = q0 + 8 * (i >> 2) + col + (i & 1);
+          if (!(qc < Sq && kr < Sk && visible(qc, kr, causal, window)))
+            s[i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int qc = 8 * (i >> 2) + col + (i & 1);
+        dp[i] = s[i] * (dp[i] - delta_s[qc]);
+      }
+      uint32_t pa[NP][4], da[NP][4];
+      tc::to_a<NP>(s, pa);
+      tc::to_a<NP>(dp, da);
+
+      // dV += p^T . dO and dK += dS^T . q
+      turn_begin();
+      tc::mma_fence();
+#pragma unroll
+      for (int t = 0; t < NP; ++t)
+        tc::mma_rs<D, 1>(dv_acc, pa[t], tc::desc_mn<D>(do_t, kTcM, t), 1);
+#pragma unroll
+      for (int t = 0; t < NP; ++t)
+        tc::mma_rs<D, 1>(dk_acc, da[t], tc::desc_mn<D>(qt, kTcM, t), 1);
+      tc::mma_commit();
+      turn_end();
+      tc::mma_wait<0>();
+      tc::hold(dv_acc);
+      tc::hold(dk_acc);
+      tc::hold(pa);
+      tc::hold(da);
+      if (lane == 0) tc::mbar_arrive(empty(it % S::kStages));
+    }
+    if (wg == 0 && n_it > 0) tc::bar_sync(1, 256);  // warpgroup 1's last
+
+    // dK * scale and dV through this warpgroup's rows of k's and v's
+    // shared memory (its products are done with them), then 16-byte rows
+    const size_t koff = ((size_t)b * Hkv + hk) * Sk * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r - k0;
+        const uint32_t at = L::chunk(kTcN, row, j) + 2 * col;
+        const int i = 4 * j + 2 * r;
+        *reinterpret_cast<uint32_t*>(k_p + at) =
+            tc::pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(k_p + S::kKV + at) =
+            tc::pack_bf16(dv_acc[i], dv_acc[i + 1]);
+      }
+    tc::bar_sync(3 + wg, 128);
+    for (int i = tid % 128; i < 64 * (D / 8); i += 128) {
+      const int r = 64 * wg + i / (D / 8), c = i % (D / 8);
+      if (k0 + r >= Sk) continue;
+      const size_t at = koff + (size_t)(k0 + r) * D + 8 * c;
+      const uint32_t from = L::chunk(kTcN, r, c);
+      *reinterpret_cast<uint4*>(dk + at) =
+          *reinterpret_cast<const uint4*>(k_p + from);
+      *reinterpret_cast<uint4*>(dv + at) =
+          *reinterpret_cast<const uint4*>(k_p + S::kKV + from);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
+                    float scale, int causal, int window,
+                    cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int e = tc::make_tile_map<D>(&tm_q, q, B * Hq, Sq, kTcM);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_do, dout, B * Hq, Sq, kTcM);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_k, k, B * Hkv, Sk, kTcN);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_v, v, B * Hkv, Sk, kTcN);
+  if (e != 0) return e;
+  const cudaError_t a = cudaFuncSetAttribute(
+      dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DkvSmem<D>::kBytes);
+  if (a != cudaSuccess) return (int)a;
+  const int nk = (Sk + kTcN - 1) / kTcN;
+  dkv_bf16_kernel<D><<<nk * B * Hkv, kTcThreads, DkvSmem<D>::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), B, Hq, Hkv, Sq, Sk, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 size_t dkv_smem() {
   return sizeof(float) * (4 * kBlock * (D + 1) + 2 * kBlock * (kBlock + 1));
@@ -255,11 +537,15 @@ extern "C" int repro_flash_attention_dkv(int dtype, const void* q,
   if (dtype == 0 && D == 32) REPRO_DKV(float, 32);
   if (dtype == 0 && D == 64) REPRO_DKV(float, 64);
   if (dtype == 0 && D == 128) REPRO_DKV(float, 128);
-  if (dtype == 1 && D == 16) REPRO_DKV(__nv_bfloat16, 16);
-  if (dtype == 1 && D == 32) REPRO_DKV(__nv_bfloat16, 32);
-  if (dtype == 1 && D == 64) REPRO_DKV(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) REPRO_DKV(__nv_bfloat16, 128);
 #undef REPRO_DKV
+#define REPRO_DKV_BF16(DD)                                                    \
+  return flash::launch_dkv_bf16<DD>(q, k, v, dout, lse, delta, dk, dv, B, Hq, \
+                                    Hkv, Sq, Sk, scale, causal, window, s)
+  if (dtype == 1 && D == 16) REPRO_DKV_BF16(16);
+  if (dtype == 1 && D == 32) REPRO_DKV_BF16(32);
+  if (dtype == 1 && D == 64) REPRO_DKV_BF16(64);
+  if (dtype == 1 && D == 128) REPRO_DKV_BF16(128);
+#undef REPRO_DKV_BF16
   return (int)cudaErrorInvalidValue;
 }
 

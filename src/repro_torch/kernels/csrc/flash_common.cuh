@@ -1,8 +1,10 @@
 // Shared pieces of the flash-attention kernels (flash_attention.cu and
-// flash_attention_bwd.cu): the tile shape, the mask of the TPU kernels, tile
-// loads into shared memory, and the SIMT products over 64-row tiles.
+// flash_attention_bwd.cu): the mask of the TPU kernels, and for the SIMT
+// kernels (f32, and the dQ kernel in both dtypes) the tile shape, tile
+// loads into shared memory and the products over 64-row tiles. The bf16
+// forward and dK/dV kernels run on the tensor cores (flash_wgmma.cuh).
 //
-// Every tile is 64 rows. A CTA has 256 threads laid out 16 x 16: thread
+// Every SIMT tile is 64 rows. A CTA has 256 threads laid out 16 x 16: thread
 // (ty, tx) owns rows ty + 16 i (i < 4) of a 64-row tile and columns
 // tx + 16 j of its 64 or D columns, so the 16 threads that share a row sit
 // in one half of a warp and reduce a row with four shuffles. Tiles live in
@@ -83,6 +85,22 @@ __device__ __forceinline__ bool block_hidden(int q0, int q1, int k0, int k1,
     if (!causal && k0 - (q1 - 1) >= window) return true;
   }
   return false;
+}
+
+// True when every (q, k) of [q0, q0 + nq) x [k0, k0 + nk) lies inside
+// (Sq, Sk) and the mask shows it: the tensor-core kernels then skip the
+// per-element mask of that block.
+__device__ __forceinline__ bool block_full(int q0, int nq, int k0, int nk,
+                                           int Sq, int Sk, bool causal,
+                                           int window) {
+  const int q1 = q0 + nq - 1, k1 = k0 + nk - 1;  // the last row and column
+  if (q1 >= Sq || k1 >= Sk) return false;
+  if (causal && k1 > q0) return false;
+  if (window >= 0) {
+    if (q1 - k0 >= window) return false;
+    if (!causal && k1 - q0 >= window) return false;
+  }
+  return true;
 }
 
 // Rows [r0, r0 + 64) of a (rows, D) row-major matrix into a (64, D + 1) f32

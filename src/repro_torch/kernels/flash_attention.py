@@ -49,8 +49,8 @@ def _kernel():
 def check_blocks(Sq: int, Sk: int, block_q: int, block_k: int) -> None:
     """The reference's tiling contract (``flash_attention.py:149-154``):
     each sequence is a whole number of its (clipped) blocks.  The CUDA
-    kernels tile by 64 rows internally and mask a ragged edge; the check
-    keeps the reference's contract on every device."""
+    kernels tile by their own blocks (64 or 128 rows) and mask a ragged
+    edge; the check keeps the reference's contract on every device."""
     bq, bk = min(block_q, Sq), min(block_k, Sk)
     if Sq % bq or Sk % bk:
         raise ValueError(f"seq ({Sq},{Sk}) not divisible by blocks ({bq},{bk})")

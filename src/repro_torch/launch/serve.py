@@ -712,6 +712,9 @@ class PagedServer(Server):
         return stats
 
 
+CARD_BYTES = 80e9  # device memory of the one H100 the port serves on
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-4b",
@@ -741,9 +744,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     from repro_torch.models.build import build_model
     from repro_torch.parallel.ctx import RunCtx
 
-    device = resolve_device(args.device)
     # the reference serves the SMOKE cut; --full the published config
     cfg = (ARCHS if args.full else SMOKE)[args.arch]
+    if args.full:
+        need = cfg.param_counts()[0] * cfg.dtype.itemsize
+        if need > CARD_BYTES:
+            ap.error(
+                f"--full {args.arch}: its published depth of {cfg.n_layers} "
+                f"layers needs {need / 1e9:,.0f} GB of "
+                f"{str(cfg.dtype).split('.')[-1]} weights, more than one "
+                f"{CARD_BYTES / 1e9:.0f} GB card holds; chip_smoke.py serves "
+                f"it at full width on 2 layers (serve_moe_phase)")
+    device = resolve_device(args.device)
     model = build_model(cfg)
     ctx = RunCtx()
     gen = torch.Generator(device=device).manual_seed(0)

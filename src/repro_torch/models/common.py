@@ -106,6 +106,46 @@ class ArchConfig:
                   for i in range(max(self.n_layers - len(kinds), 0))]
         return kinds[: self.n_layers]
 
+    def param_counts(self) -> Tuple[int, int]:
+        """(total_params, active_params) of the decoder's matrices, the
+        embedding included once: the reference's ``param_counts``
+        (norms and biases left out)."""
+        D, F, V = self.d_model, self.d_ff, self.vocab
+        H, KH, Dh = self.n_heads, self.n_kv_heads, self.resolved_head_dim
+        total = V * D * (1 if self.tie_embeddings else 2)
+        active = total
+        attn = D * H * Dh + 2 * D * KH * Dh + H * Dh * D
+
+        def mlp(f: int) -> int:
+            return 3 * D * f  # gated: wi, wg, wo
+
+        for kind in self.layer_kinds():
+            if kind in ("global", "local", "dense", "enc"):
+                p = attn + mlp(self.resolved_d_ff_dense if kind == "dense"
+                               else F)
+                total, active = total + p, active + p
+            elif kind == "moe":
+                p = (attn + D * self.n_experts + self.n_shared_experts * mlp(F)
+                     + (mlp(self.resolved_d_ff_dense)
+                        if self.moe_dense_residual else 0))
+                total += p + self.n_experts * mlp(F)
+                active += p + self.top_k * mlp(F)
+            elif kind == "mamba":
+                Di, N, R = (self.resolved_d_inner, self.ssm_state,
+                            self.resolved_dt_rank)
+                p = (D * 2 * Di + self.conv_width * Di + Di * (R + 2 * N)
+                     + R * Di + Di * N + Di + Di * D)
+                total, active = total + p, active + p
+            elif kind == "rec":
+                W = self.resolved_lru_width
+                p = (2 * D * W + self.conv_width * W + 2 * W * W + W + W * D
+                     + mlp(F))
+                total, active = total + p, active + p
+            elif kind in ("cross", "xdec"):
+                p = 2 * attn + mlp(F)
+                total, active = total + p, active + p
+        return total, active
+
 
 @dataclasses.dataclass(frozen=True)
 class Segment:

@@ -199,7 +199,10 @@ def test_cuda_ring_reduce_scatter_ring_order(cuda, n, m, dtype):
 # flash attention (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
 # --------------------------------------------------------------------------- #
 # (B, Hq, Hkv, S, D, causal, window, dtype): the reference's FA_CASES and
-# one bf16 case at qwen3-4b's head layout (32 q / 8 KV heads of dim 128)
+# one bf16 case at qwen3-4b's head layout (32 q / 8 KV heads of dim 128);
+# then bf16 cases at the edges of the tensor-core kernels' tiles (128 q x
+# 128 kv rows forward, 64 q x 128 kv dK/dV), S being (Sq, Sk) where they
+# differ
 FLASH_CASES = [
     (2, 4, 2, 256, 64, True, None, torch.float32),
     (1, 4, 4, 128, 128, True, None, torch.float32),
@@ -208,6 +211,16 @@ FLASH_CASES = [
     (1, 4, 1, 256, 128, True, None, torch.bfloat16),
     (1, 2, 2, 128, 64, True, 32, torch.bfloat16),
     (1, 32, 8, 512, 128, True, None, torch.bfloat16),
+    (2, 4, 2, 96, 64, True, None, torch.bfloat16),  # S not a tile multiple
+    (1, 4, 2, 192, 128, True, None, torch.bfloat16),  # blocks of 64
+    (1, 4, 2, (128, 384), 64, True, None, torch.bfloat16),
+    (1, 4, 2, (128, 384), 128, False, None, torch.bfloat16),
+    (1, 4, 2, (384, 128), 64, False, 32, torch.bfloat16),  # rows see no key
+    (2, 4, 2, 256, 16, True, None, torch.bfloat16),
+    (2, 4, 2, 256, 32, False, None, torch.bfloat16),
+    (1, 4, 2, 256, 64, True, 20, torch.bfloat16),  # window < one tile
+    (1, 4, 2, 256, 128, False, 20, torch.bfloat16),
+    (1, 56, 8, 256, 128, True, None, torch.bfloat16),  # a GQA group of 7
 ]
 # f32: summation order only; bf16: the outputs' rounding (8 mantissa bits)
 FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
@@ -218,31 +231,36 @@ FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
 def test_cuda_flash_kernels_match_plain(cuda, case):
     """Forward (out, lse), dK/dV and dQ kernels against their plain
     versions on the same inputs, one launch each; then ops.attention's
-    gradients against autograd through the plain attention."""
+    gradients against autograd through the plain attention.  The blocks
+    passed are the reference's largest (128, then 64) that tile both
+    sequences."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
 
     B, Hq, Hkv, S, D, causal, window, dtype = case
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
     fwd_tol, bwd_tol = FLASH_TOL[dtype]
-    g = torch.Generator(device=cuda).manual_seed(S + Hq)
-    q = torch.randn((B, Hq, S, D), generator=g, device=cuda).to(dtype)
-    k = torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(dtype)
-    v = torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(dtype)
-    dout = torch.randn((B, Hq, S, D), generator=g, device=cuda).to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(Sq + Hq)
+    q = torch.randn((B, Hq, Sq, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Hkv, Sk, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Hkv, Sk, D), generator=g, device=cuda).to(dtype)
+    dout = torch.randn((B, Hq, Sq, D), generator=g, device=cuda).to(dtype)
     kw = dict(causal=causal, window=window)
+    block = 128 if all(n % min(128, n) == 0 for n in (Sq, Sk)) else 64
+    blocks = dict(block_q=block, block_k=block)
     before = (fa.flash_attention_fwd.launches, fab.flash_attention_dkv.launches,
               fab.flash_attention_dq.launches)
-    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw, **blocks)
     want_out, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
     torch.testing.assert_close(out.float(), want_out.float(), atol=fwd_tol,
                                rtol=fwd_tol)
     torch.testing.assert_close(lse, want_lse, atol=2e-4, rtol=2e-4)
     delta = (dout.float() * want_out.float()).sum(-1)
-    dk, dv = fab.flash_attention_dkv(q, k, v, dout, want_lse, delta, **kw)
-    dq = fab.flash_attention_dq(q, k, v, dout, want_lse, delta, **kw)
-    want_dk, want_dv = ref.flash_attention_dkv(q, k, v, dout, want_lse, delta,
-                                               **kw)
-    want_dq = ref.flash_attention_dq(q, k, v, dout, want_lse, delta, **kw)
+    args = (q, k, v, dout, want_lse, delta)
+    dk, dv = fab.flash_attention_dkv(*args, **kw, **blocks)
+    dq = fab.flash_attention_dq(*args, **kw, **blocks)
+    want_dk, want_dv = ref.flash_attention_dkv(*args, **kw)
+    want_dq = ref.flash_attention_dq(*args, **kw)
     torch.cuda.synchronize()
     assert (fa.flash_attention_fwd.launches, fab.flash_attention_dkv.launches,
             fab.flash_attention_dq.launches) == tuple(b + 1 for b in before)
@@ -251,7 +269,8 @@ def test_cuda_flash_kernels_match_plain(cuda, case):
         torch.testing.assert_close(got.float(), want.float(), atol=bwd_tol,
                                    rtol=bwd_tol)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    got = torch.autograd.grad(ops.attention(*leaves, **kw), leaves, dout)
+    got = torch.autograd.grad(ops.attention(*leaves, **kw, **blocks), leaves,
+                              dout)
     plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(ref.attention(*plain, **kw), plain, dout.float())
     for a, b in zip(got, want):

@@ -120,6 +120,31 @@ def test_serve_main_runs_on_cpu(capsys):
     assert "requests: 3" in out and "pool_n_free: " in out
 
 
+@pytest.mark.parametrize("arch,layers", [("kimi-k2-1t-a32b", 61),
+                                         ("arctic-480b", 35)])
+def test_serve_full_refuses_moe_depth_before_allocating(arch, layers,
+                                                        monkeypatch, capsys):
+    """``--full`` at a depth whose weights outgrow one card refuses before
+    the model is built: no parameter is allocated.  The weights it names
+    come from ``param_counts``, the reference's count."""
+    from repro.configs.registry import ARCHS as J_ARCHS
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build
+
+    def refuse(*a, **k):
+        raise AssertionError("the model was built")
+
+    monkeypatch.setattr(build, "build_model", refuse)
+    monkeypatch.setattr(build.Model, "init", refuse)
+    with pytest.raises(SystemExit):
+        serve.main(["--full", "--arch", arch, "--device", "cpu"])
+    err = capsys.readouterr().err
+    need = ARCHS[arch].param_counts()[0] * 2 / 1e9
+    assert f"{layers} layers" in err and f"{need:,.0f} GB" in err
+    assert "2 layers" in err and need > serve.CARD_BYTES / 1e9
+    assert ARCHS[arch].param_counts() == J_ARCHS[arch].param_counts()
+
+
 def test_scheduler_and_cost_model_match_reference():
     """Host arithmetic copied from the reference decides like it: the
     same admission order, victims, swap-vs-recompute choices and
