@@ -14,7 +14,9 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              patterns with NaNs in an f32 carrier): copies byte-equal, the
              reduce-scatter byte-equal to the ring order and within its
              rounding bound of ``sum(0)``; timed against the bound and the
-             one PyTorch call that computes the same function.
+             one PyTorch call that computes the same function, by events
+             around one call (``ms``, the host's enqueue included) and
+             behind a sleep kernel (``device_ms``: the device alone).
 4. gas     — the GAS substrate's main path: the quickstart and pipeline
              programs on the "xla", "gascore" and "xla,gascore" backends at
              their own sizes (all agree bit for bit), then at full size (8
@@ -34,15 +36,16 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              seq 2048, 32 q / 8 KV heads of dim 128, causal) in bf16 and
              f32, at the reference's small cases (GQA, windows,
              non-causal, bf16) and at the edges of the bf16 kernels'
-             tiles (ragged S, Sq != Sk, D 16 and 32, narrow windows, a
-             GQA group of 7); timed with CUDA events beside their bound
-             (``ms``: events around one call, the host's enqueue
-             included; ``device_ms``, and the µs, TFLOP/s and share of
-             the bound: the device's time alone) and
+             tiles (ragged S, ragged q blocks and kv tiles, Sq != Sk, D 16
+             and 32, narrow and causal windows, a GQA group of 7); timed
+             with CUDA events beside their bound (``ms``: events around
+             one call, the host's enqueue included; ``device_ms``, and
+             the µs, TFLOP/s and share of the bound: the device's time
+             alone) and
              ``scaled_dot_product_attention`` (forward, and its autograd
              backward) as the library yardstick; ``cuobjdump`` shows
-             HGMMA in the bf16 forward and dK/dV kernels and none in the
-             SIMT ones (dQ, f32).
+             HGMMA in the bf16 forward, dK/dV and dQ kernels and none in
+             the SIMT (f32) ones.
 8. train   — qwen3-4b at full width and depth (36 layers, bf16, random
              weights from a seeded generator) through ``Trainer``: batch 2 x
              seq 2048, full remat, AdamW with f32 moments, 6 steps (the
@@ -311,8 +314,13 @@ def gas_payload(kind, elems, gen):
 
 
 def gas_cases(x):
-    """Per kernel: (kernel call, plain call, library call, bytes moved).
-    Bytes: each input read once, each output written once."""
+    """Per kernel: (kernel call, plain call, library call, bytes moved),
+    bytes counting each input read once and each output written once;
+    the segment and per-rank offsets; and per kernel the call that
+    ``device_ms`` times where it differs from the kernel call: offset_put
+    with its offset held on the host, since the wrapper's range check
+    reads a device offset back (a sync that leaves the enqueue inside
+    the span) and a host one with the same launch after it."""
     n, e = x.shape
     row = e * x.element_size()
     k = 3
@@ -321,6 +329,7 @@ def gas_cases(x):
     off_rows = [(r * e // n) // 8 * 8 for r in range(n)]
     offs = torch.tensor(off_rows, dtype=torch.int32, device=x.device)
     same = torch.full((n,), off_rows[1], dtype=torch.int32, device=x.device)
+    same_host = same.cpu()
     rows = torch.arange(n, device=x.device)[:, None]
     cols = off_rows[1] + torch.arange(e, device=x.device)[None, :]
     shifted_rows = (rows + 1) % n
@@ -350,7 +359,8 @@ def gas_cases(x):
         cases["ring_reduce_scatter"] = (
             lambda: gc.ring_reduce_scatter(x), lambda: ref.reduce_scatter(x),
             lambda: x.sum(0).view(n, e // n), n * row + row)
-    return cases, (seg, offs)
+    timed = {"offset_put": lambda: gc.offset_put(seg, x, same_host, 1)}
+    return cases, (seg, offs), timed
 
 
 def gascore_kernel_phase():
@@ -364,7 +374,7 @@ def gascore_kernel_phase():
         for kind in ("f32", "bf16", "i32nan"):
             elem = 2 if kind == "bf16" else 4
             x = gas_payload(kind, nbytes // elem, gen)
-            cases, (seg, offs) = gas_cases(x)
+            cases, (seg, offs), timed = gas_cases(x)
             if kind == "i32nan":  # a sum of bit patterns means nothing
                 cases.pop("ring_reduce_scatter", None)
             for name, (kern, plain, _, _) in cases.items():
@@ -375,6 +385,8 @@ def gascore_kernel_phase():
             got = gc.offset_put(seg.clone(), x, offs, 5)
             _byte_equal(f"offset_put per-rank {size} {kind}", got,
                         ref.offset_put(seg, x, offs, 5))
+            _byte_equal(f"offset_put host offsets {size} {kind}",
+                        timed["offset_put"](), cases["offset_put"][1]())
             if "ring_reduce_scatter" in cases:
                 # (n-1) roundings, each within half an ulp of a partial
                 # sum bounded by sum |x| (2^-24 relative in f32, 2^-8 bf16)
@@ -398,12 +410,16 @@ def gascore_kernel_phase():
                 plain_ms = cuda_time_ms(plain, max(iters // 2, 5), flush)
                 library_ms = cuda_time_ms(lib, max(iters // 2, 5), flush)
                 rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       # the device's time alone, the host's enqueue kept out
+                       "device_ms": device_ms(timed.get(name, kern), iters,
+                                              flush),
+                       "library_device_ms": device_ms(lib, iters, flush),
                        "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
                        "bound_by": "bytes", "bytes": moved, "max_abs_err": 0.0,
                        "host_us": host_us(kern), "plain_host_us": host_us(plain),
                        "library_host_us": host_us(lib)}
                 figures.setdefault(name, {})[size] = rec
-            del cases, seg, offs, x
+            del cases, seg, offs, timed, x
     torch.cuda.synchronize()
     emit({"phase": "gascore", "ranks": N_RANKS, "sizes_per_rank": GAS_SIZES,
           "checked": len(checked), "byte_equal": True,
@@ -821,7 +837,7 @@ def serve_phase():
 TRAIN_SHAPE = (2, 32, 8, 2048, 128, True, None)  # B, Hq, Hkv, S, D, causal, window
 # the reference's FA_CASES (tests/test_kernels.py:21-28), then bf16 cases at
 # the edges of the tensor-core kernels' tiles (128 q x 128 kv rows forward,
-# 64 q x 128 kv dK/dV); S is (Sq, Sk) where they differ
+# 64 q x 128 kv dK/dV, 128 q x 64 kv dQ); S is (Sq, Sk) where they differ
 FLASH_SMALL = [
     (2, 4, 2, 256, 64, True, None, torch.float32),
     (1, 4, 4, 128, 128, True, None, torch.float32),
@@ -839,6 +855,9 @@ FLASH_SMALL = [
     (1, 4, 2, 256, 64, True, 20, torch.bfloat16),  # window < one tile
     (1, 4, 2, 256, 128, False, 20, torch.bfloat16),
     (1, 56, 8, 256, 128, True, None, torch.bfloat16),  # a group of 7
+    (1, 4, 2, (192, 320), 64, False, None, torch.bfloat16),  # ragged q block
+    (2, 4, 2, (256, 96), 128, False, None, torch.bfloat16),  # ragged kv tile
+    (1, 4, 2, 320, 128, True, 100, torch.bfloat16),  # a causal window
 ]
 # |kernel - plain| <= tol * (1 + |plain|) elementwise.  Both sides take f32
 # products from the same inputs: f32 differs by summation order (the
@@ -963,7 +982,8 @@ def sdpa_calls(q, k, v, dout, causal):
 FLASH_SASS = {
     "fwd_bf16_kernel": (fa.NAME, 4, True),  # D 16, 32, 64, 128
     "dkv_bf16_kernel": (fab.NAME, 4, True),
-    "dq_kernel": (fab.NAME, 8, False),  # f32 and bf16
+    "dq_bf16_kernel": (fab.NAME, 4, True),
+    "dq_kernel": (fab.NAME, 4, False),  # f32
     "fwd_kernel": (fa.NAME, 4, False),  # f32
     "dkv_kernel": (fab.NAME, 4, False),  # f32
 }
@@ -972,10 +992,9 @@ SASS_OPS = ("HGMMA", "HMMA", "FFMA")
 
 def flash_sass():
     """``cuobjdump --dump-sass`` of the two flash libraries: every
-    instantiation of the bf16 forward and dK/dV kernels issues HGMMA
-    (wgmma); the dQ kernel (both dtypes) and the f32 kernels stay SIMT
-    (FFMA, no HGMMA or HMMA).  Returns the opcode counts per kernel and
-    instantiation."""
+    instantiation of the bf16 forward, dK/dV and dQ kernels issues HGMMA
+    (wgmma); the f32 kernels stay SIMT (FFMA, no HGMMA or HMMA).  Returns
+    the opcode counts per kernel and instantiation."""
     tool = Path(build._nvcc()).parent / "cuobjdump"
     found = {}
     for lib in sorted({lib for lib, _, _ in FLASH_SASS.values()}):
@@ -984,8 +1003,8 @@ def flash_sass():
             capture_output=True, text=True, check=True, timeout=300).stdout
         for body in text.split("Function : ")[1:]:
             mangled = body.split()[0]
-            m = re.search(r"\d(fwd_bf16|dkv_bf16|dq|fwd|dkv)_kernelI(.*?)"
-                          r"Li(\d+)E", mangled)
+            m = re.search(r"\d(fwd_bf16|dkv_bf16|dq_bf16|dq|fwd|dkv)"
+                          r"_kernelI(.*?)Li(\d+)E", mangled)
             if m is None:
                 continue
             dtype = "float32" if m.group(2) == "f" else "bfloat16"
@@ -1051,15 +1070,21 @@ def flash_phase():
         del args, q, k, v, dout, lse, delta, calls, sdpa_fwd, sdpa_bwd
         torch.cuda.empty_cache()
     B, Hq, Hkv, S, D, causal, _ = TRAIN_SHAPE
+    bf16 = figures["bfloat16"]
+    backward = {  # the two backward kernels against SDPA's whole backward
+        "dkv_plus_dq_device_ms": bf16["flash_attention_dkv"]["device_ms"]
+        + bf16["flash_attention_dq"]["device_ms"],
+        "sdpa_backward_device_ms": bf16["flash_attention_dq"][
+            "library_device_ms"]}
     emit({"phase": "flash", "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "S": S,
                                       "D": D, "causal": causal},
           "tol": {str(d).split(".")[-1]: t for d, t in FLASH_TOL.items()},
           "lse_tol": LSE_TOL, "small_cases": small, "train_shape": figures,
-          "sass": sass,
+          "bf16_backward": backward, "sass": sass,
           "library": "scaled_dot_product_attention(enable_gqa=True): forward; "
                      "its autograd backward (dq, dk, dv in one call) for the "
                      "dK/dV and dQ rows"})
-    return figures["bfloat16"]
+    return bf16
 
 
 # --------------------------------------------------------------------------- #
@@ -1979,8 +2004,10 @@ def main():
         "replaces": f"src/repro/kernels/{where}",
         "launches": gas_launches[name],
         **{key: gas_figures[name]["16MiB"][key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+            "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
+        # the device's time alone, the kernel's and the library call's
+        "ms": gas_figures[name]["16MiB"]["device_ms"],
+        "library_ms": gas_figures[name]["16MiB"]["library_device_ms"],
     } for name, (_, src, where) in GAS_KERNELS.items()] + [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",

@@ -42,12 +42,30 @@
 // overlaps the other's products. scale is applied to dK at the store,
 // which leaves through shared memory in 16-byte rows. Budget at D 128: K
 // and V 64 KB + 3 x (q 16 KB + dO 16 KB + 512 B) = 161.5 KB.
-// The f32 dK/dV kernel and the dQ kernel (both dtypes) stay SIMT: the
-// dK/dV one per (KV block of 64, KV head, batch) with the same loop and
-// 4 x (D / 16) accumulators per thread; the dQ one per (q block, q head,
-// batch) holding q, dO and its dQ accumulator and looping over the KV
-// blocks, reading K and V of head h / G in place. Both skip the blocks the
-// mask hides whole. Their products are f32 FMAs.
+// The bf16 dQ kernel mirrors the forward: one CTA per (q block of 128, q
+// head, batch), the late q blocks (the most causal work) launched first,
+// of three warpgroups. A producer warpgroup (one thread, 40 registers) has
+// TMA bring q and dO once, then the k and v tiles of each KV block of 64
+// rows the q block can see (a contiguous run; out-of-range rows
+// zero-filled) into a ring of four stages. Two consumer warpgroups (232
+// registers) own 64 q rows each and hold their lse and delta rows in
+// registers. Per step: S = q . k^T and dP = dO . v^T by wgmma m64n64k16
+// from shared memory into f32 registers; p = exp(S * scale - lse) and
+// dS = p * (dP - delta) in f32, the mask only on blocks it or the ragged
+// edge cuts; dS rounded to bf16 and fed from registers as A of
+// dQ += dS . K (wgmma m64nDk16, k read MN-major). A step issues its
+// block's S and dP with the previous block's dS . K and computes its dS
+// while that product runs; the consumers take turns to issue. dQ stays in
+// registers (64 f32 a thread at D 128; a KV tile of 128 rows would add
+// 96 more and spill), is scaled at the store and written once through
+// shared memory in 16-byte rows, with no atomics. Budget at D 128: q 32 KB
+// + dO 32 KB + 4 x (k 16 KB + v 16 KB) = 192 KB.
+// The f32 kernels stay SIMT (TF32 would miss the f32 tolerance): dK/dV
+// per (KV block of 64, KV head, batch) with the same loop and
+// 4 x (D / 16) accumulators per thread; dQ per (q block, q head, batch)
+// holding q, dO and its dQ accumulator and looping over the KV blocks,
+// reading K and V of head h / G in place. Both skip the blocks the mask
+// hides whole. Their products are f32 FMAs.
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -152,6 +170,7 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, D>(dv + koff, dv_acc, k0, Sk, ty, tx, 1.f);
 }
 
+// f32 dQ on the SIMT cores (the header's last paragraph).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -468,6 +487,266 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// bf16 dQ on the tensor cores (the header's design).
+constexpr int kDqM = 128;  // q rows per CTA: two consumer warpgroups of 64
+constexpr int kDqN = 64;   // kv rows per tile
+// registers per thread after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536
+constexpr int kDqConsumerRegs = 232;
+constexpr int kDqProducerRegs = 40;
+
+template <int D>
+struct DqSmem {
+  static constexpr int kStages = 4;  // k and v tiles in flight
+  static constexpr int kQ = kDqM * D * 2;   // q, and dO
+  static constexpr int kKV = kDqN * D * 2;  // k, and v, per stage
+  static constexpr int kBars = 2 * kQ + 2 * kStages * kKV;  // full, empty
+  // q, dO, (k, v) per stage, the barriers, and 1 KB to align the start
+  static constexpr int kBytes = kBars + 16 * kStages + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int B, int Hq, int Hkv,
+                   int Sq, int Sk, float scale, int causal, int window) {
+  using L = tc::Tile<D>;
+  using S = DqSmem<D>;
+  constexpr int NO = D / 2;      // accumulator floats per thread (64 x D)
+  constexpr int NS = kDqN / 2;   // score floats per thread (64 x 64)
+  constexpr int NP = kDqN / 16;  // A fragments of dS
+  const int nq = (Sq + kDqM - 1) / kDqM;
+  const int heads = B * Hq;
+  const int qb = nq - 1 - (int)(blockIdx.x / heads);  // late blocks first
+  const int h = blockIdx.x % heads % Hq;
+  const int b = blockIdx.x % heads / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qb * kDqM;
+  const int q1 = min(q0 + kDqM, Sq);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;  // 0, 1: consumers; 2: the producer
+  const int lane = tid % 32;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023) & ~1023u;
+  uint8_t* q_p = smem_raw + (q_s - raw);
+  const uint32_t do_s = q_s + S::kQ;
+  // stage st: full (its copies have landed), empty (the 8 consumer warps
+  // are done with it)
+  auto full = [&](int st) { return q_s + S::kBars + 8 * st; };
+  auto empty = [&](int st) { return q_s + S::kBars + 8 * (S::kStages + st); };
+  // step `it` reads kv block kb_lo + it: k at k_tile(it), v after it
+  auto k_tile = [&](int it) {
+    return q_s + 2 * S::kQ + (it % S::kStages) * 2 * S::kKV;
+  };
+
+  const int nk = (Sk + kDqN - 1) / kDqN;
+  int kb_lo = nk, kb_hi = -1;
+  for (int kb = 0; kb < nk; ++kb) {
+    if (!block_hidden(q0, q1, kb * kDqN, min(kb * kDqN + kDqN, Sk), causal,
+                      window)) {
+      kb_lo = min(kb_lo, kb);
+      kb_hi = kb;
+    }
+  }
+  const int nkv = max(kb_hi - kb_lo + 1, 0);
+
+  if (tid == 0) {
+    for (int st = 0; st < S::kStages; ++st) {
+      tc::mbar_init(full(st), 1);
+      tc::mbar_init(empty(st), 8);
+    }
+    tc::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // The producer: one thread asks TMA for q and dO with the first block,
+    // then for each kv block's k and v once the consumers have released
+    // its stage.
+    tc::regs_dec<kDqProducerRegs>();
+    if (tid == 256) {
+      for (int it = 0; it < nkv; ++it) {
+        const int st = it % S::kStages;
+        if (it >= S::kStages)
+          tc::mbar_wait(empty(st), (it / S::kStages - 1) & 1);
+        tc::mbar_expect(full(st), 2 * S::kKV + (it == 0 ? 2 * S::kQ : 0));
+        if (it == 0) {
+          tc::tma_tile<D, kDqM>(q_s, &tm_q, q0, b * Hq + h, full(st));
+          tc::tma_tile<D, kDqM>(do_s, &tm_do, q0, b * Hq + h, full(st));
+        }
+        const int k0 = (kb_lo + it) * kDqN;
+        tc::tma_tile<D, kDqN>(k_tile(it), &tm_k, k0, b * Hkv + hk, full(st));
+        tc::tma_tile<D, kDqN>(k_tile(it) + S::kKV, &tm_v, k0, b * Hkv + hk,
+                              full(st));
+      }
+    }
+  } else {
+    tc::regs_inc<kDqConsumerRegs>();
+    // Warpgroup wg owns q rows [wq0, wq0 + 64) of the block; this thread
+    // rows row0 and row0 + 8, columns 8j + col + {0, 1}.
+    const int wq0 = q0 + 64 * wg;
+    const int row0 = wq0 + 16 * ((tid % 128) / 32) + lane / 4;
+    const int col = 2 * (lane % 4);
+    // lse * log2(e) and delta of the thread's two rows (0 past Sq)
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const size_t at = ((size_t)b * Hq + h) * Sq + row;
+      lse2[r] = row < Sq ? lse[at] * tc::kLog2e : 0.f;
+      dlt[r] = row < Sq ? delta[at] : 0.f;
+    }
+    // S = q . k^T and dP = dO . v^T of step `it`, issued and committed
+    auto products = [&](float (&s)[NS], float (&dp)[NS], int it) {
+      const uint32_t kt = k_tile(it);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        tc::mma_ss<kDqN, 0>(s, tc::desc_k<D>(q_s, kDqM, 64 * wg, kk),
+                            tc::desc_k<D>(kt, kDqN, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        tc::mma_ss<kDqN, 0>(dp, tc::desc_k<D>(do_s, kDqM, 64 * wg, kk),
+                            tc::desc_k<D>(kt + S::kKV, kDqN, 0, kk), kk);
+      tc::mma_commit();
+    };
+    // acc += dS . K of step `it` (k read MN-major), issued and committed
+    auto accumulate = [&](float (&acc)[NO], const uint32_t (&a)[NP][4],
+                          int it) {
+#pragma unroll
+      for (int t = 0; t < NP; ++t)
+        tc::mma_rs<D, 1>(acc, a[t], tc::desc_mn<D>(k_tile(it), kDqN, t), 1);
+      tc::mma_commit();
+    };
+    // p = exp(S * scale - lse) under the mask (in s), then
+    // dS = p * (dP - delta) (in dp), of step `it`
+    const float sl = scale * tc::kLog2e;
+    auto grads = [&](float (&s)[NS], float (&dp)[NS], int it) {
+      const int k0 = (kb_lo + it) * kDqN;
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        s[i] = tc::exp2_approx(fmaf(s[i], sl, -lse2[(i >> 1) & 1]));
+      if (!block_full(wq0, 64, k0, kDqN, Sq, Sk, causal, window)) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int r = row0 + 8 * ((i >> 1) & 1);
+          const int c = k0 + 8 * (i >> 2) + col + (i & 1);
+          if (!(r < Sq && c < Sk && visible(r, c, causal, window)))
+            s[i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        dp[i] = s[i] * (dp[i] - dlt[(i >> 1) & 1]);
+    };
+    // The warpgroups take turns to issue their products (barriers 1 and
+    // 2), so that one's elementwise work runs while the other's products
+    // are on the tensor cores. Warpgroup 1 opens the first turn; warpgroup
+    // 0 takes the last arrival after its last turn. No branch lies between
+    // a product's issue and its wait: ptxas would serialise every product.
+    auto turn_begin = [&]() { tc::bar_sync(1 + wg, 256); };
+    auto turn_end = [&]() { tc::bar_arrive(2 - wg, 256); };
+    if (wg == 1 && nkv > 0) tc::bar_arrive(1, 256);
+
+    float acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    uint32_t da[NP][4];  // dS of the step before, as A fragments
+    // Step `it` issues S and dP of its block and acc += dS . K of the
+    // block before, computes its dS while that product runs, and releases
+    // the block before to the producer once the product is done.
+    if (nkv > 0) {
+      tc::mbar_wait(full(0), 0);
+      float s[NS], dp[NS];
+      turn_begin();
+      tc::mma_fence();
+      products(s, dp, 0);
+      turn_end();
+      tc::mma_wait<0>();
+      tc::hold(s);
+      tc::hold(dp);
+      grads(s, dp, 0);
+      tc::to_a<NP>(dp, da);
+    }
+    for (int it = 1; it < nkv; ++it) {
+      tc::mbar_wait(full(it % S::kStages), (it / S::kStages) & 1);
+      float s[NS], dp[NS];
+      turn_begin();
+      tc::mma_fence();
+      products(s, dp, it);
+      accumulate(acc, da, it - 1);
+      turn_end();
+      tc::mma_wait<1>();
+      tc::hold(s);
+      tc::hold(dp);
+      grads(s, dp, it);
+      tc::mma_wait<0>();
+      tc::hold(acc);
+      tc::hold(da);
+      if (lane == 0) tc::mbar_arrive(empty((it - 1) % S::kStages));
+      tc::to_a<NP>(dp, da);
+    }
+    if (nkv > 0) {
+      turn_begin();
+      tc::mma_fence();
+      accumulate(acc, da, nkv - 1);
+      turn_end();
+      tc::mma_wait<0>();
+      tc::hold(acc);
+      tc::hold(da);
+      if (wg == 0) tc::bar_sync(1, 256);  // warpgroup 1's last arrival
+    }
+
+    // dQ = acc * scale through this warpgroup's rows of q's shared memory
+    // (its products are done with them), then 16-byte rows; rows that see
+    // no key (nkv == 0, or p = 0 throughout) store 0
+    const size_t qoff = ((size_t)b * Hq + h) * Sq * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r - q0;
+        *reinterpret_cast<uint32_t*>(q_p + L::chunk(kDqM, row, j) + 2 * col) =
+            tc::pack_bf16(acc[4 * j + 2 * r] * scale,
+                          acc[4 * j + 2 * r + 1] * scale);
+      }
+    tc::bar_sync(3 + wg, 128);
+    for (int i = tid % 128; i < 64 * (D / 8); i += 128) {
+      const int r = 64 * wg + i / (D / 8), c = i % (D / 8);
+      if (q0 + r < Sq)
+        *reinterpret_cast<uint4*>(dq + qoff + (size_t)(q0 + r) * D + 8 * c) =
+            *reinterpret_cast<const uint4*>(q_p + L::chunk(kDqM, r, c));
+    }
+  }
+}
+
+template <int D>
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int B, int Hq, int Hkv, int Sq, int Sk,
+                   float scale, int causal, int window, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int e = tc::make_tile_map<D>(&tm_q, q, B * Hq, Sq, kDqM);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_do, dout, B * Hq, Sq, kDqM);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_k, k, B * Hkv, Sk, kDqN);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_v, v, B * Hkv, Sk, kDqN);
+  if (e != 0) return e;
+  const cudaError_t a = cudaFuncSetAttribute(
+      dq_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DqSmem<D>::kBytes);
+  if (a != cudaSuccess) return (int)a;
+  const int nq = (Sq + kDqM - 1) / kDqM;
+  dq_bf16_kernel<D><<<nq * B * Hq, kTcThreads, DqSmem<D>::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<__nv_bfloat16*>(dq), B,
+      Hq, Hkv, Sq, Sk, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 size_t dkv_smem() {
   return sizeof(float) * (4 * kBlock * (D + 1) + 2 * kBlock * (kBlock + 1));
@@ -564,10 +843,14 @@ extern "C" int repro_flash_attention_dq(int dtype, const void* q,
   if (dtype == 0 && D == 32) REPRO_DQ(float, 32);
   if (dtype == 0 && D == 64) REPRO_DQ(float, 64);
   if (dtype == 0 && D == 128) REPRO_DQ(float, 128);
-  if (dtype == 1 && D == 16) REPRO_DQ(__nv_bfloat16, 16);
-  if (dtype == 1 && D == 32) REPRO_DQ(__nv_bfloat16, 32);
-  if (dtype == 1 && D == 64) REPRO_DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) REPRO_DQ(__nv_bfloat16, 128);
 #undef REPRO_DQ
+#define REPRO_DQ_BF16(DD)                                                    \
+  return flash::launch_dq_bf16<DD>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, \
+                                   Sq, Sk, scale, causal, window, s)
+  if (dtype == 1 && D == 16) REPRO_DQ_BF16(16);
+  if (dtype == 1 && D == 32) REPRO_DQ_BF16(32);
+  if (dtype == 1 && D == 64) REPRO_DQ_BF16(64);
+  if (dtype == 1 && D == 128) REPRO_DQ_BF16(128);
+#undef REPRO_DQ_BF16
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // Shared pieces of the flash-attention kernels (flash_attention.cu and
 // flash_attention_bwd.cu): the mask of the TPU kernels, and for the SIMT
-// kernels (f32, and the dQ kernel in both dtypes) the tile shape, tile
-// loads into shared memory and the products over 64-row tiles. The bf16
-// forward and dK/dV kernels run on the tensor cores (flash_wgmma.cuh).
+// kernels (f32) the tile shape, tile loads into shared memory and the
+// products over 64-row tiles. The bf16 forward, dK/dV and dQ kernels run
+// on the tensor cores (flash_wgmma.cuh).
 //
 // Every SIMT tile is 64 rows. A CTA has 256 threads laid out 16 x 16: thread
 // (ty, tx) owns rows ty + 16 i (i < 4) of a 64-row tile and columns
@@ -37,29 +37,11 @@ struct Vec<float> {
   }
 };
 
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void widen(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // `_mask` of src/repro/kernels/flash_attention_bwd.py:44-52, positions of q

@@ -9,6 +9,14 @@ Replaces the TPU kernels ``_dkv_kernel`` and ``_dq_kernel`` of
   GQA group's q heads x q blocks; dK and dV in k's and v's dtype.
 - :func:`flash_attention_dq` launches its dQ kernel: one CTA per (q block,
   q head, batch), looping over the KV blocks; dQ in q's dtype.
+
+Both are bound by operations (4 and 3 products of 2 D flops per visible
+(q, k) pair).  In bf16 both run on the tensor cores (``wgmma``, TMA, a
+producer warpgroup and two consumers; the source's header has the
+design): dS is rounded to bf16 only as the input of its products, which
+sum in f32, and scale is applied at the store.  dQ keeps its own launch
+and writes each row once, so it needs no atomics and is deterministic.
+In f32 both stay SIMT FMAs (TF32 would miss the f32 tolerance).
 - :class:`FlashAttention` is the ``torch.autograd.Function`` counterpart of
   ``flash_attention_vjp``.  Its forward runs the forward kernel with the
   row log-sum-exp and saves ``q, k, v, out, lse``; its backward computes

@@ -148,6 +148,63 @@ def test_plain_backward_matches_autograd_of_plain_attention():
         torch.testing.assert_close(a, b, atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
+# (B, Hq, Hkv, (Sq, Sk), D, causal, window): a GQA group of 2 and Sk 96,
+# which leaves a ragged last tile of the bf16 dQ kernel's 64 kv rows
+DQ_BF16_CASES = [
+    (1, 4, 2, (128, 96), 32, True, None),
+    (1, 4, 2, (128, 96), 32, True, 40),
+]
+
+
+def _dq_as_bf16_kernel_rounds(q, k, v, dout, lse, delta, causal, window,
+                              scale):
+    """dQ with the bf16 tensor-core kernel's rounding points: S = q . k^T
+    and dP = dO . v^T in f32 from the bf16 inputs, p = exp(S * scale -
+    lse) under the mask, dS = p * (dP - delta) in f32, dS rounded to bf16
+    as the input of dS . K, that product summed in f32, scale applied at
+    the store, dQ rounded to bf16."""
+    group = q.shape[1] // k.shape[1]
+    kx = k.float().repeat_interleave(group, 1)
+    vx = v.float().repeat_interleave(group, 1)
+    mask = ref.attention_mask(q.shape[2], k.shape[2], causal, window, "cpu")
+    s = q.float() @ kx.transpose(-1, -2)
+    p = torch.where(mask, torch.exp(s * scale - lse[..., None]), 0.0)
+    ds = p * (dout.float() @ vx.transpose(-1, -2) - delta[..., None])
+    dq = ds.to(torch.bfloat16).float() @ kx
+    return (dq * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", DQ_BF16_CASES,
+                         ids=[str(c) for c in DQ_BF16_CASES])
+def test_dq_bf16_rounding_points_match_reference(case):
+    """The bf16 dQ kernel's rounding points, emulated in plain torch on
+    bf16 inputs (out and lse from the plain forward, delta = rowsum(dO *
+    out) in f32 as ``FlashAttention.backward`` computes it), against the q
+    gradient of the JAX ``flash_attention_vjp`` in interpret mode (its
+    ``_dq_kernel``, all f32) on the same bf16-rounded values, within the
+    bf16 bound 2e-2 x (1 + |reference|) that the card holds the kernel
+    to."""
+    B, Hq, Hkv, (Sq, Sk), D, causal, window = case
+    arrays = _qkv(B, Hq, Hkv, Sq, Sk, D, seed=Sq + Sk + (window or 0))
+    dout = np.random.default_rng(5).normal(size=(B, Hq, Sq, D))
+    tq, tk, tv, tdo = (torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16) for x in (*arrays, dout))
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (tq, tk, tv,
+                                                                 tdo))
+    _, vjp = jax.vjp(lambda q: flash_attention_vjp(
+        q, jk, jv, causal, window, None, 64, 32, True), jq)
+    want = vjp(jdo)[0]
+    scale = 1.0 / D**0.5
+    kw = dict(causal=causal, window=window)
+    out, lse = ref.flash_attention_fwd(tq, tk, tv, **kw)
+    delta = (tdo.float() * out.float()).sum(-1)
+    got = _dq_as_bf16_kernel_rounds(tq, tk, tv, tdo, lse, delta, causal,
+                                    window, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Hq, Sq, D)
+    diff = np.abs(_np(got) - _np(want))
+    assert (diff <= 2e-2 * (1 + np.abs(_np(want)))).all(), diff.max()
+
+
 def test_dispatch_and_checks():
     """Blocks that do not divide the sequence raise on every device; the
     CUDA wrappers refuse CPU tensors before any build or launch; another

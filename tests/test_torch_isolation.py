@@ -41,3 +41,21 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     # falcon-mamba and recurrentgemma configs; the router kernel's wrapper
     # and the kimi-k2 and arctic configs)
     assert int(proc.stdout.split()[-1]) >= 61
+
+
+def test_ab_reduce_scatter_tool_imports_without_jax_and_needs_a_card():
+    """``tools/ab_reduce_scatter.py`` imports nothing of JAX or the
+    reference and, without a card, exits with its usage and no result."""
+    probe = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['ab_reduce_scatter.py', 'before.cu']\n"
+        f"runpy.run_path({os.path.join(ROOT, 'tools', 'ab_reduce_scatter.py')!r},"
+        " run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=ROOT)
+    assert proc.returncode == 1, proc.stderr[-4000:]
+    assert "usage" in proc.stderr and not proc.stdout

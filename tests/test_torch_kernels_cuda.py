@@ -173,10 +173,18 @@ def test_cuda_ring_all_gather_byte_exact(cuda, n, shape, dtype):
     (2, (4, 32), torch.float32), (8, (3, 5), torch.float32),
     (8, (2, 64), torch.bfloat16), (4, (3,), torch.bfloat16),
     (8, (16,), torch.int32),
+    (3, (5, 40), torch.float32), (3, (7,), torch.bfloat16),
+    (16, (8, 64), torch.int32), (17, (4, 16), torch.int32),
+    (16, (1 << 19,), torch.int32),
 ])
 def test_cuda_ring_reduce_scatter_ring_order(cuda, n, m, dtype):
     """Byte-equal to the ring-order plain version; within the dtype's
-    rounding of the plain sum (reassociation over n terms)."""
+    rounding of the plain sum (reassociation over n terms).  n 3 and 16
+    are templates of the kernel (2-16), n 17 its loop over any n; chunks
+    of 5 x 40 or 8 x 64 elements take the 16-byte path, 7 or 3 x 5 the
+    element-wise one; 2^19 int32 a chunk over 16 ranks outgrows the
+    kernel's grid (8 waves of at most 3 CTAs an SM at its registers), so
+    each thread loops."""
     from repro_torch.kernels import gascore as gc
 
     g = torch.Generator(device=cuda).manual_seed(7)
@@ -201,8 +209,8 @@ def test_cuda_ring_reduce_scatter_ring_order(cuda, n, m, dtype):
 # (B, Hq, Hkv, S, D, causal, window, dtype): the reference's FA_CASES and
 # one bf16 case at qwen3-4b's head layout (32 q / 8 KV heads of dim 128);
 # then bf16 cases at the edges of the tensor-core kernels' tiles (128 q x
-# 128 kv rows forward, 64 q x 128 kv dK/dV), S being (Sq, Sk) where they
-# differ
+# 128 kv rows forward, 64 q x 128 kv dK/dV, 128 q x 64 kv dQ), S being
+# (Sq, Sk) where they differ
 FLASH_CASES = [
     (2, 4, 2, 256, 64, True, None, torch.float32),
     (1, 4, 4, 128, 128, True, None, torch.float32),
@@ -221,6 +229,9 @@ FLASH_CASES = [
     (1, 4, 2, 256, 64, True, 20, torch.bfloat16),  # window < one tile
     (1, 4, 2, 256, 128, False, 20, torch.bfloat16),
     (1, 56, 8, 256, 128, True, None, torch.bfloat16),  # a GQA group of 7
+    (1, 4, 2, (192, 320), 64, False, None, torch.bfloat16),  # ragged q block
+    (2, 4, 2, (256, 96), 128, False, None, torch.bfloat16),  # ragged kv tile
+    (1, 4, 2, 320, 128, True, 100, torch.bfloat16),  # a causal window
 ]
 # f32: summation order only; bf16: the outputs' rounding (8 mantissa bits)
 FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
