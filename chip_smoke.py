@@ -8,7 +8,10 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              (one nvcc per source, all started at once).
 2. kernel  — paged attention against its plain PyTorch version at the
              serving path's shapes (bf16 and f32, NaN pages behind the
-             lengths), timed with CUDA events against its bound.
+             lengths; the three archs' head shapes; lengths on and past
+             the kernel's split boundaries; the served step's lengths),
+             timed by ``device_ms`` at the phase's lengths and at the
+             served step (8 x 148 tokens) against its bound.
 3. gascore — each of the five GAScore kernels against its plain version on
              8 ranks of 1 KiB, 1 MiB and 16 MiB (f32, bf16, and int32 bit
              patterns with NaNs in an f32 carrier): copies byte-equal, the
@@ -58,7 +61,7 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              512 x Di 8192 x N 16, with the final state; recurrentgemma:
              B 1 and 4 x S 2560 x W 4096), at an odd S and at the
              reference tests' small shapes, with the model's value ranges;
-             timed with CUDA events (L2 flushed) beside their bound.
+             timed by ``device_ms`` (L2 flushed) beside their bound.
 10. serve_falcon — falcon-mamba-7b at full width and depth (64 layers,
              bf16, random weights from a seeded generator) through the
              dense ``Server``: 16 requests of 512 prompt tokens, 64 new
@@ -176,6 +179,39 @@ def emit(record):
     print(json.dumps(record), flush=True)
 
 
+def device_ms(fn, iters, flush=None):
+    """Median device time of one call of ``fn``: CUDA events around the
+    call, with a sleep kernel queued ahead of them, so the device reaches
+    the start event only once the host has enqueued the call and the stop
+    event; the events then time the device's work and not the host's
+    enqueue (tens of microseconds against the router's few).  Where the
+    device reached the start event first, the sleep is doubled and the
+    call timed again.  With ``flush``, the 50 MB L2 is overwritten between
+    the sleep and the start event."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 21, []
+    while len(times) < iters:
+        torch.cuda._sleep(cycles)
+        if flush is not None:
+            flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        late = e0.query()
+        e1.synchronize()
+        if not late:
+            times.append(e0.elapsed_time(e1))
+        elif cycles >= 1 << 30:
+            raise AssertionError("the host never enqueued a call ahead of "
+                                 "the device")
+        else:
+            cycles *= 2
+    return float(np.median(times))
+
+
 def cuda_time_ms(fn, iters, flush):
     """Mean device time of ``fn`` per call: CUDA events around each call,
     with the 50 MB L2 overwritten before every call (the serving step
@@ -212,14 +248,16 @@ def kernel_inputs(dtype, gen, lengths, hq=HQ, hkv=HKV):
 
 
 def kernel_bound_ms(dtype, lengths):
-    """Least time for the same work: each live K/V page read once, q,
-    table and lengths read once, the output written once; 4 flops per
-    (q head, live position, dim) for q.k and p.v."""
+    """Least time for the same work: the K and V rows of each live
+    position read once (the kernel loads none past the length), q, the
+    lengths and the live entries of the table read once, the output
+    written once; 4 flops per (q head, live position, dim) for q.k and
+    p.v."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    live_pages = sum(-(-int(n) // T) for n in lengths)
-    nbytes = (live_pages * T * HKV * D * 2 * elem + 2 * B * HQ * D * elem
-              + B * NP * 4 + B * 4)
-    flops = 4 * HQ * D * sum(int(n) for n in lengths)
+    live = [min(int(n), NP * T) for n in lengths]
+    nbytes = (sum(live) * HKV * D * 2 * elem + 2 * len(lengths) * HQ * D * elem
+              + sum(-(-n // T) for n in live) * 4 + len(lengths) * 4)
+    flops = 4 * HQ * D * sum(live)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -249,29 +287,75 @@ def paged_check(name, q, kp, vp, table, lens, scale=None, relative=False):
 MOE_HEADS = ((64, 8), (56, 8))
 
 
-def kernel_phase():
-    gen = torch.Generator(device="cuda").manual_seed(1)
+# the served steady step: BATCH requests at the first profiled position
+SERVED_LENGTHS = [PROMPT_LEN + PROFILE_STEPS[0]] * BATCH
+
+
+def kernel_phase_lengths():
+    """One request of 1 token, one of the full cache, the rest random."""
     rng = np.random.default_rng(1)
-    lengths = [1, CACHE_LEN] + rng.integers(1, CACHE_LEN + 1, size=B - 2).tolist()
+    return [1, CACHE_LEN] + rng.integers(1, CACHE_LEN + 1, size=B - 2).tolist()
+
+
+def split_edge_lengths():
+    """Lengths that end on a boundary of the kernel's splits and one token
+    past it (the first, second and last boundaries of the table), one
+    token short of the full cache, and 0."""
+    edge = pa.default_pages_per_split(T) * T
+    last = (NP * T // edge - 1) * edge
+    return [edge, edge + 1, 2 * edge, 2 * edge + 1, last, last + 1,
+            CACHE_LEN - 1, 0]
+
+
+def kernel_phase():
+    """The kernel against its plain version at the three head shapes, bf16
+    and f32, on the phase's lengths, at split edges and at the served
+    step; timed by ``device_ms`` (and by events around one call,
+    ``events_ms``) with L2 flushed, at the phase's lengths and at the
+    served step."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lengths = kernel_phase_lengths()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     out, heads = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
         args = kernel_inputs(dtype, gen, lengths)
         err = paged_check(f"paged_attention {dtype}", *args)
         for hq, hkv in MOE_HEADS:
-            tag = f"Hq{hq} Hkv{hkv} {str(dtype).split('.')[-1]}"
+            tag = f"Hq{hq} Hkv{hkv} {dname}"
             heads[tag] = paged_check(f"paged_attention {tag}", *kernel_inputs(
                 dtype, gen, lengths, hq, hkv))
-        ms = cuda_time_ms(lambda: pa.paged_attention(*args), 50, flush)
-        plain_ms = cuda_time_ms(lambda: ref.paged_attention(*args), 10, flush)
+        for hq, hkv in ((HQ, HKV),) + MOE_HEADS:
+            for what, lens in (("split edges", split_edge_lengths()),
+                               ("served step", SERVED_LENGTHS)):
+                tag = f"Hq{hq} Hkv{hkv} {dname} {what}"
+                heads[tag] = paged_check(f"paged_attention {tag}",
+                                         *kernel_inputs(dtype, gen, lens, hq,
+                                                        hkv))
+        served = kernel_inputs(dtype, gen, SERVED_LENGTHS)
+        served_err = paged_check(f"paged_attention {dtype} served", *served)
         bound_ms, bound_by = kernel_bound_ms(dtype, lengths)
-        out[str(dtype).split(".")[-1]] = {
-            "max_abs_err": err, "atol": KERNEL_ATOL[dtype], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        out[dname] = {
+            "max_abs_err": err, "atol": KERNEL_ATOL[dtype],
+            "ms": device_ms(lambda: pa.paged_attention(*args), 50, flush),
+            "events_ms": cuda_time_ms(lambda: pa.paged_attention(*args), 50,
+                                      flush),
+            "plain_ms": cuda_time_ms(lambda: ref.paged_attention(*args), 10,
+                                     flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "served_step": {
+                "lengths": SERVED_LENGTHS, "max_abs_err": served_err,
+                "ms": device_ms(lambda: pa.paged_attention(*served), 50,
+                                flush),
+                "events_ms": cuda_time_ms(
+                    lambda: pa.paged_attention(*served), 50, flush),
+                "bound_ms": kernel_bound_ms(dtype, SERVED_LENGTHS)[0]},
         }
     emit({"phase": "kernel", "name": pa.NAME, "shape": {
         "B": B, "Hq": HQ, "Hkv": HKV, "D": D, "T": T, "NP": NP,
-        "lengths": lengths}, "results": out, "other_heads_max_abs_err": heads})
+        "lengths": lengths, "split_edge_lengths": split_edge_lengths(),
+        "pages_per_split": pa.default_pages_per_split(T)},
+        "results": out, "other_max_abs_err": heads})
     return out
 
 
@@ -858,6 +942,8 @@ FLASH_SMALL = [
     (1, 4, 2, (192, 320), 64, False, None, torch.bfloat16),  # ragged q block
     (2, 4, 2, (256, 96), 128, False, None, torch.bfloat16),  # ragged kv tile
     (1, 4, 2, 320, 128, True, 100, torch.bfloat16),  # a causal window
+    # the persistent forward: 320 work tiles of uneven length on 132 SMs
+    (4, 16, 4, 640, 128, True, 100, torch.bfloat16),
 ]
 # |kernel - plain| <= tol * (1 + |plain|) elementwise.  Both sides take f32
 # products from the same inputs: f32 differs by summation order (the
@@ -1278,8 +1364,10 @@ def scan_bounds(name, case, dtype):
 
 def scan_phase():
     """Each scan against its plain version on every case and dtype; times
-    at the full-width cases.  Returns the serving path's figures per
-    kernel (falcon B 1 bf16; recurrentgemma B 1 f32, the model's a and b)."""
+    at the full-width cases, by ``device_ms`` (``ms``) and by events
+    around one call (``events_ms``), L2 flushed.  Returns the serving
+    path's figures per kernel (falcon B 1 bf16; recurrentgemma B 1 f32, the
+    model's a and b)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     checked, figures = {}, {}
@@ -1297,10 +1385,13 @@ def scan_phase():
                                 SCAN_TOL[torch.float32])}
             checked[f"selective_scan {case} {dname}"] = errs
             if case in SSM_FULL:
+                def call():
+                    return ssm_scan.selective_scan(*args, final_state=True)
+
                 figures.setdefault("selective_scan", {})[f"{case} {dname}"] = {
                     "max_abs_err": max(errs.values()),
-                    "ms": cuda_time_ms(lambda: ssm_scan.selective_scan(
-                        *args, final_state=True), 20, flush),
+                    "ms": device_ms(call, 20, flush),
+                    "events_ms": cuda_time_ms(call, 20, flush),
                     "plain_ms": cuda_time_ms(lambda: (
                         ref.selective_scan(*args),
                         ref.mamba_final_state(*args[:4])), 2, flush),
@@ -1317,8 +1408,10 @@ def scan_phase():
                 figures.setdefault("gated_linear_scan", {})[
                     f"{case} {dname}"] = {
                     "max_abs_err": err,
-                    "ms": cuda_time_ms(lambda: rglru.gated_linear_scan(a, b),
-                                       20, flush),
+                    "ms": device_ms(lambda: rglru.gated_linear_scan(a, b), 20,
+                                    flush),
+                    "events_ms": cuda_time_ms(
+                        lambda: rglru.gated_linear_scan(a, b), 20, flush),
                     "plain_ms": cuda_time_ms(
                         lambda: ref.gated_linear_scan(a, b), 2, flush),
                     "library_ms": None,
@@ -1582,39 +1675,6 @@ def router_bounds(T, E, K):
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
-
-
-def device_ms(fn, iters, flush=None):
-    """Median device time of one call of ``fn``: CUDA events around the
-    call, with a sleep kernel queued ahead of them, so the device reaches
-    the start event only once the host has enqueued the call and the stop
-    event; the events then time the device's work and not the host's
-    enqueue (tens of microseconds against the router's few).  Where the
-    device reached the start event first, the sleep is doubled and the
-    call timed again.  With ``flush``, the 50 MB L2 is overwritten between
-    the sleep and the start event."""
-    fn()
-    torch.cuda.synchronize()
-    cycles, times = 1 << 21, []
-    while len(times) < iters:
-        torch.cuda._sleep(cycles)
-        if flush is not None:
-            flush.zero_()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        late = e0.query()
-        e1.synchronize()
-        if not late:
-            times.append(e0.elapsed_time(e1))
-        elif cycles >= 1 << 30:
-            raise AssertionError("the host never enqueued a call ahead of "
-                                 "the device")
-        else:
-            cycles *= 2
-    return float(np.median(times))
 
 
 def router_phase():

@@ -16,25 +16,43 @@
 // memory. Least time 69.52 us at 989 TFLOP/s (bf16), 1.03 ms at 67 TFLOP/s
 // (f32 outside the tensor cores).
 //
-// What the design does about it. bf16 runs on the tensor cores: one CTA per
-// (q block of 128, q head, batch), the late q blocks (the most causal work)
-// launched first, of three warpgroups. A producer warpgroup (one thread,
-// 40 registers after setmaxnreg) asks TMA for the q tile, then for each
-// KV block of 128 rows the q block can see (a contiguous run: the mask is
-// a band; blocks the mask hides whole are never loaded) into a ring of
-// three stages of k and v tiles, swizzled as wgmma reads them, out-of-range
-// rows zero-filled; mbarriers say when a stage has landed and when both
-// consumers are done with it. Two consumer warpgroups (232 registers) own
-// 64 q rows each: S = q . k^T by wgmma m64n128k16 from shared memory into
-// f32 registers, times scale there (q is not rounded after scaling), the
-// mask only on blocks it or the ragged edge cuts, the online softmax in
-// f32, p rounded to bf16 and fed from registers as A of out += p . v
-// (wgmma m64nDk16, v read MN-major). A step issues its block's S and the
-// previous block's p . v together and runs its softmax while p . v is on
-// the tensor cores; the consumers take turns to issue (named barriers), so
-// that one's softmax also overlaps the other's products. The output leaves
-// through shared memory in 16-byte rows. Budget at D 128: q 32 KB + 3 x
-// (k 32 KB + v 32 KB) = 224 KB of shared memory, one CTA per SM.
+// What the design does about it. bf16 runs on the tensor cores, in a
+// persistent kernel: one CTA per SM (fewer when there are fewer work
+// tiles) of three warpgroups walks work tiles (q block of 128, q head,
+// batch), the late q blocks (the most causal work) first, in a fixed
+// snake: CTA i takes tiles i, 2G - 1 - i, 2G + i, ... of the G CTAs' rounds,
+// so that the long tiles of one round meet short ones in the next. (It
+// balances the causal training shape as well as a global counter drawn
+// at run time, and needs no state between launches.) A producer warpgroup
+// (one thread, 40 registers after setmaxnreg) asks TMA for the next tile's
+// q into a free q slot, then for each KV block of 128 rows the q block
+// can see (a contiguous run: the mask is a band; blocks the mask hides
+// whole are never loaded) into two k slots and two v slots, swizzled as
+// wgmma reads them, out-of-range rows zero-filled. It runs ahead across
+// tiles: the next tile's q and first k and v land while the consumers
+// finish this one, so no tile starts with the tensor cores waiting on a
+// load. mbarriers say when a slot has landed and when the consumers are
+// done with it; their phases follow running counts of tiles and KV blocks.
+// k and v have barriers of their own, because k is done with one product
+// before v: with two slots each, a load has about one step to land. Two
+// consumer warpgroups (232 registers) own 64 q rows each: S = q . k^T by
+// wgmma m64n128k16 from shared memory into f32 registers, times scale
+// there (q is not rounded after scaling), the mask only on blocks it or
+// the ragged edge cuts, the online softmax in f32, p rounded to bf16 and
+// fed from registers as A of out += p . v (wgmma m64nDk16, v read
+// MN-major). A step issues its block's S and the previous block's p . v
+// together and runs its softmax while p . v is on the tensor cores; the
+// consumers take turns to issue (named barriers), so that one's softmax
+// also overlaps the other's products, and their turns run on across tile
+// boundaries, so that one's epilogue overlaps the other's last product.
+// The output leaves by TMA store from the warpgroup's rows of its q slot
+// (nothing else reads them by then); the slot takes a later tile's q once
+// TMA has read them, which the storing thread checks only at its next
+// tile's first product, so no warpgroup waits on a store. Two q slots, not
+// one, so that the next q never waits on a store: q 2 x 32 KB + k 2 x 32
+// KB + v 2 x 32 KB = 192 KB of shared memory at D 128 (three k and v
+// stages beside two q slots would need 256). Blocks the mask cuts compare
+// each score with the band of key positions its row sees.
 // f32 keeps the SIMT kernel: one CTA per (q block of 64, q head, batch),
 // scaled q in shared memory, a 4 x 4 block of scores and a 4 x (D / 16)
 // block of the accumulator per thread, f32 FMAs (TF32 would miss the f32
@@ -138,7 +156,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // bf16 on the tensor cores (the header's design).
-constexpr int kTcM = 128;  // q rows per CTA: two consumer warpgroups of 64
+constexpr int kTcM = 128;  // q rows per work tile: two consumer warpgroups
 constexpr int kTcN = 128;  // kv rows per tile
 constexpr int kTcThreads = 384;  // the two consumers and a producer warpgroup
 // registers per thread after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536
@@ -147,12 +165,14 @@ constexpr int kProducerRegs = 40;
 
 template <int D>
 struct FwdSmem {
-  static constexpr int kStages = 3;  // k and v tiles in flight
-  static constexpr int kQ = kTcM * D * 2;
-  static constexpr int kKV = kTcN * D * 2;
-  static constexpr int kBars = kQ + 2 * kStages * kKV;  // full[], empty[]
-  // q, (k, v) per stage, the barriers, and 1 KB to align the start
-  static constexpr int kBytes = kBars + 16 * kStages + 1024;
+  static constexpr int kQ = kTcM * D * 2;   // a q tile (out leaves from it)
+  static constexpr int kKV = kTcN * D * 2;  // a k or a v tile
+  static constexpr int kK = 2 * kQ;         // two q slots, two k, two v
+  static constexpr int kV = kK + 2 * kKV;
+  static constexpr int kBars = kV + 2 * kKV;
+  // six pairs of mbarriers (q, k, v: full and empty), and 1 KB to align
+  // the start
+  static constexpr int kBytes = kBars + 12 * 8 + 1024;
 };
 
 // The online softmax of one step for one thread: its scores s of rows
@@ -166,12 +186,25 @@ __device__ __forceinline__ void online_softmax(
     int k0, int row0, int col, int q0, int Sq, int Sk, float scale,
     int causal, int window) {
   if (!block_full(q0, kTcM, k0, kTcN, Sq, Sk, causal, window)) {
+    // `visible` as a band [lo, hi] of key positions per row (empty past
+    // Sq), taken relative to the thread's first column, so that each score
+    // compares with a constant
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int r = row0 + 8 * ((i >> 1) & 1);
-      const int c = k0 + 8 * (i >> 2) + col + (i & 1);
-      if (!(r < Sq && c < Sk && visible(r, c, causal, window)))
-        s[i] = -INFINITY;
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      int hi = Sk - 1;
+      if (causal)
+        hi = min(hi, r);
+      else if (window >= 0)
+        hi = min(hi, r + window - 1);
+      const int lo_rel = (window >= 0 ? r - window + 1 : 0) - (k0 + col);
+      const int hi_rel = r < Sq ? hi - (k0 + col) : -1;
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e < lo_rel || 8 * j + e > hi_rel)
+            s[4 * j + 2 * h + e] = -INFINITY;
     }
   }
   float mx[2] = {-INFINITY, -INFINITY}, ml[2];
@@ -197,204 +230,283 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
+
+// The j-th work tile of this CTA: a stride over the tiles by the grid,
+// reversed on odd rounds (a snake), so that a CTA that took a long tile in
+// one round takes a short one in the next.
+__device__ __forceinline__ int cta_tile(int j) {
+  return j * gridDim.x +
+         (j % 2 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+// A work tile's place: q block nq - 1 - t / (B Hq) (the late blocks, with
+// the most causal work, come first), head t % (B Hq), and the run of kv
+// blocks [kb_lo, kb_lo + nkv) that the mask leaves visible to it (a band:
+// blocks the mask hides whole are never loaded).
+struct Work {
+  int q0, b, h, kb_lo, nkv;
+};
+
+__device__ __forceinline__ Work work_tile(int t, int nq, int B, int Hq,
+                                          int Sq, int Sk, int causal,
+                                          int window) {
+  Work w;
+  const int heads = B * Hq;
+  w.q0 = (nq - 1 - t / heads) * kTcM;
+  w.h = t % heads % Hq;
+  w.b = t % heads / Hq;
+  const int q1 = min(w.q0 + kTcM, Sq);
+  const int nk = (Sk + kTcN - 1) / kTcN;
+  int lo = nk, hi = -1;
+  for (int kb = 0; kb < nk; ++kb) {
+    if (!block_hidden(w.q0, q1, kb * kTcN, min(kb * kTcN + kTcN, Sk), causal,
+                      window)) {
+      lo = min(lo, kb);
+      hi = kb;
+    }
+  }
+  w.kb_lo = lo;
+  w.nkv = max(hi - lo + 1, 0);
+  return w;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
     fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                    int B, int Hq, int Hkv, int Sq, int Sk, float scale,
-                    int causal, int window) {
+                    const __grid_constant__ CUtensorMap tm_o,
+                    float* __restrict__ lse, int B, int Hq, int Hkv, int Sq,
+                    int Sk, float scale, int causal, int window) {
   using L = tc::Tile<D>;
   using S = FwdSmem<D>;
   constexpr int NO = D / 2;     // accumulator floats per thread (64 x D)
   constexpr int NS = kTcN / 2;  // score floats per thread (64 x 128)
   constexpr int NP = kTcN / 16;  // A fragments of p
   const int nq = (Sq + kTcM - 1) / kTcM;
-  const int heads = B * Hq;
-  const int qb = nq - 1 - (int)(blockIdx.x / heads);  // late blocks first
-  const int h = blockIdx.x % heads % Hq;
-  const int b = blockIdx.x % heads / Hq;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = qb * kTcM;
-  const int q1 = min(q0 + kTcM, Sq);
+  const int n_tiles = nq * B * Hq;
   const int tid = threadIdx.x;
   const int wg = tid / 128;  // 0, 1: consumers; 2: the producer
   const int lane = tid % 32;
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = tc::smem_u32(smem_raw);
-  const uint32_t q_s = (raw + 1023) & ~1023u;
-  uint8_t* q_p = smem_raw + (q_s - raw);
-  // stage st: full (its copies have landed), empty (the 8 consumer warps
-  // are done with it)
-  auto full = [&](int st) { return q_s + S::kBars + 8 * st; };
-  auto empty = [&](int st) { return q_s + S::kBars + 8 * (S::kStages + st); };
-  // step `it` reads kv block kb_lo + it: k at k_tile(it), v after it
-  auto k_tile = [&](int it) {
-    return q_s + S::kQ + (it % S::kStages) * 2 * S::kKV;
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* base_p = smem_raw + (base - raw);
+  // q slot j % 2 holds work tile j; kv block n (counted over all of this
+  // CTA's tiles) lands in k and v slot n % 2
+  auto q_tile = [&](int slot) { return base + slot * S::kQ; };
+  auto k_tile = [&](int n) { return base + S::kK + (n & 1) * S::kKV; };
+  auto v_tile = [&](int n) { return base + S::kV + (n & 1) * S::kKV; };
+  // mbarrier `kind` of slot s: kQFull (q has landed),
+  // kQEmpty (both consumers' output stores have read the slot), kKFull,
+  // kKEmpty and kVFull, kVEmpty (the 8 consumer warps are done with it)
+  enum { kQFull, kQEmpty, kKFull, kKEmpty, kVFull, kVEmpty };
+  auto bar = [&](int kind, int s) {
+    return base + S::kBars + 8 * (2 * kind + (s & 1));
   };
 
-  const int nk = (Sk + kTcN - 1) / kTcN;
-  int kb_lo = nk, kb_hi = -1;
-  for (int kb = 0; kb < nk; ++kb) {
-    if (!block_hidden(q0, q1, kb * kTcN, min(kb * kTcN + kTcN, Sk), causal,
-                      window)) {
-      kb_lo = min(kb_lo, kb);
-      kb_hi = kb;
-    }
-  }
-  const int nkv = max(kb_hi - kb_lo + 1, 0);
-
   if (tid == 0) {
-    for (int st = 0; st < S::kStages; ++st) {
-      tc::mbar_init(full(st), 1);
-      tc::mbar_init(empty(st), 8);
+    for (int s = 0; s < 2; ++s) {
+      tc::mbar_init(bar(kQFull, s), 1);
+      tc::mbar_init(bar(kQEmpty, s), 2);
+      tc::mbar_init(bar(kKFull, s), 1);
+      tc::mbar_init(bar(kKEmpty, s), 8);
+      tc::mbar_init(bar(kVFull, s), 1);
+      tc::mbar_init(bar(kVEmpty, s), 8);
     }
     tc::fence_barrier_init();
   }
   __syncthreads();
 
   if (wg == 2) {
-    // The producer: one thread asks TMA for q with the first block, then
-    // for each kv block once the consumers have released its stage.
+    // The producer: one thread asks TMA for the q of the CTA's next work
+    // tile once its slot is free, then for each kv block into the next k
+    // and v slots once the consumers have released them; it runs ahead of
+    // the consumers across tiles.
     tc::regs_dec<kProducerRegs>();
     if (tid == 256) {
-      for (int it = 0; it < nkv; ++it) {
-        const int st = it % S::kStages;
-        if (it >= S::kStages)
-          tc::mbar_wait(empty(st), (it / S::kStages - 1) & 1);
-        tc::mbar_expect(full(st), 2 * S::kKV + (it == 0 ? S::kQ : 0));
-        if (it == 0)
-          tc::tma_tile<D, kTcM>(q_s, &tm_q, q0, b * Hq + h, full(st));
-        const int k0 = (kb_lo + it) * kTcN;
-        tc::tma_tile<D, kTcN>(k_tile(it), &tm_k, k0, b * Hkv + hk, full(st));
-        tc::tma_tile<D, kTcN>(k_tile(it) + S::kKV, &tm_v, k0, b * Hkv + hk,
-                              full(st));
+      int n = 0;
+      for (int j = 0;; ++j) {
+        const int t = cta_tile(j);
+        if (t >= n_tiles) break;
+        if (j >= 2) tc::mbar_wait(bar(kQEmpty, j), ((j >> 1) - 1) & 1);
+        const Work w = work_tile(t, nq, B, Hq, Sq, Sk, causal, window);
+        const int kv = w.b * Hkv + w.h / (Hq / Hkv);
+        tc::mbar_expect(bar(kQFull, j), S::kQ);
+        tc::tma_tile<D, kTcM>(q_tile(j & 1), &tm_q, w.q0, w.b * Hq + w.h,
+                              bar(kQFull, j));
+        for (int it = 0; it < w.nkv; ++it, ++n) {
+          const int k0 = (w.kb_lo + it) * kTcN;
+          if (n >= 2) tc::mbar_wait(bar(kKEmpty, n), ((n >> 1) - 1) & 1);
+          tc::mbar_expect(bar(kKFull, n), S::kKV);
+          tc::tma_tile<D, kTcN>(k_tile(n), &tm_k, k0, kv, bar(kKFull, n));
+          if (n >= 2) tc::mbar_wait(bar(kVEmpty, n), ((n >> 1) - 1) & 1);
+          tc::mbar_expect(bar(kVFull, n), S::kKV);
+          tc::tma_tile<D, kTcN>(v_tile(n), &tm_v, k0, kv, bar(kVFull, n));
+        }
       }
     }
   } else {
     tc::regs_inc<kConsumerRegs>();
-    // Warpgroup wg owns q rows [64 wg, 64 wg + 64) of the block; this
-    // thread rows row0 and row0 + 8, columns 8j + col + {0, 1}.
-    const int row0 = q0 + 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
+    // Warpgroup wg owns rows [64 wg, 64 wg + 64) of each work tile; this
+    // thread rows rloc and rloc + 8, columns 8j + col + {0, 1}.
+    const int rloc = 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
     const int col = 2 * (lane % 4);
-    // s = q . k^T of step `it`, issued and committed (not waited)
-    auto scores = [&](float (&s)[NS], int it) {
+    // s = q . k^T of kv block n, issued and committed (not waited)
+    auto scores = [&](float (&s)[NS], uint32_t q_s, int n) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         tc::mma_ss<kTcN, 0>(s, tc::desc_k<D>(q_s, kTcM, 64 * wg, kk),
-                            tc::desc_k<D>(k_tile(it), kTcN, 0, kk), kk);
+                            tc::desc_k<D>(k_tile(n), kTcN, 0, kk), kk);
       tc::mma_commit();
     };
-    // o += p . v of step `it`, issued and committed (not waited)
+    // o += p . v of kv block n, issued and committed (not waited)
     auto accumulate = [&](float (&o)[NO], const uint32_t (&p)[NP][4],
-                          int it) {
+                          int n) {
 #pragma unroll
       for (int t = 0; t < NP; ++t)
-        tc::mma_rs<D, 1>(o, p[t],
-                         tc::desc_mn<D>(k_tile(it) + S::kKV, kTcN, t), 1);
+        tc::mma_rs<D, 1>(o, p[t], tc::desc_mn<D>(v_tile(n), kTcN, t), 1);
       tc::mma_commit();
     };
     // The warpgroups take turns to issue their products (barriers 1 and
     // 2), so that one's softmax runs while the other's products are on the
-    // tensor cores. Warpgroup 1 opens the first turn; warpgroup 0 takes the
-    // last arrival after its last turn. No branch lies between a product's
-    // issue and its wait: ptxas would serialise every product.
+    // tensor cores. Both run the same tiles, so their turns alternate
+    // across tile boundaries too: warpgroup 1 opens the first turn once,
+    // and warpgroup 0 takes its last arrival (or that opening one) before
+    // the CTA ends. No branch lies between a product's issue and its wait:
+    // ptxas would serialise every product.
     auto turn_begin = [&]() { tc::bar_sync(1 + wg, 256); };
     auto turn_end = [&]() { tc::bar_arrive(2 - wg, 256); };
-    if (wg == 1 && nkv > 0) tc::bar_arrive(1, 256);
+    if (wg == 1) tc::bar_arrive(1, 256);
+    // The thread that stores a warpgroup's output releases the q slot it
+    // left from once TMA has read it: at the next tile's first product (by
+    // then long read), before its own next store, or at the end, so that
+    // no warpgroup waits on a store.
+    int stored = -1;  // the work tile whose slot awaits release
+    auto release = [&]() {
+      if (tid % 128 == 0 && stored >= 0) {
+        tc::bulk_wait_read<0>();
+        tc::mbar_arrive(bar(kQEmpty, stored));
+        stored = -1;
+      }
+    };
 
-    float o[NO], m[2], l[2], alpha[2], sum[2];
-#pragma unroll
-    for (int i = 0; i < NO; ++i) o[i] = 0.f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m[r] = kNegInf;
-      l[r] = 0.f;
-    }
-    uint32_t p[NP][4];  // p of the step before, as A fragments
-    // Step `it` issues s of its block and o += p . v of the block before,
-    // runs its softmax while that product runs, rescales o once the
-    // product is done and releases the block before to the producer.
-    if (nkv > 0) {
-      tc::mbar_wait(full(0), 0);
-      float s[NS];
-      turn_begin();
-      tc::mma_fence();
-      scores(s, 0);
-      turn_end();
-      tc::mma_wait<0>();
-      tc::hold(s);
-      online_softmax(s, m, alpha, sum, kb_lo * kTcN, row0, col, q0, Sq, Sk,
-                     scale, causal, window);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = sum[r];
-      tc::to_a<NP>(s, p);
-    }
-    for (int it = 1; it < nkv; ++it) {
-      tc::mbar_wait(full(it % S::kStages), (it / S::kStages) & 1);
-      float s[NS];
-      turn_begin();
-      tc::mma_fence();
-      scores(s, it);
-      accumulate(o, p, it - 1);
-      turn_end();
-      tc::mma_wait<1>();
-      tc::hold(s);
-      online_softmax(s, m, alpha, sum, (kb_lo + it) * kTcN, row0, col, q0,
-                     Sq, Sk, scale, causal, window);
-      tc::mma_wait<0>();
-      tc::hold(o);
-      tc::hold(p);
-      if (lane == 0) tc::mbar_arrive(empty((it - 1) % S::kStages));
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
-#pragma unroll
-      for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
-      tc::to_a<NP>(s, p);
-    }
-    if (nkv > 0) {
-      turn_begin();
-      tc::mma_fence();
-      accumulate(o, p, nkv - 1);
-      turn_end();
-      tc::mma_wait<0>();
-      tc::hold(o);
-      tc::hold(p);
-      if (wg == 0) tc::bar_sync(1, 256);  // warpgroup 1's last arrival
-    }
+    int n = 0;  // kv blocks consumed before this tile
+    for (int j = 0;; ++j) {
+      const int t = cta_tile(j);
+      if (t >= n_tiles) break;
+      tc::mbar_wait(bar(kQFull, j), (j >> 1) & 1);
+      const Work w = work_tile(t, nq, B, Hq, Sq, Sk, causal, window);
+      const uint32_t q_s = q_tile(j & 1);
+      const int row0 = w.q0 + rloc;
 
-    // out = o / l through this warpgroup's rows of q's shared memory (its
-    // products are done with them), then 16-byte rows to global memory;
-    // lse = m + log(l)
-    const size_t qoff = ((size_t)b * Hq + h) * Sq * D;
+      float o[NO], m[2], l[2], alpha[2], sum[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      const float denom = l[r] == 0.f ? 1.f : l[r];
-      const int row = row0 + 8 * r;
-      if (lane % 4 == 0 && row < Sq)
-        lse[((size_t)b * Hq + h) * Sq + row] = m[r] + logf(denom);
-      l[r] = 1.f / denom;
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+      for (int i = 0; i < NO; ++i) o[i] = 0.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 8 * r - q0;
-        *reinterpret_cast<uint32_t*>(q_p + L::chunk(kTcM, row, j) + 2 * col) =
-            tc::pack_bf16(o[4 * j + 2 * r] * l[r],
-                          o[4 * j + 2 * r + 1] * l[r]);
+        m[r] = kNegInf;
+        l[r] = 0.f;
       }
-    tc::bar_sync(3 + wg, 128);
-    for (int i = tid % 128; i < 64 * (D / 8); i += 128) {
-      const int r = 64 * wg + i / (D / 8), c = i % (D / 8);
-      if (q0 + r < Sq)
-        *reinterpret_cast<uint4*>(out + qoff + (size_t)(q0 + r) * D + 8 * c) =
-            *reinterpret_cast<const uint4*>(q_p + L::chunk(kTcM, r, c));
+      uint32_t p[NP][4];  // p of the step before, as A fragments
+      // Step `it` issues s of its block c and o += p . v of block c - 1,
+      // runs its softmax while that product runs, rescales o once the
+      // product is done and releases k of c and v of c - 1.
+      if (w.nkv > 0) {
+        tc::mbar_wait(bar(kKFull, n), (n >> 1) & 1);
+        float s[NS];
+        turn_begin();
+        tc::mma_fence();
+        scores(s, q_s, n);
+        turn_end();
+        tc::mma_wait<0>();
+        tc::hold(s);
+        if (lane == 0) tc::mbar_arrive(bar(kKEmpty, n));
+        release();
+        online_softmax(s, m, alpha, sum, w.kb_lo * kTcN, row0, col, w.q0, Sq,
+                       Sk, scale, causal, window);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = sum[r];
+        tc::to_a<NP>(s, p);
+      }
+      for (int it = 1; it < w.nkv; ++it) {
+        const int c = n + it;
+        tc::mbar_wait(bar(kKFull, c), (c >> 1) & 1);
+        tc::mbar_wait(bar(kVFull, c - 1), ((c - 1) >> 1) & 1);
+        float s[NS];
+        turn_begin();
+        tc::mma_fence();
+        scores(s, q_s, c);
+        accumulate(o, p, c - 1);
+        turn_end();
+        tc::mma_wait<1>();
+        tc::hold(s);
+        online_softmax(s, m, alpha, sum, (w.kb_lo + it) * kTcN, row0, col,
+                       w.q0, Sq, Sk, scale, causal, window);
+        tc::mma_wait<0>();
+        tc::hold(o);
+        tc::hold(p);
+        if (lane == 0) {
+          tc::mbar_arrive(bar(kKEmpty, c));
+          tc::mbar_arrive(bar(kVEmpty, c - 1));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
+#pragma unroll
+        for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+        tc::to_a<NP>(s, p);
+      }
+      if (w.nkv > 0) {
+        const int c = n + w.nkv - 1;
+        tc::mbar_wait(bar(kVFull, c), (c >> 1) & 1);
+        turn_begin();
+        tc::mma_fence();
+        accumulate(o, p, c);
+        turn_end();
+        tc::mma_wait<0>();
+        tc::hold(o);
+        tc::hold(p);
+        if (lane == 0) tc::mbar_arrive(bar(kVEmpty, c));
+      }
+      n += w.nkv;
+
+      // lse = m + log(l); out = o / l into this warpgroup's rows of the q
+      // slot (its products are done with them), then one thread stores
+      // them by TMA
+      release();
+      const size_t row_base = ((size_t)w.b * Hq + w.h) * Sq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const float denom = l[r] == 0.f ? 1.f : l[r];
+        const int row = row0 + 8 * r;
+        if (lane % 4 == 0 && row < Sq) lse[row_base + row] = m[r] + logf(denom);
+        l[r] = 1.f / denom;
+      }
+      uint8_t* q_p = base_p + (j & 1) * S::kQ;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(q_p + L::chunk(kTcM, rloc + 8 * r, jj) +
+                                       2 * col) =
+              tc::pack_bf16(o[4 * jj + 2 * r] * l[r],
+                            o[4 * jj + 2 * r + 1] * l[r]);
+      tc::fence_async_smem();
+      tc::bar_sync(3 + wg, 128);
+      if (tid % 128 == 0) {
+        if (w.q0 + 64 * wg < Sq) {
+          tc::tma_store<D, kTcM>(&tm_o, q_s + 64 * wg * L::RB, w.q0 + 64 * wg,
+                                 w.b * Hq + w.h);
+          tc::bulk_commit();
+        }
+        stored = j;
+      }
     }
+    release();
+    if (wg == 0) tc::bar_sync(1, 256);  // warpgroup 1's last arrival
   }
 }
 
@@ -402,19 +514,24 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
                 float scale, int causal, int window, cudaStream_t stream) {
-  CUtensorMap tm_q, tm_k, tm_v;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
   int e = tc::make_tile_map<D>(&tm_q, q, B * Hq, Sq, kTcM);
   if (e == 0) e = tc::make_tile_map<D>(&tm_k, k, B * Hkv, Sk, kTcN);
   if (e == 0) e = tc::make_tile_map<D>(&tm_v, v, B * Hkv, Sk, kTcN);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_o, out, B * Hq, Sq, kTcM / 2);
   if (e != 0) return e;
-  const cudaError_t a = cudaFuncSetAttribute(
+  cudaError_t a = cudaFuncSetAttribute(
       fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       FwdSmem<D>::kBytes);
+  int dev = 0, sms = 0;
+  if (a == cudaSuccess) a = cudaGetDevice(&dev);
+  if (a == cudaSuccess)
+    a = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (a != cudaSuccess) return (int)a;
-  const int nq = (Sq + kTcM - 1) / kTcM;
-  fwd_bf16_kernel<D><<<nq * B * Hq, kTcThreads, FwdSmem<D>::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, B, Hq, Hkv, Sq,
-      Sk, scale, causal, window);
+  const int n_tiles = (Sq + kTcM - 1) / kTcM * B * Hq;
+  fwd_bf16_kernel<D><<<min(sms, n_tiles), kTcThreads, FwdSmem<D>::kBytes,
+                       stream>>>(tm_q, tm_k, tm_v, tm_o, lse, B, Hq, Hkv,
+                                 Sq, Sk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -438,8 +555,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
 
 template <int D>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
-                 void* out, float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
-                 float scale, int causal, int window, cudaStream_t s) {
+                 void* out, float* lse, int B, int Hq, int Hkv, int Sq,
+                 int Sk, float scale, int causal, int window,
+                 cudaStream_t s) {
   if (dtype == 0)
     return launch<float, D>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, scale,
                             causal, window, s);

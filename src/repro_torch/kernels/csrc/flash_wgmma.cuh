@@ -1,7 +1,8 @@
 // Tensor-core pieces of the bf16 flash-attention kernels for Hopper
-// (sm_90a): the shared-memory tile layout that wgmma reads and TMA writes,
-// its matrix descriptors and TMA maps, mbarriers and named barriers for the
-// producer / consumer pipeline, and the warpgroup products.
+// (sm_90a): the shared-memory tile layout that wgmma reads and TMA loads
+// and stores, its matrix descriptors and TMA maps, mbarriers and named
+// barriers for the producer / consumer pipeline, and the warpgroup
+// products.
 //
 // A tile holds R rows x D bf16 columns. It is stored as D / W column blocks
 // of W = min(D, 64) columns, one after another; each block is (R, W)
@@ -137,6 +138,36 @@ __device__ __forceinline__ void tma_tile(uint32_t tile, const void* map,
             tile + blk * R * T::RB),
         "l"(map), "r"(blk * T::W), "r"(r0), "r"(mat), "r"(bar)
         : "memory");
+}
+
+// Rows [r0, r0 + box) of matrix `mat` from shared memory to global memory
+// by TMA (`map` from make_tile_map with R = box): `tile` is the first of
+// those rows in a tile whose column blocks lie RT rows apart. Rows past
+// the matrix's end are not written. The writes to `tile` must be made
+// visible first (fence_async_smem, then a barrier of the writers); the
+// store joins the issuing thread's bulk group (bulk_commit), and the tile
+// may be written again once bulk_wait_read says TMA has read it.
+template <int D, int RT>
+__device__ __forceinline__ void tma_store(const void* map, uint32_t tile,
+                                          int r0, int mat) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int blk = 0; blk < D / T::W; ++blk)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+        " [%0, {%1, %2, %3}], [%4];\n" ::"l"(map),
+        "r"(blk * T::W), "r"(r0), "r"(mat), "r"(tile + blk * RT * T::RB)
+        : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // mbarriers in shared memory: init (one thread, then fence_barrier_init

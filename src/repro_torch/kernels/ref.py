@@ -25,6 +25,7 @@ __all__ = [
     "flash_attention_dq",
     "flash_attention_bwd",
     "paged_attention",
+    "paged_attention_split",
     "route_topk",
     "moe_dispatch",
     "moe_combine",
@@ -34,6 +35,7 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
+MERGE_SPLITS = 8  # the paged kernel's merge folds this many splits at once
 
 
 # --------------------------------------------------------------------------- #
@@ -326,6 +328,75 @@ def paged_attention(
     out = torch.einsum("bhs,bhsd->bhd", p, vx)
     any_visible = valid.any(dim=-1)[:, None, None]
     return torch.where(any_visible, out, 0.0).to(q.dtype)
+
+
+def paged_attention_split(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    pages_per_split: int,
+) -> torch.Tensor:
+    """``paged_attention`` partitioned and merged as the CUDA kernel does.
+
+    Each request's positions are cut into splits of ``pages_per_split``
+    pages.  Each split that starts before the length takes its softmax
+    alone, in f32: its max ``m_s`` (of scores masked to -1e30 past the
+    length), ``l_s = sum exp(s - m_s)`` and ``acc_s = sum exp(s - m_s) v``
+    over its live positions.  The splits merge in order, 8 at a time:
+    ``m = max m_s``, ``l = sum l_s exp(m_s - m)``, ``acc = sum acc_s
+    exp(m_s - m)`` over the first 8, each later 8 folded in with the
+    running ``m``, ``l`` and ``acc`` rescaled to their new max; ``out = acc
+    / l`` (0 where ``l`` is 0, i.e. a length of 0)."""
+    B, Hq, D = q.shape
+    _, T, Hkv, _ = k_pages.shape
+    NP = page_table.shape[1]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D**0.5)
+    ns = -(-NP // pages_per_split)
+    split = pages_per_split * T
+    # pad the table to whole splits; the padded slots lie past every length
+    idx = torch.zeros((B, ns * pages_per_split), dtype=torch.long,
+                      device=q.device)
+    idx[:, :NP] = page_table.long()
+    S = ns * split
+    kx = k_pages[idx].reshape(B, S, Hkv, D).transpose(1, 2)
+    vx = v_pages[idx].reshape(B, S, Hkv, D).transpose(1, 2)
+    kx = kx.repeat_interleave(group, dim=1).float()  # (B, Hq, S, D)
+    vx = vx.repeat_interleave(group, dim=1).float()
+    length = torch.clamp(lengths.long(), max=NP * T)
+    valid = torch.arange(S, device=q.device)[None, :] < length[:, None]
+    s = torch.einsum("bhd,bhsd->bhs", q.float() * scale, kx)
+    s = torch.where(valid[:, None, :], s, NEG_INF).reshape(B, Hq, ns, split)
+    vs = torch.where(valid[:, None, :, None], vx, 0.0)
+    vs = vs.reshape(B, Hq, ns, split, D)
+    live = valid.reshape(B, ns, split)[:, None]  # (B, 1, ns, split)
+    m_s = s.max(dim=-1).values  # (B, Hq, ns)
+    p = torch.where(live, torch.exp(s - m_s[..., None]), 0.0)
+    l_s = p.sum(dim=-1)
+    acc_s = torch.einsum("bhnt,bhntd->bhnd", p, vs)
+    started = live.any(dim=-1)  # splits that start before the length
+    m_s = torch.where(started, m_s, NEG_INF)
+    m = torch.full((B, Hq), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hq), device=q.device)
+    acc = torch.zeros((B, Hq, D), device=q.device)
+    for c in range(0, ns, MERGE_SPLITS):
+        chunk = slice(c, c + MERGE_SPLITS)
+        cm = torch.maximum(m, m_s[..., chunk].max(dim=-1).values)
+        r = torch.exp(m - cm)
+        e = torch.where(started[..., chunk], torch.exp(m_s[..., chunk] - cm[
+            ..., None]), 0.0)
+        l = l * r + (l_s[..., chunk] * e).sum(dim=-1)
+        acc = acc * r[..., None] + (acc_s[..., chunk, :] * e[..., None]).sum(
+            dim=-2)
+        m = cm
+    out = torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1.0)[
+        ..., None], 0.0)
+    return out.to(q.dtype)
 
 
 # --------------------------------------------------------------------------- #

@@ -59,3 +59,21 @@ def test_ab_reduce_scatter_tool_imports_without_jax_and_needs_a_card():
                           text=True, timeout=120, env=env, cwd=ROOT)
     assert proc.returncode == 1, proc.stderr[-4000:]
     assert "usage" in proc.stderr and not proc.stdout
+
+
+def test_ab_attention_tool_imports_without_jax_and_needs_a_card():
+    """``tools/ab_attention.py`` imports nothing of JAX or the reference
+    and, without a card, exits before it builds or prints anything."""
+    probe = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['ab_attention.py', 'before=build/ab/before', 'after=.']\n"
+        f"runpy.run_path({os.path.join(ROOT, 'tools', 'ab_attention.py')!r},"
+        " run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=ROOT)
+    assert proc.returncode == 1, proc.stderr[-4000:]
+    assert "needs a GPU" in proc.stderr and not proc.stdout

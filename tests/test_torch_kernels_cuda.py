@@ -72,6 +72,95 @@ def test_cuda_kernel_reads_a_layer_slice_by_strides(cuda):
     assert pa.paged_attention.launches == before
 
 
+def _paged_inputs(cuda, dtype, Hq, Hkv, lengths, D=128, T=16, NP=32, seed=3):
+    """Inputs in the serving layout with NaN behind every length: padded
+    table slots point at a NaN page, and the positions past the length in
+    a request's last live page hold NaN."""
+    B = len(lengths)
+    rng = np.random.default_rng(seed)
+    P = B * NP + 1
+    q = rng.normal(size=(B, Hq, D)).astype(np.float32)
+    kp = rng.normal(size=(P, T, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(P, T, Hkv, D)).astype(np.float32)
+    kp[-1], vp[-1] = np.nan, np.nan
+    table = rng.permutation(B * NP).reshape(B, NP).astype(np.int32)
+    for b, n in enumerate(lengths):
+        live = -(-n // T)
+        table[b, live:] = P - 1
+        if n % T:
+            kp[table[b, live - 1], n % T:] = np.nan
+            vp[table[b, live - 1], n % T:] = np.nan
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (q, kp, vp, table, np.asarray(lengths, np.int32))]
+    args[:3] = [x.to(dtype) for x in args[:3]]
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", [None, 1, 3])
+@pytest.mark.parametrize("heads", [(56, 8), (64, 8)], ids=["G7", "G8"])
+@pytest.mark.parametrize(
+    "dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+)
+def test_cuda_split_kernel_across_split_boundaries(cuda, heads, pps, dtype,
+                                                   atol, monkeypatch):
+    """The split-KV kernel at arctic's and kimi-k2's GQA groups of 7 and 8,
+    with the default split (4 pages) and splits of 1 and 3 pages: lengths
+    on and one token either side of split boundaries, the served step's
+    148, one request of 512 tokens; against the plain version."""
+    lengths = [1, 31, 32, 33, 47, 48, 49, 148, 512]
+    args = _paged_inputs(cuda, dtype, *heads, lengths)
+    if pps is not None:
+        monkeypatch.setattr(pa, "SPLIT_TOKENS", 16 * pps)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    want = ref.paged_attention(*args)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pps", [None, 8])
+@pytest.mark.parametrize(
+    "dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+)
+def test_cuda_split_kernel_large_group_and_passes(cuda, pps, dtype, atol,
+                                                  monkeypatch):
+    """A GQA group of 16 (two rounds of 8 query heads over the staged
+    K/V) with the default split and with splits of 8 pages (two staging
+    passes each), lengths across both boundaries; against the plain
+    version."""
+    lengths = [1, 63, 64, 65, 127, 128, 129, 300, 512]
+    args = _paged_inputs(cuda, dtype, 32, 2, lengths)
+    if pps is not None:
+        monkeypatch.setattr(pa, "SPLIT_TOKENS", 16 * pps)
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.paged_attention(*args)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_on_two_streams(cuda):
+    """The merge's arrival counters are per stream: a paged call on a side
+    stream, overlapping the same on the default one, each give the plain
+    version's result."""
+    paged = _paged_inputs(cuda, torch.bfloat16, 32, 8, [148, 300, 512, 7])
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        got_side = pa.paged_attention(*paged)
+    got_main = pa.paged_attention(*paged)
+    torch.cuda.synchronize()
+    want = ref.paged_attention(*paged)
+    for got in (got_side, got_main):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
 # --------------------------------------------------------------------------- #
 # GAScore kernels (csrc/gascore_put.cu, csrc/gascore_ring.cu)
 # --------------------------------------------------------------------------- #
@@ -232,6 +321,10 @@ FLASH_CASES = [
     (1, 4, 2, (192, 320), 64, False, None, torch.bfloat16),  # ragged q block
     (2, 4, 2, (256, 96), 128, False, None, torch.bfloat16),  # ragged kv tile
     (1, 4, 2, 320, 128, True, 100, torch.bfloat16),  # a causal window
+    # the persistent bf16 forward: 320 work tiles of uneven length (causal,
+    # a window) on 132 SMs, and a single tile on one CTA
+    (4, 16, 4, 640, 128, True, 100, torch.bfloat16),
+    (1, 1, 1, 128, 64, False, None, torch.bfloat16),
 ]
 # f32: summation order only; bf16: the outputs' rounding (8 mantissa bits)
 FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}

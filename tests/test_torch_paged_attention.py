@@ -105,6 +105,63 @@ def test_nan_pages_and_tails_never_reach_the_output():
         )
 
 
+# (Hq, Hkv): GQA groups of 4, 7 and 8, as qwen3-4b, arctic and kimi-k2 have
+SPLIT_GROUPS = [(8, 2), (14, 2), (16, 2)]
+
+
+def _split_case(seed, Hq, Hkv, pps, D=16, T=4, NP=6):
+    """Lengths at every edge of a split of ``pps`` pages: 0, 1, T, T + 1,
+    one token either side of the first split boundary and on it, and
+    NP * T.  Padded table slots point at a NaN page, and the positions
+    behind each length in its last live page hold NaN."""
+    edge = pps * T
+    lengths = [0, 1, T, T + 1, edge - 1, edge, edge + 1, NP * T]
+    B = len(lengths)
+    rng = np.random.default_rng(seed)
+    P = B * NP + 1  # the last page is NaN
+    q = rng.normal(size=(B, Hq, D)).astype(np.float32)
+    kp = rng.normal(size=(P, T, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(P, T, Hkv, D)).astype(np.float32)
+    table = rng.permutation(B * NP).reshape(B, NP).astype(np.int32)
+    kp[-1], vp[-1] = np.nan, np.nan
+    for b, n in enumerate(lengths):
+        live = -(-n // T)
+        table[b, live:] = P - 1
+        if n % T:
+            kp[table[b, live - 1], n % T:] = np.nan
+            vp[table[b, live - 1], n % T:] = np.nan
+    return q, kp, vp, table, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("pps", [1, 2, 3])
+@pytest.mark.parametrize("heads", SPLIT_GROUPS, ids=[str(h) for h in SPLIT_GROUPS])
+def test_split_partition_and_merge_match_jax(heads, pps, impl):
+    """The CUDA kernel's partition (splits of ``pps`` pages, each split's
+    softmax alone) and merge (in split order), in plain PyTorch, against
+    the JAX paged attention: f32, the same 1e-5 as the unsplit version
+    (only the summation order differs)."""
+    args = _split_case(13, *heads, pps)
+    got = ref.paged_attention_split(
+        *(torch.from_numpy(x) for x in args), pages_per_split=pps
+    ).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _jax(*args, impl), atol=ATOL, rtol=ATOL)
+    assert (got[args[4] == 0] == 0).all()
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+def test_split_merge_over_many_splits_matches_jax(impl):
+    """Up to 20 splits of one page: the merge folds them 8 at a time, each
+    fold rescaling the running sums to a new max."""
+    args = _split_case(17, 16, 2, 1, NP=20)
+    got = ref.paged_attention_split(
+        *(torch.from_numpy(x) for x in args), pages_per_split=1
+    ).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _jax(*args, impl), atol=ATOL, rtol=ATOL)
+
+
 def test_padded_slots_alias_any_page():
     q, kp, vp, _, _ = _case(5, 1, 2, 1, 8, 4, 3, P=4)
     lengths = np.asarray([5], np.int32)
