@@ -61,7 +61,9 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              512 x Di 8192 x N 16, with the final state; recurrentgemma:
              B 1 and 4 x S 2560 x W 4096), at an odd S and at the
              reference tests' small shapes, with the model's value ranges;
-             timed by ``device_ms`` (L2 flushed) beside their bound.
+             timed by ``device_ms`` (L2 flushed) beside their bound and
+             the selective scan's special-function floor (its
+             exponentials at 16 a clock per SM at the maximum SM clock).
 10. serve_falcon — falcon-mamba-7b at full width and depth (64 layers,
              bf16, random weights from a seeded generator) through the
              dense ``Server``: 16 requests of 512 prompt tokens, 64 new
@@ -173,6 +175,14 @@ def host_us(fn, iters=50):
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return 1e6 * (t1 - t0) / iters
+
+
+def card():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def emit(record):
@@ -1305,10 +1315,11 @@ SSM_OTHER = [(2, 77, 8192, 16), (2, 128, 256, 16), (1, 64, 512, 16),
 # (B, S, W): recurrentgemma's prefill at full width, odd S, small shapes
 LRU_FULL = [(1, 2560, 4096), (4, 2560, 4096)]
 LRU_OTHER = [(2, 77, 4096), (2, 128, 256), (1, 64, 512)]
-# |kernel - plain| <= tol * (1 + |plain|).  f32: the state update rounds
-# as the plain version does, the kernel sums C.h over N in another order;
-# bf16: the outputs' rounding to 8 mantissa bits.  The final state is f32
-# on both dtypes.
+# |kernel - plain| <= tol * (1 + |plain|).  f32: the selective scan's
+# exponential is ex2.approx (~2^-22 relative) and its state update one
+# fused multiply-add, its sum of C.h over N in another order (the RG-LRU
+# scan rounds as the plain version does and equals it); bf16: the outputs'
+# rounding to 8 mantissa bits.  The final state is f32 on both dtypes.
 SCAN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCAN_KERNELS = {  # wrapper, source, TPU kernel it replaces
     "selective_scan": (ssm_scan.selective_scan, "ssm_scan.cu",
@@ -1362,14 +1373,39 @@ def scan_bounds(name, case, dtype):
             "bytes": nbytes, "flops": flops}
 
 
+def sm_clock_mhz():
+    """The card's maximum SM clock, MHz, as ``nvidia-smi`` reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.split()[0])
+
+
+# Hopper's special-function units return 16 exponentials a clock per SM
+SFU_PER_CLOCK = 16
+
+
+def scan_sfu_floor(name, case, clock_mhz):
+    """Least time for the scan's exponentials on the special-function
+    units: one per (b, t, channel, state) for the selective scan, none for
+    the RG-LRU scan; over the SMs x 16 a clock x the maximum SM clock."""
+    exps = math.prod(case) if name == "selective_scan" else 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"sfu_floor_ms": 1e3 * exps / (sms * SFU_PER_CLOCK
+                                         * clock_mhz * 1e6),
+            "exponentials": exps, "sm_clock_mhz": clock_mhz}
+
+
 def scan_phase():
     """Each scan against its plain version on every case and dtype; times
     at the full-width cases, by ``device_ms`` (``ms``) and by events
-    around one call (``events_ms``), L2 flushed.  Returns the serving
-    path's figures per kernel (falcon B 1 bf16; recurrentgemma B 1 f32, the
-    model's a and b)."""
+    around one call (``events_ms``), L2 flushed, beside the bound and the
+    special-function floor.  Returns the serving path's figures per kernel
+    (falcon B 1 bf16; recurrentgemma B 1 f32, the model's a and b)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    clock = sm_clock_mhz()
     checked, figures = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -1396,7 +1432,8 @@ def scan_phase():
                         ref.selective_scan(*args),
                         ref.mamba_final_state(*args[:4])), 2, flush),
                     "library_ms": None,
-                    **scan_bounds("selective_scan", case, dtype)}
+                    **scan_bounds("selective_scan", case, dtype),
+                    **scan_sfu_floor("selective_scan", case, clock)}
             del args, y, h, want_y, want_h
         for case in LRU_FULL + LRU_OTHER:
             a, b = lru_inputs(case, dtype, gen)
@@ -1415,7 +1452,8 @@ def scan_phase():
                     "plain_ms": cuda_time_ms(
                         lambda: ref.gated_linear_scan(a, b), 2, flush),
                     "library_ms": None,
-                    **scan_bounds("gated_linear_scan", case, dtype)}
+                    **scan_bounds("gated_linear_scan", case, dtype),
+                    **scan_sfu_floor("gated_linear_scan", case, clock)}
             del a, b
     torch.cuda.empty_cache()
     emit({"phase": "scan", "tol": {str(d).split(".")[-1]: t
@@ -2045,11 +2083,7 @@ def main():
     router_launches = (serve_moe_phase("kimi-k2-1t-a32b")
                        + serve_moe_phase("arctic-480b"))
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card(), flush=True)
     k = kernel["bfloat16"]
     emit({"kernels": [{
         "name": pa.NAME, "route": "cuda",

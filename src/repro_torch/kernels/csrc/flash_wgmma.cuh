@@ -30,8 +30,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace flash {
 namespace tc {
+
+using tma::fence_barrier_init;
+using tma::mbar_arrive;
+using tma::mbar_expect;
+using tma::mbar_init;
+using tma::mbar_wait;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -53,28 +61,13 @@ struct Tile {
 
 // Host: the TMA map of a (mats, rows, D) row-major bf16 tensor for boxes
 // of Tile<D>::W columns x R rows of one matrix, swizzled as the tiles are.
-// cuTensorMapEncodeTiled is looked up through the runtime's entry-point
-// query, so the library needs no link to libcuda. Returns 0 or a CUDA
-// error code.
+// Returns 0 or a CUDA error code.
 template <int D>
 inline int make_tile_map(CUtensorMap* map, const void* base, int mats,
                          int rows, int R) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-      CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return (int)e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<Encode>(fn);
-  }
+  int err = 0;
+  const tma::Encode encode = tma::encoder(&err);
+  if (encode == nullptr) return err;
   using T = Tile<D>;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)mats};
@@ -168,43 +161,6 @@ __device__ __forceinline__ void bulk_commit() {
 template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-// mbarriers in shared memory: init (one thread, then fence_barrier_init
-// and a CTA barrier), arrive, arrive announcing a TMA copy's bytes, and
-// wait for the completion of the phase of the given parity. A wait that
-// outlasts 2^32 clocks (about 2 s) gives up, so that a lost arrival shows
-// as a wrong result, not a hang.
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done && clock64() - t0 < (1ll << 32));
 }
 
 // Move this warpgroup's register budget to N per thread (setmaxnreg):

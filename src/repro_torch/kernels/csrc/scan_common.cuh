@@ -1,0 +1,112 @@
+// Pieces shared by the two scan kernels (ssm_scan.cu, rglru.cu): f32
+// conversions, TMA maps and loads of 3-D boxes into shared memory, and the
+// element-by-element edge path for rows TMA cannot take.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tma.cuh"
+
+namespace scan {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 128-byte boundary at or after p (TMA writes boxes there).
+__device__ __forceinline__ unsigned char* align128(unsigned char* p) {
+  return p + ((128 - smem_addr(p) % 128) % 128);
+}
+
+template <typename E>
+constexpr CUtensorMapDataType tma_type() {
+  return sizeof(E) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// True where TMA can read boxes of `cols` elements of E a row from a
+// tensor at `p` whose rows lie `ld` elements apart and whose batch rows
+// `bld` elements apart: p and both strides on 16 bytes, a box row whole
+// 16 bytes. Else the kernels take the edge path.
+template <typename E>
+inline bool tma_ok(const void* p, long long ld, long long bld, int cols) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (ld * (long long)sizeof(E)) % 16 == 0 &&
+         (bld * (long long)sizeof(E)) % 16 == 0 &&
+         (cols * sizeof(E)) % 16 == 0;
+}
+
+// Host: the TMA map of a (batch, rows, cols) tensor of E with rows `ld` and
+// batch rows `bld` elements apart, for boxes of box_cols x box_rows x 1,
+// unswizzled; elements past the tensor's ends read as zeros. Returns 0 or
+// a CUDA error code.
+template <typename E>
+inline int make_map(CUtensorMap* map, const void* base, int batch, int rows,
+                    int cols, long long ld, long long bld, int box_cols,
+                    int box_rows) {
+  int err = 0;
+  const tma::Encode encode = tma::encoder(&err);
+  if (encode == nullptr) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)(ld * sizeof(E)),
+                                 (cuuint64_t)(bld * sizeof(E))};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, tma_type<E>(), 3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The box at (col, row, batch) of `map` into shared memory at dst by TMA;
+// its bytes (the whole box, zeros past the tensor's ends included) count
+// on the mbarrier at shared-memory address `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int col, int row, int batch,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(col), "r"(row), "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// The edge path: a rows x cols tile (row r at src + r * ld) into dst,
+// row-major with `cols` elements a row, element by element through
+// registers: rows < live_rows and columns < live_cols, zeros elsewhere.
+// Threads tid of n share the work.
+template <typename E>
+__device__ __forceinline__ void stage_elements(E* dst, const E* src,
+                                               long long ld, int rows,
+                                               int cols, int live_rows,
+                                               int live_cols, int tid, int n) {
+  for (int i = tid; i < rows * cols; i += n) {
+    const int r = i / cols;
+    const int c = i % cols;
+    dst[i] = r < live_rows && c < live_cols ? src[r * ld + c]
+                                            : from_f32<E>(0.f);
+  }
+}
+
+}  // namespace scan

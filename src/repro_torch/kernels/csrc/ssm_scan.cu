@@ -11,161 +11,431 @@
 // dtype. Optionally the final state h_S (B, Di, N) f32, which the prefill
 // hands to decode (the reference computes it in a second scan).
 //
-// Bound: bytes, nearly level with operations. Each (b, t, channel) reads
-// x and dt and writes y once; B and C are (B, S, N), small. At the
-// falcon-mamba prefill (B 1, S 512, Di 8192, N 16, bf16) that is ~34 MB,
-// ~10 us at 3.35 TB/s; the ~9 flops and one exponential per (b, t, channel,
-// state) are ~0.6 GFLOP, ~9 us at the 67 TFLOP/s f32 rate (the
-// exponentials go to the special-function units, at a quarter of that).
-// What this first design does about it: nothing of size (B, S, Di, N)
-// touches device memory; the state never leaves registers; each CTA stages
-// a tile of time steps of x, dt, B and C through shared memory with
-// coalesced loads (every channel of a batch row reads the same B_t and
-// C_t) and writes its y tile back coalesced. N is split over G = N / 4
-// lanes (4 states each) with a shuffle reduce for y, so that B 1 x Di 8192
-// gives 256 CTAs of 128 threads for the 132 SMs rather than 64. The state
-// update rounds as the plain PyTorch version does (no fused multiply-add),
-// so the state tracks it closely over long sequences. Not done yet:
-// overlapping the next tile's loads with the current tile's steps, and a
-// chunked (parallel over time) form for small B x Di.
+// Bound: bytes. Each (b, t, channel) reads x and dt and writes y once; B
+// and C are (B, S, N), small. At the falcon-mamba prefill (B 1, S 512, Di
+// 8192, N 16, bf16) that is ~34 MB, ~10 us at 3.35 TB/s; the ~7 f32
+// operations a state step are ~0.5 GFLOP, ~7 us at 67 TFLOP/s. Two floors
+// above both: the B S Di N = 67.1 M exponentials go through the
+// special-function units at 16 a clock per SM, ~16 us at 1.98 GHz on 132
+// SMs; and issue: 4 warp instructions a clock per SM, so each instruction
+// a state step costs ~2 us. At B 1 there are only B Di N / 4 threads (8
+// warps a SM), too few to hide latency at a full issue rate.
+//
+// What this design does about them. Instructions: a thread holds 4 states
+// of one channel (G = N / 4 lanes a channel, 32 channels a CTA); a state
+// step is 5 instructions: dt A' (A pre-scaled by log2 e), one MUFU.EX2
+// (ex2.approx.ftz), dx B, h = fma(decay, h, dx B), acc = fma(h, C, acc);
+// B_t and C_t come as one float4 each, dt_t and x_t one load each, all as
+// f32 from shared memory (bf16 tiles are widened there once, by all
+// threads, one tile ahead). The sum of y over N takes no shuffles a step:
+// each lane keeps its partial sums of G steps in registers, and one
+// butterfly of G - 1 shuffles leaves lane j of the channel with the whole
+// sum of step j. A whole tile of kSteps steps is one block of straight code
+// (its y sums in registers until the tile's end, no branch a step), so the
+// compiler can overlap one step's loads and exponentials with another's
+// chain; the kernel is built for one CTA's worth of registers a thread.
+// Latency: tiles of 64 steps of x, dt, B and C come by TMA boxes into a
+// ring of 4 stages, three tiles ahead of the one being computed, waited on
+// by one mbarrier a stage, with one CTA barrier a tile; the y tile goes
+// out from shared memory in 16-byte stores at the next tile. An array TMA
+// cannot take (rows or strides off 16 bytes: Di or N x the element size,
+// B and C's strides, a misaligned base) is staged element by element;
+// ragged Di and S are zeros in the tiles, never stored, and steps past S
+// leave the state as it is. Rounding: the exponential is ex2.approx of dt
+// A' (relative error ~2^-22 against the plain version's expf), the state
+// update one fused multiply-add, the sum over N in another order: f32
+// stays within 2e-5 x (1 + |plain|) of the plain version, bf16 within its
+// output's rounding.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kStates = 4;  // SSM states per thread
+using scan::from_f32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int kStates = 4;    // SSM states a thread
+constexpr int kChannels = 32;  // channels a CTA
+constexpr int kSteps = 64;    // time steps a tile
+constexpr int kRing = 4;      // tiles in the ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A thread's kStates (4) consecutive floats of shared memory, 16-byte
+// aligned, in one load.
+__device__ __forceinline__ void load4(float (&out)[kStates], const float* p) {
+  static_assert(kStates == 4, "one float4 a thread");
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// One CTA per (channel block blockIdx.x, batch row blockIdx.y). G lanes
-// share a channel (N = 4 G states), so a CTA holds CB = 128 / G channels.
-// Shared memory (f32) holds TS time steps of x, dt, y (TS x CB each) and
-// of B and C (TS x N each).
-template <typename T, int G>
-__global__ void __launch_bounds__(kThreads)
-    ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+// Eight bf16 from shared memory to eight f32, 16 bytes in, 32 out.
+__device__ __forceinline__ void widen8(float* dst,
+                                       const __nv_bfloat16* src) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float f[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+  *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+// Shared memory of a CTA: kRing raw stages, each x, B and C of one tile
+// (T: kSteps x kChannels, kSteps x N, kSteps x N) then dt (f32, kSteps x
+// kChannels); for bf16, two widened tiles (x, B and C as f32, the same
+// layout); two y tiles (T, kSteps x kChannels); a "full" mbarrier a stage;
+// 128 bytes of slack to align. Every part starts on 128 bytes.
+template <typename T, int N>
+struct Smem {
+  static constexpr int kX = kSteps * kChannels;
+  static constexpr int kBC = kSteps * N;
+  static constexpr int kRawT = kX + 2 * kBC;  // x, B, C: T elements
+  static constexpr int kRawBytes = kRawT * sizeof(T) + kX * 4;
+  static constexpr bool kWiden = sizeof(T) == 2;
+  static constexpr int kWideBytes = kWiden ? 2 * kRawT * 4 : 0;
+  static constexpr int kYOffset = kRing * kRawBytes + kWideBytes;
+  static constexpr int kBarOffset = kYOffset + 2 * kX * sizeof(T);
+  static constexpr int kBytes = kBarOffset + kRing * 8 + 128;
+
+  __device__ static T* raw(unsigned char* s, int i) {
+    return reinterpret_cast<T*>(s + i * kRawBytes);
+  }
+  __device__ static float* dt(unsigned char* s, int i) {
+    return reinterpret_cast<float*>(s + i * kRawBytes + kRawT * sizeof(T));
+  }
+  // x, B and C of ring stage i as f32: widened (bf16) or raw (f32)
+  __device__ static float* wide(unsigned char* s, int i) {
+    if constexpr (kWiden)
+      return reinterpret_cast<float*>(s + kRing * kRawBytes +
+                                      (i & 1) * kRawT * 4);
+    else
+      return reinterpret_cast<float*>(raw(s, i % kRing));
+  }
+  __device__ static T* y(unsigned char* s, int i) {
+    return reinterpret_cast<T*>(s + kYOffset) + (i & 1) * kX;
+  }
+  // the mbarrier's shared-memory address
+  __device__ static uint32_t full(unsigned char* s, int i) {
+    return scan::smem_addr(s + kBarOffset + 8 * i);
+  }
+};
+
+// Write a rows x cols tile of shared memory (row-major) to dst (row r at
+// dst + r * ld): rows < live_rows, columns < live_cols; by 16-byte chunks
+// where `vec` (dst, ld and cols whole 16 bytes), else element by element.
+template <typename E>
+__device__ __forceinline__ void store_tile(E* dst, long long ld, const E* src,
+                                           int cols, int live_rows,
+                                           int live_cols, bool vec, int tid,
+                                           int n) {
+  if (vec) {
+    constexpr int kChunk = 16 / sizeof(E);
+    const int per_row = cols / kChunk;
+    for (int i = tid; i < live_rows * per_row; i += n) {
+      const int r = i / per_row;
+      const int c = (i % per_row) * kChunk;
+      if (c < live_cols)
+        *reinterpret_cast<uint4*>(dst + r * ld + c) =
+            *reinterpret_cast<const uint4*>(src + r * cols + c);
+    }
+  } else {
+    for (int i = tid; i < live_rows * cols; i += n) {
+      const int r = i / cols;
+      const int c = i % cols;
+      if (c < live_cols) dst[r * ld + c] = src[i];
+    }
+  }
+}
+
+// A whole kSteps x kChannels tile of shared memory (row-major) to dst (row
+// r at dst + r * ld) in 16-byte chunks, all loads before all stores; dst
+// and ld whole 16 bytes.
+template <int kThreads, typename E>
+__device__ __forceinline__ void store_whole(E* dst, long long ld,
+                                            const E* src, int tid) {
+  constexpr int kChunk = 16 / sizeof(E);
+  constexpr int kPerRow = kChannels / kChunk;
+  constexpr int kRounds = kSteps * kPerRow / kThreads;
+  static_assert(kSteps * kPerRow % kThreads == 0, "whole rounds");
+  uint4 v[kRounds];
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    const int c = j * kThreads + tid;
+    v[j] = *reinterpret_cast<const uint4*>(src + c * kChunk);
+  }
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    const int c = j * kThreads + tid;
+    *reinterpret_cast<uint4*>(dst + (c / kPerRow) * ld +
+                              (c % kPerRow) * kChunk) = v[j];
+  }
+}
+
+// G = N / kStates steps t0 .. t0 + G - 1 of one channel g (tile column),
+// states lane * kStates .. of it: the state update, then the sum of C_t .
+// h_t over the channel's G lanes, by a butterfly: at offset o a lane keeps
+// the half of its G partial sums that its bit o picks and adds the
+// partner's copy of that half, so lane j ends with the whole sum of step
+// t0 + j. Returns that sum plus D x for step t0 + lane. kGuard: steps from
+// `steps` on keep the state (decay 1, drive 0), for a ragged last tile.
+template <int N, bool kGuard>
+__device__ __forceinline__ float steps_of(float (&h)[kStates],
+                                          const float (&a2)[kStates],
+                                          const float* xs, const float* dts,
+                                          const float* bs, const float* cs,
+                                          int g, int lane, int t0, int steps,
+                                          float dv) {
+  constexpr int G = N / kStates;
+  float acc[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int t = t0 + j;
+    const bool on = !kGuard || t < steps;
+    const float dtt = on ? dts[t * kChannels + g] : 0.f;
+    const float dx = dtt * xs[t * kChannels + g];
+    float bv[kStates], cv[kStates];
+    load4(bv, bs + t * N + lane * kStates);
+    load4(cv, cs + t * N + lane * kStates);
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < kStates; ++k) {
+      const float decay = on ? exp2_approx(dtt * a2[k]) : 1.f;
+      h[k] = fmaf(decay, h[k], dx * bv[k]);
+      sum = fmaf(h[k], cv[k], sum);
+    }
+    acc[j] = sum;
+  }
+#pragma unroll
+  for (int o = G / 2; o >= 1; o /= 2) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int i = 0; i < o; ++i) {
+      const float send = up ? acc[i] : acc[i + o];
+      const float keep = up ? acc[i + o] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  return acc[0] + dv * xs[(t0 + lane) * kChannels + g];
+}
+
+// Which arrays go by TMA (x, dt, B, C) or by 16-byte stores (y), as bits.
+enum : int { kTmaX = 1, kTmaDt = 2, kTmaB = 4, kTmaC = 8, kVecY = 16 };
+
+// One CTA per (kChannels channels blockIdx.x, batch row blockIdx.y), G =
+// N / kStates lanes a channel. The maps are those of x, dt, B and C (boxes
+// of kChannels or N columns x kSteps steps), read where `paths` has their
+// bit; the other arrays take the edge path.
+template <typename T, int N>
+__global__ void __launch_bounds__(kChannels * N / kStates, 1)
+    ssm_scan_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_dt,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const __grid_constant__ CUtensorMap map_c,
+                    const T* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ a, const T* __restrict__ bm,
                     const T* __restrict__ cm, const float* __restrict__ dskip,
                     T* __restrict__ y, float* __restrict__ h_out, int S, int Di,
                     long long b_bstride, long long b_tstride,
-                    long long c_bstride, long long c_tstride) {
-  constexpr int N = kStates * G;
-  constexpr int CB = kThreads / G;
-  constexpr int TS = (2048 / CB) < 64 ? (2048 / CB) : 64;
-  __shared__ float x_s[TS][CB];
-  __shared__ float dt_s[TS][CB];
-  __shared__ float y_s[TS][CB];
-  __shared__ float b_s[TS][N];
-  __shared__ float c_s[TS][N];
+                    long long c_bstride, long long c_tstride, int paths) {
+  using L = Smem<T, N>;
+  constexpr int G = N / kStates;
+  constexpr int kThreads = kChannels * G;
+  constexpr int kLag = L::kWiden ? 1 : 0;  // tiles widened ahead
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = scan::align128(smem_raw);
 
   const int tid = threadIdx.x;
   const int g = tid / G;     // channel within the CTA
-  const int lane = tid % G;  // this thread's states: lane * 4 .. lane * 4 + 3
-  const int c0 = blockIdx.x * CB;
+  const int lane = tid % G;  // states lane * kStates ..
+  const int c0 = blockIdx.x * kChannels;
   const int ch = c0 + g;
   const int bi = blockIdx.y;
   const bool live = ch < Di;
+  const int live_cols = min(kChannels, Di - c0);
 
-  float av[kStates], h[kStates];
+  float a2[kStates], h[kStates];
 #pragma unroll
   for (int k = 0; k < kStates; ++k) {
-    av[k] = live ? a[(long long)ch * N + lane * kStates + k] : 0.f;
+    a2[k] = live ? a[(long long)ch * N + lane * kStates + k] * kLog2e : 0.f;
     h[k] = 0.f;
   }
   const float dv = live ? dskip[ch] : 0.f;
-  const long long row0 = (long long)bi * S * Di;  // x, dt, y: contiguous
+  const long long row0 = (long long)bi * S * Di + c0;  // x, dt, y
   const T* bb = bm + bi * b_bstride;
   const T* cc = cm + bi * c_bstride;
+  const int nt = (S + kSteps - 1) / kSteps;
+  const int tma_bytes = (paths & kTmaX ? L::kX * (int)sizeof(T) : 0) +
+                        (paths & kTmaDt ? L::kX * 4 : 0) +
+                        (paths & kTmaB ? L::kBC * (int)sizeof(T) : 0) +
+                        (paths & kTmaC ? L::kBC * (int)sizeof(T) : 0);
 
-  for (int t0 = 0; t0 < S; t0 += TS) {
-    const int steps = min(TS, S - t0);
-    for (int i = tid; i < TS * CB; i += kThreads) {
-      const int t = i / CB;
-      const int j = i % CB;
-      float xv = 0.f, dtv = 0.f;
-      if (t < steps && c0 + j < Di) {
-        const long long off = row0 + (long long)(t0 + t) * Di + c0 + j;
-        xv = to_f32(x[off]);
-        dtv = dt[off];
-      }
-      x_s[t][j] = xv;
-      dt_s[t][j] = dtv;
-    }
-    for (int i = tid; i < TS * N; i += kThreads) {
-      const int t = i / N;
-      const int n = i % N;
-      float bv = 0.f, cv = 0.f;
-      if (t < steps) {
-        bv = to_f32(bb[(long long)(t0 + t) * b_tstride + n]);
-        cv = to_f32(cc[(long long)(t0 + t) * c_tstride + n]);
-      }
-      b_s[t][n] = bv;
-      c_s[t][n] = cv;
-    }
-    __syncthreads();
-    for (int t = 0; t < steps; ++t) {
-      const float dtt = dt_s[t][g];
-      const float xt = x_s[t][g];
-      const float dx = __fmul_rn(dtt, xt);
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < kStates; ++k) {
-        const int n = lane * kStates + k;
-        const float decay = expf(__fmul_rn(dtt, av[k]));
-        h[k] = __fadd_rn(__fmul_rn(decay, h[k]), __fmul_rn(dx, b_s[t][n]));
-        acc = fmaf(h[k], c_s[t][n], acc);
-      }
-#pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) y_s[t][g] = acc + dv * xt;
-    }
-    __syncthreads();
-    for (int i = tid; i < steps * CB; i += kThreads) {
-      const int t = i / CB;
-      const int j = i % CB;
-      if (c0 + j < Di)
-        y[row0 + (long long)(t0 + t) * Di + c0 + j] = from_f32<T>(y_s[t][j]);
-    }
-    // the next tile's staging writes x_s .. c_s, which every thread last
-    // read before the barrier above; y_s is next written after the next
-    // barrier, when every thread has stored this tile
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) tma::mbar_init(L::full(smem, i), 1);
+    tma::fence_barrier_init();
   }
-  if (h_out != nullptr && live) {
+  __syncthreads();
+
+  // tile i into ring stage i % kRing (if it exists): thread 0 announces
+  // the TMA bytes on the stage's mbarrier (its one arrival) and asks for
+  // the boxes; every thread stages the edge-path arrays
+  auto issue = [&](int i) {
+    if (i >= nt) return;
+    const int st = i % kRing;
+    const int t0 = i * kSteps;
+    const int rows = min(kSteps, S - t0);
+    T* r = L::raw(smem, st);
+    const uint32_t bar = L::full(smem, st);
+    if (tid == 0) {
+      tma::mbar_expect(bar, tma_bytes);
+      if (paths & kTmaX) scan::tma_load(r, &map_x, c0, t0, bi, bar);
+      if (paths & kTmaB) scan::tma_load(r + L::kX, &map_b, 0, t0, bi, bar);
+      if (paths & kTmaC)
+        scan::tma_load(r + L::kX + L::kBC, &map_c, 0, t0, bi, bar);
+      if (paths & kTmaDt)
+        scan::tma_load(L::dt(smem, st), &map_dt, c0, t0, bi, bar);
+    }
+    const long long off = row0 + (long long)t0 * Di;
+    if (!(paths & kTmaX))
+      scan::stage_elements(r, x + off, Di, kSteps, kChannels, rows, live_cols,
+                           tid, kThreads);
+    if (!(paths & kTmaB))
+      scan::stage_elements(r + L::kX, bb + t0 * b_tstride, b_tstride, kSteps,
+                           N, rows, N, tid, kThreads);
+    if (!(paths & kTmaC))
+      scan::stage_elements(r + L::kX + L::kBC, cc + t0 * c_tstride, c_tstride,
+                           kSteps, N, rows, N, tid, kThreads);
+    if (!(paths & kTmaDt))
+      scan::stage_elements(L::dt(smem, st), dt + off, Di, kSteps, kChannels,
+                           rows, live_cols, tid, kThreads);
+  };
+  // wait for the TMA boxes of tile i (the edge-path arrays are ordered by
+  // the CTA barrier that follows every wait)
+  auto landed = [&](int i) {
+    if (i < nt) tma::mbar_wait(L::full(smem, i % kRing), (i / kRing) & 1);
+  };
+  // bf16: x, B and C of tile i widened to f32
+  auto widen = [&](int i) {
+    if constexpr (L::kWiden) {
+      const T* r = L::raw(smem, i % kRing);
+      float* w = L::wide(smem, i);
+      static_assert(L::kRawT % (kThreads * 8) == 0, "whole rounds");
 #pragma unroll
-    for (int k = 0; k < kStates; ++k)
-      h_out[((long long)bi * Di + ch) * N + lane * kStates + k] = h[k];
+      for (int j = 0; j < L::kRawT / (kThreads * 8); ++j) {
+        const int e = (j * kThreads + tid) * 8;
+        widen8(w + e, reinterpret_cast<const __nv_bfloat16*>(r) + e);
+      }
+    }
+  };
+  auto store_y = [&](int i) {
+    T* dst = y + row0 + (long long)i * kSteps * Di;
+    const int rows = min(kSteps, S - i * kSteps);
+    if ((paths & kVecY) && rows == kSteps && live_cols == kChannels)
+      store_whole<kThreads>(dst, Di, L::y(smem, i), tid);
+    else
+      store_tile(dst, Di, L::y(smem, i), kChannels, rows, live_cols,
+                 paths & kVecY, tid, kThreads);
+  };
+
+  for (int i = 0; i < kRing - 1; ++i) issue(i);
+  if constexpr (L::kWiden) {
+    landed(0);
+    __syncthreads();
+    widen(0);
+  }
+  for (int i = 0; i < nt; ++i) {
+    // tile i + kLag has landed; after the barrier every thread's stores
+    // (edge-path tiles, the widened tile i, the y tile i - 1) are visible
+    // and every thread is done with tile i - 1
+    landed(i + kLag);
+    __syncthreads();
+    if (i > 0) store_y(i - 1);
+    issue(i + kRing - 1);  // into the stage tile i - 1 held
+    if (i + 1 < nt) widen(i + 1);
+
+    const float* xs = L::wide(smem, i);
+    const float* bs = xs + L::kX;
+    const float* cs = bs + L::kBC;
+    const float* dts = L::dt(smem, i % kRing);
+    T* ys = L::y(smem, i);
+    const int steps = min(kSteps, S - i * kSteps);
+    if (steps == kSteps) {
+      // a whole tile, one block of straight code: the y sums stay in
+      // registers until its end, so no shared-memory store stands between
+      // one group's loads and the next group's
+      float yv[kSteps / G];
+#pragma unroll
+      for (int q = 0; q < kSteps / G; ++q)
+        yv[q] = steps_of<N, false>(h, a2, xs, dts, bs, cs, g, lane, q * G,
+                                   kSteps, dv);
+#pragma unroll
+      for (int q = 0; q < kSteps / G; ++q)
+        ys[(q * G + lane) * kChannels + g] = from_f32<T>(yv[q]);
+    } else {
+      for (int t0 = 0; t0 < steps; t0 += G) {
+        const float yt = steps_of<N, true>(h, a2, xs, dts, bs, cs, g, lane,
+                                           t0, steps, dv);
+        if (t0 + lane < steps)
+          ys[(t0 + lane) * kChannels + g] = from_f32<T>(yt);
+      }
+    }
+  }
+  __syncthreads();
+  store_y(nt - 1);
+  if (h_out != nullptr && live) {
+    float* o = h_out + ((long long)bi * Di + ch) * N + lane * kStates;
+#pragma unroll
+    for (int k = 0; k < kStates; ++k) o[k] = h[k];
   }
 }
 
-template <typename T, int G>
+template <typename T, int N>
 int launch(const void* x, const float* dt, const float* a, const void* bm,
            const void* cm, const float* dskip, void* y, float* h_out, int B,
            int S, int Di, long long b_bstride, long long b_tstride,
            long long c_bstride, long long c_tstride, cudaStream_t stream) {
-  constexpr int CB = kThreads / G;
-  const dim3 grid((Di + CB - 1) / CB, B);
-  ssm_scan_kernel<T, G><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), dt, a, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), dskip, static_cast<T*>(y), h_out, S, Di,
-      b_bstride, b_tstride, c_bstride, c_tstride);
+  using L = Smem<T, N>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      ssm_scan_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long xb = (long long)S * Di;  // x, dt, y: batch rows apart
+  CUtensorMap mx{}, mdt{}, mb{}, mc{};
+  int paths = 0, m = 0;
+  if (scan::tma_ok<T>(x, Di, xb, kChannels)) {
+    paths |= kTmaX;
+    m = scan::make_map<T>(&mx, x, B, S, Di, Di, xb, kChannels, kSteps);
+  }
+  if (m == 0 && scan::tma_ok<float>(dt, Di, xb, kChannels)) {
+    paths |= kTmaDt;
+    m = scan::make_map<float>(&mdt, dt, B, S, Di, Di, xb, kChannels, kSteps);
+  }
+  if (m == 0 && scan::tma_ok<T>(bm, b_tstride, b_bstride, N)) {
+    paths |= kTmaB;
+    m = scan::make_map<T>(&mb, bm, B, S, N, b_tstride, b_bstride, N, kSteps);
+  }
+  if (m == 0 && scan::tma_ok<T>(cm, c_tstride, c_bstride, N)) {
+    paths |= kTmaC;
+    m = scan::make_map<T>(&mc, cm, B, S, N, c_tstride, c_bstride, N, kSteps);
+  }
+  if (m != 0) return m;
+  if (scan::tma_ok<T>(y, Di, xb, kChannels)) paths |= kVecY;
+  const dim3 grid((Di + kChannels - 1) / kChannels, B);
+  ssm_scan_kernel<T, N><<<grid, kChannels * N / kStates, L::kBytes, stream>>>(
+      mx, mdt, mb, mc, static_cast<const T*>(x), dt, a,
+      static_cast<const T*>(bm), static_cast<const T*>(cm), dskip,
+      static_cast<T*>(y), h_out, S, Di, b_bstride, b_tstride, c_bstride,
+      c_tstride, paths);
   return (int)cudaGetLastError();
 }
 
@@ -177,17 +447,17 @@ int dispatch(int N, const void* x, const float* dt, const float* a,
              cudaStream_t s) {
   switch (N) {
     case 4:
-      return launch<T, 1>(x, dt, a, bm, cm, dskip, y, h_out, B, S, Di,
-                          b_bstride, b_tstride, c_bstride, c_tstride, s);
-    case 8:
-      return launch<T, 2>(x, dt, a, bm, cm, dskip, y, h_out, B, S, Di,
-                          b_bstride, b_tstride, c_bstride, c_tstride, s);
-    case 16:
       return launch<T, 4>(x, dt, a, bm, cm, dskip, y, h_out, B, S, Di,
                           b_bstride, b_tstride, c_bstride, c_tstride, s);
-    case 32:
+    case 8:
       return launch<T, 8>(x, dt, a, bm, cm, dskip, y, h_out, B, S, Di,
                           b_bstride, b_tstride, c_bstride, c_tstride, s);
+    case 16:
+      return launch<T, 16>(x, dt, a, bm, cm, dskip, y, h_out, B, S, Di,
+                           b_bstride, b_tstride, c_bstride, c_tstride, s);
+    case 32:
+      return launch<T, 32>(x, dt, a, bm, cm, dskip, y, h_out, B, S, Di,
+                           b_bstride, b_tstride, c_bstride, c_tstride, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

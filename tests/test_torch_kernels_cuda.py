@@ -466,16 +466,26 @@ SSM_CASES = [(2, 128, 256, 16), (1, 64, 512, 16), (2, 96, 128, 8),
 SCAN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
-def _ssm_inputs(cuda, B, S, Di, N, dtype, seed):
+# Cases that reach the kernels' edge paths, (B, S, Di, N, R): R columns of
+# the projection before B and C (R 16 or 256: their rows start on 16
+# bytes; R 7: they do not). S 1, S past a multiple of the tile (64 steps),
+# Di whose rows are not whole 16 bytes in bf16 (100 at N 8), N 4 (B and C
+# rows of 8 bytes in bf16), and falcon-mamba's width at B 4.
+SSM_EDGE_CASES = [(1, 1, 256, 16, 16), (2, 77, 100, 8, 16),
+                  (1, 2561, 64, 16, 16), (2, 50, 96, 4, 8),
+                  (2, 40, 416, 32, 7), (4, 512, 8192, 16, 256)]
+
+
+def _ssm_inputs(cuda, B, S, Di, N, dtype, seed, R=5):
     """The model's value ranges (dt in [1e-3, 1e-1], A = -(1..N)); B and
     C sliced out of one (B, S, R + 2N) projection, as the layer does."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn((B, S, Di), generator=g, device=cuda).to(dtype)
     dt = 1e-3 + (1e-1 - 1e-3) * torch.rand((B, S, Di), generator=g, device=cuda)
     a = -torch.arange(1, N + 1, dtype=torch.float32, device=cuda).repeat(Di, 1)
-    dbc = torch.randn((B, S, 5 + 2 * N), generator=g, device=cuda).to(dtype)
+    dbc = torch.randn((B, S, R + 2 * N), generator=g, device=cuda).to(dtype)
     d = torch.randn((Di,), generator=g, device=cuda)
-    return x, dt, a, dbc[..., 5:5 + N], dbc[..., 5 + N:], d
+    return x, dt, a, dbc[..., R:R + N], dbc[..., R + N:], d
 
 
 def _close(got, want, tol):
@@ -491,10 +501,23 @@ def _close(got, want, tol):
 def test_cuda_selective_scan_matches_plain(cuda, B, S, Di, N, dtype):
     """y and the final state against the plain scans, one launch, B and C
     read through their strides."""
+    _check_selective_scan(cuda, B, S, Di, N, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N,R", SSM_EDGE_CASES)
+def test_cuda_selective_scan_edges(cuda, B, S, Di, N, R, dtype):
+    """The same checks where the kernel stages rows element by element,
+    where a tile or a group of steps is ragged, and at full width."""
+    _check_selective_scan(cuda, B, S, Di, N, dtype, R)
+
+
+def _check_selective_scan(cuda, B, S, Di, N, dtype, R=5):
     from repro_torch.kernels import ssm_scan
 
-    x, dt, a, b, c, d = _ssm_inputs(cuda, B, S, Di, N, dtype, S + Di)
-    assert not b.is_contiguous()
+    x, dt, a, b, c, d = _ssm_inputs(cuda, B, S, Di, N, dtype, S + Di, R)
+    assert B * S == 1 or not b.is_contiguous()  # one row is contiguous
     before = ssm_scan.selective_scan.launches
     y, h = ops.selective_scan(x, dt, a, b, c, d, final_state=True)
     torch.cuda.synchronize()
@@ -536,20 +559,55 @@ def test_cuda_gated_linear_scan_matches_plain(cuda, B, S, W, dtype):
     outputs' rounding."""
     from repro_torch.kernels import rglru
 
-    g = torch.Generator(device=cuda).manual_seed(S + W)
-    a = (0.1 + 0.89 * torch.rand((B, S, W), generator=g, device=cuda)).to(dtype)
-    b = torch.randn((B, S, W), generator=g, device=cuda).to(dtype)
+    a, b = _lru_inputs(cuda, B, S, W, dtype)
     before = rglru.gated_linear_scan.launches
     got = ops.gated_linear_scan(a, b)
     torch.cuda.synchronize()
     assert rglru.gated_linear_scan.launches == before + 1
     assert got.dtype == dtype
-    _close(got, ref.gated_linear_scan(a, b), SCAN_TOL[dtype])
+    want = ref.gated_linear_scan(a, b)
+    _close(got, want, SCAN_TOL[dtype])
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
     with pytest.raises(RuntimeError, match="no backward"):
         rglru.gated_linear_scan(a.float().clone().requires_grad_(), b.float())
     with pytest.raises(TypeError):
         rglru.gated_linear_scan(a.float(), b.bfloat16())
     assert rglru.gated_linear_scan.launches == before + 1
+
+
+def _lru_inputs(cuda, B, S, W, dtype, offset=0):
+    """a in the RG-LRU's decay range, b of order one; with ``offset``,
+    contiguous views that start ``offset`` elements into their storage."""
+    g = torch.Generator(device=cuda).manual_seed(S + W)
+    n = B * S * W
+    a = 0.1 + 0.89 * torch.rand((offset + n,), generator=g, device=cuda)
+    b = torch.randn((offset + n,), generator=g, device=cuda)
+    return tuple(t.to(dtype)[offset:].view(B, S, W) for t in (a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W,offset", [
+    (2, 2561, 256, 0), (3, 77, 99, 0), (2, 1, 99, 0), (2, 130, 64, 1),
+    (4, 2560, 4096, 0)])
+def test_cuda_gated_linear_scan_edges(cuda, B, S, W, offset, dtype):
+    """S past a multiple of the ring's stage (64 steps of f32, 128 of
+    bf16), S 1, W whose rows are not whole 16 bytes (99), inputs that do
+    not start on 16 bytes, and recurrentgemma's width at B 4: f32 equal to
+    the plain scan bit for bit, bf16 within its rounding."""
+    from repro_torch.kernels import rglru
+
+    a, b = _lru_inputs(cuda, B, S, W, dtype, offset)
+    assert a.is_contiguous() and b.is_contiguous()
+    before = rglru.gated_linear_scan.launches
+    got = ops.gated_linear_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru.gated_linear_scan.launches == before + 1
+    want = ref.gated_linear_scan(a, b)
+    _close(got, want, SCAN_TOL[dtype])
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
