@@ -81,11 +81,14 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              kimi-k2's (E 384, K 8) and arctic's (E 128, K 2) widths at T 8
              (a decode batch), 128 (a prefill) and 8,192, at T 1 and 77,
              without renormalisation, on rows with repeated logits (the tie
-             rule) and at the reference tests' four cases; indices, slots
-             and keep equal, weights within 1e-6; its device time by CUDA
-             events behind a sleep kernel (the logits in L2 as the model
-             leaves them, and with L2 flushed) beside its bound, the
-             host's enqueue apart.
+             rule), at the edges of its launch plans (the largest T of one
+             CTA and of one cluster, and one token past each) and at the
+             reference tests' four cases; indices, slots and keep equal,
+             weights within 1e-6, and one ``moe_router_*`` kernel a call
+             by ``torch.profiler``; its device time by CUDA events behind a
+             sleep kernel (the logits in L2 as the model leaves them, and
+             with L2 flushed) beside its bound and an empty kernel's time
+             (the launch floor), the host's enqueue apart.
 13. serve_kimi — kimi-k2-1t-a32b at full width on 2 layers (the dense
              first layer and one ``moe`` layer of 384 experts, bf16, seeded
              random weights) through ``PagedServer`` with slice 1's
@@ -1693,6 +1696,50 @@ def router_check(name, logits, k, capacity, renormalize=True):
     return err
 
 
+def router_kernels_per_call(fn, calls=3, tries=5):
+    """Device kernels per call of ``fn`` under ``torch.profiler`` over
+    ``calls`` calls: (those named ``moe_router_*``, all).  The profiler
+    drops kernel records now and then (a whole session's once, one of
+    three another time), so each session first runs 64 empty kernels and
+    a session that saw fewer ``moe_router_*`` kernels than calls is tried
+    again, up to ``tries`` sessions; the first that saw at least one a
+    call counts."""
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [evt.name for evt in prof.events()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA]
+        own = sum("moe_router_" in name for name in names)
+        every = len(names) - sum("spin_kernel" in name for name in names)
+        if own >= calls:
+            return own / calls, every / calls
+        seen.append((own, len(names)))
+    raise AssertionError(f"the profiler saw fewer moe_router_* kernels than "
+                         f"calls in {tries} sessions: (moe_router_*, all "
+                         f"device records) {seen} for {calls} calls")
+
+
+def router_one_launch(name, logits, k, capacity, renormalize=True):
+    """The kernel against the plain version (``router_check``), then
+    exactly one device kernel named ``moe_router_*`` per call."""
+    err = router_check(name, logits, k, capacity, renormalize)
+    own, _ = router_kernels_per_call(lambda: mr.moe_router(
+        logits, k=k, capacity=capacity, renormalize=renormalize))
+    if own != 1:
+        raise AssertionError(f"{name}: {own} moe_router_* kernels a call")
+    return err
+
+
 def router_logits(T, E, gen, ties=False):
     """Normal logits (the model's router logits are of order one); with
     ``ties``, rounded to halves and every fourth row constant."""
@@ -1716,14 +1763,22 @@ def router_bounds(T, E, K):
 
 
 def router_phase():
-    """The kernel against its plain version on every case; times at the
-    served widths: device time (CUDA events, ``device_ms``), and the
-    host's enqueue per call.  ``ms`` leaves the logits in L2, as the
-    model's router finds them straight after the product that wrote them;
-    ``ms_l2_flushed`` reads them from HBM, as the bound assumes.  Returns kimi-k2's prefill
-    figures (T 128)."""
+    """The kernel against its plain version on every case, each call one
+    ``moe_router_*`` kernel by the profiler; times at the served widths:
+    device time (CUDA events, ``device_ms``), and the host's enqueue per
+    call.  ``ms`` leaves the logits in L2, as the model's router finds
+    them straight after the product that wrote them; ``ms_l2_flushed``
+    reads them from HBM, as the bound assumes; ``launch_floor_ms`` is an
+    empty kernel timed the same way.  Returns kimi-k2's prefill figures
+    (T 128)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    floor_ms = device_ms(empty, 50)
+    floor_flushed_ms = device_ms(empty, 50, flush)
+    sms, max_cluster = mr.card(torch.cuda.current_device())
+    one_cta, cluster = mr.regime_edges(max_cluster)
+    plans = {}
     checked, figures = {}, {}
     for arch in ROUTER_ARCHS:
         cfg = ARCHS[arch]
@@ -1732,39 +1787,54 @@ def router_phase():
             x = router_logits(T, E, gen)
             cap = moe_layers.moe_capacity(cfg, T)
             name = f"E{E} K{K} T{T}"
-            err = router_check(name, x, K, cap)
+            err = router_one_launch(name, x, K, cap)
             checked[name] = err
             kernel = lambda: mr.moe_router(x, k=K, capacity=cap)  # noqa: E731
             plain = lambda: ref.route_topk(x, k=K, capacity=cap)  # noqa: E731
             figures[name] = {
                 "arch": arch, "capacity": cap, "max_abs_err": err,
+                "plan": mr.plan(T, sms, max_cluster)._asdict(),
                 "ms": device_ms(kernel, 50),
                 "ms_l2_flushed": device_ms(kernel, 50, flush),
+                "launch_floor_ms": floor_ms,
+                "launch_floor_ms_l2_flushed": floor_flushed_ms,
                 "plain_ms": device_ms(plain, 10),
                 "host_us": host_us(kernel), "plain_host_us": host_us(plain, 10),
                 "library_ms": None, **router_bounds(T, E, K)}
         # (T, ties, renormalize): a lone token, a ragged block, no
-        # renormalisation, and repeated logits across one and many blocks
+        # renormalisation, repeated logits across one and many blocks, and
+        # the plans' edges: the largest T of one CTA and of one cluster on
+        # this card, one token past each, and the grid's step from 16-warp
+        # to 32-warp CTAs
         extra = [(t, False, rn) for t in ROUTER_OTHER_T for rn in (True, False)]
         extra += [(t, True, True) for t in (77, 128, 8192)]
+        extra += [(t, ties, True) for t in (one_cta, one_cta + 1, cluster,
+                                            cluster + 1, mr.GRID_WARPS * sms,
+                                            mr.GRID_WARPS * sms + 1)
+                  for ties in (False, True)]
         for T, ties, renormalize in extra:
             tag = f"E{E} K{K} T{T} ties={ties} renormalize={renormalize}"
-            checked[tag] = router_check(tag, router_logits(T, E, gen, ties),
-                                        K, moe_layers.moe_capacity(cfg, T),
-                                        renormalize)
+            plans[T] = mr.plan(T, sms, max_cluster)._asdict()
+            checked[tag] = router_one_launch(
+                tag, router_logits(T, E, gen, ties), K,
+                moe_layers.moe_capacity(cfg, T), renormalize)
     for T, E, K, C in ROUTER_REF_CASES:
         for ties in (False, True):
             tag = f"E{E} K{K} T{T} C{C} ties={ties}"
-            checked[tag] = router_check(tag, router_logits(T, E, gen, ties),
-                                        K, C)
+            checked[tag] = router_one_launch(
+                tag, router_logits(T, E, gen, ties), K, C)
     for T, E, K in ROUTER_WIDE_CASES:
         C = max(4, -(-T * K * 5 // (4 * E)))  # ceil(T K 1.25 / E)
         for ties in (False, True):
             tag = f"E{E} K{K} T{T} C{C} ties={ties}"
-            checked[tag] = router_check(tag, router_logits(T, E, gen, ties),
-                                        K, C)
+            checked[tag] = router_one_launch(
+                tag, router_logits(T, E, gen, ties), K, C)
     emit({"phase": "router", "name": mr.NAME, "weight_tol": ROUTER_W_TOL,
-          "checked": checked, "served": figures,
+          "sms": sms, "max_cluster": max_cluster,
+          "plan_edges": {"one_cta": one_cta, "cluster": cluster},
+          "edge_plans": plans, "checked": checked,
+          "kernels_per_call": "1 moe_router_* kernel in every checked call",
+          "served": figures,
           "library": "none: no single PyTorch call computes the router"})
     return figures["E384 K8 T128"]
 

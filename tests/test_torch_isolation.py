@@ -77,3 +77,24 @@ def test_ab_attention_tool_imports_without_jax_and_needs_a_card():
                           text=True, timeout=120, env=env, cwd=ROOT)
     assert proc.returncode == 1, proc.stderr[-4000:]
     assert "needs a GPU" in proc.stderr and not proc.stdout
+
+
+def test_ab_router_tool_imports_without_jax_and_needs_a_card():
+    """``tools/ab_router.py`` imports nothing of JAX or the reference and,
+    without a card, exits with its usage before it builds or prints
+    anything, for the turns and for the plan sweep alike."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    for argv in (["before=build/ab/before", "after=."], ["--plans"]):
+        probe = (
+            "import runpy, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"sys.argv = ['ab_router.py', *{argv!r}]\n"
+            f"runpy.run_path({os.path.join(ROOT, 'tools', 'ab_router.py')!r},"
+            " run_name='__main__')\n")
+        proc = subprocess.run([sys.executable, "-c", probe],
+                              capture_output=True, text=True, timeout=120,
+                              env=env, cwd=ROOT)
+        assert proc.returncode == 1, proc.stderr[-4000:]
+        assert "usage" in proc.stderr and not proc.stdout

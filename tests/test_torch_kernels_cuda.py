@@ -658,11 +658,14 @@ def test_cuda_prefill_and_decode_match_cpu(cuda, arch, kind):
 # MoE router (csrc/moe_router.cu)
 # --------------------------------------------------------------------------- #
 # (T, E, K): kimi-k2's and arctic's widths at a lone token, a decode batch,
-# a ragged T, a prefill and a long prefill (many blocks); the reference
-# tests' four cases; E 256 and E 1024 (the kernel's 8 and 32 experts per
-# lane), with K 32 at the largest E
-ROUTER_CASES = ([(T, 384, 8) for T in (1, 8, 77, 128, 8192)]
-                + [(T, 128, 2) for T in (1, 8, 77, 128, 8192)]
+# a ragged T, a prefill and a long prefill (many blocks); the edges of the
+# kernel's plans on a card that holds clusters of 16 (the largest T of one
+# CTA and of one cluster, and one token past each); the reference tests'
+# four cases; E 256 and E 1024 (the kernel's 8 and 32 experts per lane),
+# with K 32 at the largest E
+ROUTER_EDGE_T = (16, 17, 192, 193)
+ROUTER_CASES = ([(T, 384, 8) for T in (1, 8, 77, 128, 8192) + ROUTER_EDGE_T]
+                + [(T, 128, 2) for T in (1, 8, 77, 128, 8192) + ROUTER_EDGE_T]
                 + [(512, 16, 2), (256, 8, 1), (512, 64, 8), (256, 128, 2)]
                 + [(77, 256, 8), (8192, 256, 8), (128, 1024, 8),
                    (77, 1024, 32), (8192, 1024, 8)])
@@ -699,6 +702,84 @@ def test_cuda_moe_router_matches_plain(cuda, T, E, K, ties):
         for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
             assert torch.equal(g, w)
         torch.testing.assert_close(got[2], want[2], atol=1e-6, rtol=0)
+
+
+def _router_matches(got, logits, K, cap, renormalize=True):
+    want = ref.route_topk(logits, k=K, capacity=cap, renormalize=renormalize)
+    for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[2], want[2], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,K", [(384, 8), (128, 2)])
+def test_cuda_moe_router_at_this_cards_plan_edges(cuda, E, K):
+    """The largest T of one CTA and of one cluster on this card (its SM
+    count and largest cluster), one token past each, and the grid plan's
+    edge between its 16-warp and 32-warp CTAs and at several tokens a
+    warp: each a single launch by the plan that ``plan`` picks, equal to
+    the plain version."""
+    from repro_torch.kernels import moe_router as mr
+
+    sms, max_cluster = mr.card(cuda.index or 0)
+    one_cta, cluster = mr.regime_edges(max_cluster)
+    Ts = [one_cta, one_cta + 1, cluster, cluster + 1, mr.GRID_WARPS * sms,
+          mr.GRID_WARPS * sms + 1, 64 * sms + 7]
+    modes = {mr.plan(T, sms, max_cluster).mode for T in Ts}
+    assert modes == ({mr.CTA, mr.CLUSTER, mr.GRID} if max_cluster > 1
+                     else {mr.CTA, mr.GRID})
+    for T in Ts:
+        logits = torch.from_numpy(_router_logits(T, E, True, T)).to(cuda)
+        cap = max(4, -(-T * K * 5 // (4 * E)))
+        before = mr.moe_router.launches
+        got = mr.moe_router(logits, k=K, capacity=cap)
+        torch.cuda.synchronize()
+        assert mr.moe_router.launches == before + 1
+        _router_matches(got, logits, K, cap)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_router_on_two_streams_at_once(cuda):
+    """Two calls in flight at once on two streams, each plan once (one
+    CTA, a cluster, a grid), each behind a sleep so that they overlap:
+    every output equals the plain version's (no shared scratch)."""
+    from repro_torch.kernels import moe_router as mr
+
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for T in (8, 128, 8192):
+        xs = [torch.from_numpy(_router_logits(T, 384, False, T + i)).to(cuda)
+              for i in range(2)]
+        cap = max(4, -(-T * 8 * 5 // (4 * 384)))
+        torch.cuda.synchronize()
+        outs = []
+        for s, x in zip(streams, xs):
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(1 << 20)
+                outs.append(mr.moe_router(x, k=8, capacity=cap))
+        torch.cuda.synchronize()
+        for got, x in zip(outs, xs):
+            _router_matches(got, x, 8, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 128, 8192])
+def test_cuda_moe_router_keeps_no_state_between_calls(cuda, T):
+    """The same logits twice give the same outputs bit for bit, and other
+    logits next give their own plain result: nothing one call leaves in
+    the kernel's memory is read by the next."""
+    from repro_torch.kernels import moe_router as mr
+
+    a = torch.from_numpy(_router_logits(T, 384, False, 1)).to(cuda)
+    b = torch.from_numpy(_router_logits(T, 384, True, 2)).to(cuda)
+    cap = max(4, -(-T * 8 * 5 // (4 * 384)))
+    first = mr.moe_router(a, k=8, capacity=cap)
+    second = mr.moe_router(a, k=8, capacity=cap)
+    third = mr.moe_router(b, k=8, capacity=cap)
+    torch.cuda.synchronize()
+    for g, w in zip(first, second):
+        assert torch.equal(g, w)
+    _router_matches(first, a, 8, cap)
+    _router_matches(third, b, 8, cap)
 
 
 @pytest.mark.cuda

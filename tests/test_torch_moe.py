@@ -103,11 +103,43 @@ def test_router_wrapper_refuses_cpu_tensors():
         assert torch.equal(a, b)
 
 
-def test_tokens_per_warp_fills_a_wave():
-    tpw = moe_router.tokens_per_warp
-    assert [tpw(t, 132) for t in (1, 8, 128, 1056, 1057, 8192, 10**6)] == [
-        1, 1, 1, 1, 2, 8, 8]
-    assert [tpw(t, 114) for t in (912, 913, 8192)] == [1, 2, 8]
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("T", [1, 8, 16, 17, 128, 192, 193, 1056, 8192, 10**6])
+def test_router_plan_covers_every_token_once_in_one_wave(T, sms):
+    """The launch plan: CTA b routes tokens [b W tpw, (b + 1) W tpw), so
+    the CTAs cover T and every token once when ctas W tpw >= T and the
+    last CTA holds a token; one CTA and a cluster (at most 16 CTAs) take
+    a token a warp, a grid at most one 32-warp CTA a SM (one wave); the
+    kernel's packed in-warp ranks need tpw < 2**22."""
+    mr = moe_router
+    for max_cluster in (16, 8, 1):
+        p = mr.plan(T, sms, max_cluster)
+        assert 1 <= p.warps <= mr.MAX_WARPS and 1 <= p.tpw < 2**22
+        per_cta = p.warps * p.tpw
+        assert p.ctas * per_cta >= T > (p.ctas - 1) * per_cta
+        if p.mode == mr.CTA:
+            assert p.ctas == 1 and p.tpw == 1 and T <= mr.regime_edges()[0]
+        elif p.mode == mr.CLUSTER:  # the kernel's masks: a token a warp
+            assert 2 <= p.ctas <= max_cluster <= mr.MAX_CLUSTER
+            assert p.tpw == 1 and T <= mr.regime_edges(max_cluster)[1]
+        else:
+            assert p.mode == mr.GRID and p.ctas <= sms
+            assert p.warps in (mr.GRID_WARPS, mr.MAX_WARPS)
+            assert T > mr.regime_edges(max_cluster)[1] or max_cluster == 1
+
+
+def test_router_plan_regimes_by_T():
+    """Decode batches take one CTA, the 128-token prefill one cluster of
+    16 CTAs (a grid where the card holds no cluster of 16), long prefills
+    a grid of one wave: 16-warp CTAs while a token a warp fits, then 32
+    warps a CTA and several tokens a warp."""
+    mr = moe_router
+    assert mr.plan(8, 132) == mr.Plan(mr.CTA, 1, 8, 1)
+    assert mr.plan(128, 132) == mr.Plan(mr.CLUSTER, 16, 8, 1)
+    assert mr.plan(128, 132, 8) == mr.Plan(mr.GRID, 8, 16, 1)
+    assert mr.plan(2048, 132) == mr.Plan(mr.GRID, 128, 16, 1)
+    assert mr.plan(8192, 132) == mr.Plan(mr.GRID, 128, 32, 2)
+    assert mr.plan(8192, 114) == mr.Plan(mr.GRID, 86, 32, 3)
 
 
 def test_dispatch_and_combine_bit_exact():
