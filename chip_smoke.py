@@ -31,9 +31,26 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
 5. serve   — qwen3-4b at full width and depth (36 layers, bf16, random
              weights from a seeded generator) through ``PagedServer``:
              16 requests of 128 prompt tokens, 64 new tokens each, four
-             sharing a 64-token prefix; held against the dense ``Server``.
+             sharing a 64-token prefix; held against the dense ``Server``
+             (the first step's logits). Then the same in f32 (~16 GB of
+             weights, freed after): greedy tokens paged and dense must be
+             identical but at near ties (dense top-2 margin below the
+             step's max |logit difference|), each printed and counted.
 6. profile — three steady decode steps of a separate paged run under
              ``torch.profiler``: kernels, device busy time and share.
+6a. serve_disagg — the disaggregated cluster on phase 5's weights, all
+             ranks on the card, segments one rank-stacked tensor written
+             in place (its storage checked every tick): act 1, 2 prefill
+             ("xla") + 2 decode ("gascore") ranks, dense staging, phase
+             5's traffic, tokens equal to ``Server``'s; act 2, the same
+             paged, equal to ``PagedServer``'s, prefix pages mapped; act
+             3, 1 prefill + 1 decode + 1 memory ("gascore") rank, a pool
+             of one request's cache, the reference's pressure burst 8x
+             longer, swaps and bit-identical resumes, tokens equal to an
+             unpressured ``PagedServer``'s; swaps priced with transport
+             constants measured in phase 3. AM books, drained pool and
+             tier, launches per kernel equal to the transfers' schedule;
+             a push tick of acts 1 and 2 under ``torch.profiler``.
 7. flash   — the flash-attention forward, dK/dV and dQ kernels against
              their plain versions at qwen3-4b's training shape (batch 2 x
              seq 2048, 32 q / 8 KV heads of dim 128, causal) in bf16 and
@@ -131,6 +148,7 @@ from repro_torch.core import collectives, gasnet, sched  # noqa: E402
 from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.gasnet import P  # noqa: E402
 from repro_torch.examples import heterogeneous_pipeline, quickstart  # noqa: E402
+from repro_torch.examples import serve_requests as ex  # noqa: E402
 from repro_torch.data.synthetic import Loader, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -142,6 +160,8 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import rglru  # noqa: E402
 from repro_torch.kernels import ssm_scan  # noqa: E402
 from repro_torch.launch.serve import PagedServer, Request, Server  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
+from repro_torch.serving.disagg import DisaggCluster  # noqa: E402
 from repro_torch.models import layers as moe_layers  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -413,11 +433,9 @@ def gas_payload(kind, elems, gen):
 def gas_cases(x):
     """Per kernel: (kernel call, plain call, library call, bytes moved),
     bytes counting each input read once and each output written once;
-    the segment and per-rank offsets; and per kernel the call that
-    ``device_ms`` times where it differs from the kernel call: offset_put
-    with its offset held on the host, since the wrapper's range check
-    reads a device offset back (a sync that leaves the enqueue inside
-    the span) and a host one with the same launch after it."""
+    the segment and per-rank offsets; and offset_put with its offset held
+    on the host (the other entry of its kernel, offsets passed by value),
+    timed beside the device-offset call the table reports."""
     n, e = x.shape
     row = e * x.element_size()
     k = 3
@@ -456,8 +474,8 @@ def gas_cases(x):
         cases["ring_reduce_scatter"] = (
             lambda: gc.ring_reduce_scatter(x), lambda: ref.reduce_scatter(x),
             lambda: x.sum(0).view(n, e // n), n * row + row)
-    timed = {"offset_put": lambda: gc.offset_put(seg, x, same_host, 1)}
-    return cases, (seg, offs), timed
+    host_offsets = lambda: gc.offset_put(seg, x, same_host, 1)  # noqa: E731
+    return cases, (seg, offs), host_offsets
 
 
 def gascore_kernel_phase():
@@ -471,7 +489,7 @@ def gascore_kernel_phase():
         for kind in ("f32", "bf16", "i32nan"):
             elem = 2 if kind == "bf16" else 4
             x = gas_payload(kind, nbytes // elem, gen)
-            cases, (seg, offs), timed = gas_cases(x)
+            cases, (seg, offs), host_offsets = gas_cases(x)
             if kind == "i32nan":  # a sum of bit patterns means nothing
                 cases.pop("ring_reduce_scatter", None)
             for name, (kern, plain, _, _) in cases.items():
@@ -483,7 +501,12 @@ def gascore_kernel_phase():
             _byte_equal(f"offset_put per-rank {size} {kind}", got,
                         ref.offset_put(seg, x, offs, 5))
             _byte_equal(f"offset_put host offsets {size} {kind}",
-                        timed["offset_put"](), cases["offset_put"][1]())
+                        host_offsets(), cases["offset_put"][1]())
+            # out-of-range offsets clamp as the plain version clamps
+            wild = offs * 3 - 7 * x.shape[1] // N_RANKS
+            _byte_equal(f"offset_put clamped {size} {kind}",
+                        gc.offset_put(seg.clone(), x, wild, 2),
+                        ref.offset_put(seg, x, wild, 2))
             if "ring_reduce_scatter" in cases:
                 # (n-1) roundings, each within half an ulp of a partial
                 # sum bounded by sum |x| (2^-24 relative in f32, 2^-8 bf16)
@@ -508,15 +531,17 @@ def gascore_kernel_phase():
                 library_ms = cuda_time_ms(lib, max(iters // 2, 5), flush)
                 rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                        # the device's time alone, the host's enqueue kept out
-                       "device_ms": device_ms(timed.get(name, kern), iters,
-                                              flush),
+                       "device_ms": device_ms(kern, iters, flush),
                        "library_device_ms": device_ms(lib, iters, flush),
                        "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
                        "bound_by": "bytes", "bytes": moved, "max_abs_err": 0.0,
                        "host_us": host_us(kern), "plain_host_us": host_us(plain),
                        "library_host_us": host_us(lib)}
+                if name == "offset_put":
+                    rec["host_offsets_device_ms"] = device_ms(
+                        host_offsets, iters, flush)
                 figures.setdefault(name, {})[size] = rec
-            del cases, seg, offs, timed, x
+            del cases, seg, offs, host_offsets, x
     torch.cuda.synchronize()
     emit({"phase": "gascore", "ranks": N_RANKS, "sizes_per_rank": GAS_SIZES,
           "checked": len(checked), "byte_equal": True,
@@ -922,8 +947,347 @@ def serve_phase():
         "init_s": init_s,
         "peak_device_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    emit(record)
     profile_phase(model, ctx, params)
+    record["f32"] = f32_pass(cfg)
+    emit(record)
+    return {"launches": launches, "model": model, "ctx": ctx,
+            "params": params, "dense": dense_out, "paged": paged_out,
+            "record": record}
+
+
+def recording(cls):
+    """``cls`` with every decode step's host logits handed to ``on_step
+    (server, live rows, logits)`` before the tokens advance."""
+
+    class Recording(cls):
+        def __init__(self, *a, on_step, **kw):
+            super().__init__(*a, **kw)
+            self.on_step = on_step
+
+        def _advance(self, live, logits):
+            self.on_step(self, live, logits)
+            super()._advance(live, logits)
+
+    return Recording
+
+
+def top2_margin(row):
+    a, b = np.partition(row, -2)[-2:]
+    return float(b - a)
+
+
+def f32_pass(cfg):
+    """Paged vs dense decode of the serve phase's requests at full width
+    and depth in f32: greedy tokens must be identical, except where they
+    part at a near tie — a step where the dense run's top-2 logit margin
+    is below that step's paged-vs-dense max |logit difference| (over the
+    rows whose inputs still agree).  Each near tie is printed; any other
+    divergence fails the phase.  The f32 weights (~16 GB) are freed
+    before returning."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model, ctx = build_model(cfg32), RunCtx()
+    params = model.init(ctx, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    dense_rows = {}
+
+    def keep(server, live, logits):
+        for i in live:
+            req = server.active[i]
+            dense_rows[(req.rid, len(req.out))] = logits[i].copy()
+
+    dense = recording(Server)(model, ctx, params, BATCH, CACHE_LEN,
+                              device="cuda", on_step=keep)
+    dense_out = ex.serve(dense, requests())
+    del dense
+    parted, ties, clear = set(), [], []
+    stats = {"steps": 0, "max_abs_diff": 0.0, "min_margin": math.inf}
+
+    def compare(server, live, logits):
+        rows = []
+        for i in live:
+            req = server.active[i]
+            if req.rid in parted:
+                continue
+            want = dense_rows.pop((req.rid, len(req.out)))
+            rows.append((req.rid, len(req.out), logits[i], want))
+        if not rows:
+            return
+        step_diff = max(float(np.abs(got - want).max()) for *_, got, want in rows)
+        stats["steps"] += 1
+        stats["max_abs_diff"] = max(stats["max_abs_diff"], step_diff)
+        for rid, k, got, want in rows:
+            margin = top2_margin(want)
+            stats["min_margin"] = min(stats["min_margin"], margin)
+            if int(np.argmax(got)) == int(np.argmax(want)):
+                continue
+            parted.add(rid)
+            case = {"rid": rid, "step": k, "margin": margin,
+                    "max_abs_diff": step_diff}
+            (ties if margin < step_diff else clear).append(case)
+            if margin < step_diff:
+                print(f"f32 near tie: request {rid} step {k} margin {margin} "
+                      f"difference {step_diff}", file=sys.stderr, flush=True)
+
+    paged = recording(PagedServer)(model, ctx, params, BATCH, CACHE_LEN,
+                                   device="cuda", page_tokens=PAGE_TOKENS,
+                                   on_step=compare)
+    paged_out = ex.serve(paged, requests())
+    del paged, params, model, dense_rows
+    pygc.collect()
+    torch.cuda.empty_cache()
+    if clear:
+        raise AssertionError(f"f32 paged and dense decode part at clear "
+                             f"margins: {clear}")
+    if sorted(paged_out) != list(range(N_REQ)):
+        raise AssertionError(f"f32: finished {sorted(paged_out)}")
+    same = [r for r in paged_out if paged_out[r] == dense_out[r]]
+    if len(same) != N_REQ - len(ties):
+        raise AssertionError(f"f32: {N_REQ - len(same)} requests differ, "
+                             f"{len(ties)} near ties")
+    return {"layers": cfg32.n_layers, "dtype": "float32",
+            "requests_token_identical": len(same), "near_ties": len(ties),
+            "ties": ties, "steps_compared": stats["steps"],
+            "max_abs_logit_diff": stats["max_abs_diff"],
+            "min_top2_margin": stats["min_margin"]}
+
+
+# --------------------------------------------------------------------------- #
+# the disaggregated cluster (serving/disagg.py) at full width and depth
+# --------------------------------------------------------------------------- #
+DISAGG_KERNELS = ("paged_attention", "ring_shift", "perm_put")
+PRESSURE_SCALE = 8  # act 3: the reference's pressure burst, 8x longer
+# acts 1 and 2: tick 6 has two prefills, a push and two decode steps
+PROFILE_TICK = 6
+
+
+def all_counts():
+    return {**counts(), "paged_attention": pa.paged_attention.launches}
+
+
+def drive_act(cluster, reqs, *, pressured=False, counter=all_counts):
+    """Serve ``reqs`` through ``cluster`` as its entry points do (act 3's
+    arrival pattern when ``pressured``), with the host tracer on for the
+    cluster's tick and tick-phase spans: no profiler and no sync of its
+    own.  Checks on the way that the segment tensor keeps its storage at
+    every tick (the cluster's ``fault_hook``, run as each tick starts), and
+    that the launches per kernel equal the transfer programs' schedule
+    (``DisaggCluster.transfer_kernels``, summed in the stats) plus one
+    paged attention a layer a paged decode step.  Returns the stats, the
+    launches, each tick's and each decode's wall (ms), the progress
+    (pushes, tokens) as each tick started, and the tokens."""
+    seg = cluster.kvseg
+    lo, hi = seg.data_ptr(), seg.data_ptr() + seg.numel() * seg.element_size()
+    progress = {}
+
+    def in_place(c, phase, tick):
+        if phase == "tick":
+            progress[tick] = (c.kv_transfers, c.decoded_tokens)
+        if c.kvseg.data_ptr() != lo or any(
+                not lo <= s.mem.data_ptr() < hi for s in c.stores):
+            raise AssertionError("the cluster's segments left their storage")
+
+    cluster.fault_hook = in_place
+    tracer = obs_trace.enable(obs_trace.Tracer(capacity=1 << 20))
+    before = counter()
+    try:
+        if pressured:
+            stats = ex.run_pressured(cluster, reqs)
+        else:
+            for r in reqs:
+                cluster.submit(r)
+            stats = cluster.run_until_drained()
+    finally:
+        obs_trace.disable()
+        cluster.fault_hook = None
+    in_place(cluster, "end", None)
+    got = {k: v - before[k] for k, v in counter().items()}
+    want = {**dict.fromkeys(got, 0), **stats["transfer_launches"],
+            "paged_attention": cluster.model.cfg.n_layers
+            * stats.get("decode_paged_steps", 0)}
+    if got != want:
+        raise AssertionError(f"launches {got}, schedule says {want}")
+    return {"stats": stats, "launches": got, "progress": progress,
+            "tick_ms": {s.tick0: s.dur_us / 1e3
+                        for s in tracer.spans(cat="tick", name="tick")},
+            "decode_ms": [s.dur_us / 1e3 for s in
+                          tracer.spans(cat="tick_phase", name="decode")],
+            "tokens": {r.rid: r.out for r in cluster.finished}}
+
+
+def profile_tick(cluster, reqs, tick):
+    """Tick ``tick`` of ``reqs`` on a fresh ``cluster`` under
+    ``torch.profiler``, with a tracer that annotates the cluster's tick
+    phases (which do not nest), so that each kernel is attributed to the
+    phase it starts in (a range appears on the device's timeline spanning
+    its kernels).  The ticks
+    before run untraced.  Returns the device's busy time (its kernels' and
+    copies' durations: one stream), the split by phase, the kernels by
+    name, the profiled wall, and the progress (pushes, tokens) after the
+    tick, by which the measured run's same tick is found."""
+    for r in reqs:
+        cluster.submit(r)
+    for _ in range(tick - 1):
+        cluster.tick()
+    torch.cuda.synchronize()
+    tracer = obs_trace.enable(obs_trace.Tracer(annotate=("tick_phase",)))
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cluster.tick()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        obs_trace.disable()
+    ranges = {f"{s.cat}::{s.name}" for s in tracer.events
+              if s.cat in tracer.annotate}
+    phases, kernels = {}, []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0, t1 = evt.time_range.start, evt.time_range.end
+        if evt.name.startswith("tick_phase::"):
+            phases.setdefault(evt.name.split("::")[1], []).append((t0, t1))
+        elif evt.name not in ranges:
+            kernels.append((evt.name, t0, (t1 - t0) / 1e3))
+    busy, by_name, split = 0.0, {}, {}
+    for name, t0, ms in kernels:
+        busy += ms
+        rec = by_name.setdefault(name[:90], [0, 0.0])
+        rec[0] += 1
+        rec[1] += ms
+        part = next((k for k, iv in phases.items()
+                     if any(a <= t0 < b for a, b in iv)), "other")
+        rec = split.setdefault(part, [0, 0.0])
+        rec[0] += 1
+        rec[1] += ms
+    if not kernels:
+        raise AssertionError(f"the profiler saw no device work in tick {tick}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"tick": tick, "profiled_wall_ms": wall_ms, "kernels": len(kernels),
+            "device_busy_ms": busy,
+            **{f"{d}_copies": sum(n for k, (n, _) in by_name.items()
+                                  if f"Memcpy {d}" in k)
+               for d in ("DtoH", "HtoD")},
+            "phases": {k: {"kernels": n, "device_ms": ms}
+                       for k, (n, ms) in split.items()},
+            "top_kernels": [[k, n, ms] for k, (n, ms) in top],
+            "progress": (cluster.kv_transfers, cluster.decoded_tokens)}
+
+
+def serve_disagg_phase(served):
+    """The disaggregated cluster on qwen3-4b at full width and depth (the
+    serve phase's bf16 weights), every rank on this card, in three acts,
+    each held to the colocated server that runs its decode path on the
+    same requests: act 1 (2 prefill + 2 decode ranks, dense staging,
+    prefill on "xla", decode on "gascore") to ``Server``; act 2 (the
+    same, paged) to ``PagedServer``; act 3 (1 prefill, 1 decode, 1 memory
+    rank on "gascore", a pool of one request's full cache, the
+    reference's pressure burst 8x longer) to an unpressured
+    ``PagedServer``.  The clusters are built as the entry points build
+    them: transfers planned and swaps priced by the cluster's own
+    measurement of this card (``sched.measure_costs``).  The checks' own
+    runs (act 3's oracle, the profiled ticks) come before the counts are
+    set to 0.  Returns the launches per kernel over the acts."""
+    model, ctx, params = served["model"], served["ctx"], served["params"]
+    cfg = model.cfg
+    pool_pages = CACHE_LEN // PAGE_TOKENS  # act 3: one request's full cache
+    paged = dict(paged=True, page_tokens=PAGE_TOKENS)
+    burst = lambda: ex.pressure_burst(cfg.vocab, PRESSURE_SCALE)  # noqa: E731
+    acts = {  # cluster arguments, requests, pressured
+        "act1": (dict(n_prefill=2, n_decode=2), requests, False),
+        "act2": (dict(n_prefill=2, n_decode=2, **paged), requests, False),
+        "act3": (dict(n_prefill=1, n_decode=1, n_memory=1,
+                      memory_backend="gascore", pages_per_rank=pool_pages,
+                      **paged), burst, True),
+    }
+
+    def cluster(name):
+        return DisaggCluster(model, ctx, params, decode_batch=BATCH,
+                             cache_len=CACHE_LEN, prefill_backend="xla",
+                             decode_backend="gascore", device="cuda",
+                             **acts[name][0])
+
+    oracles = {"act1": served["dense"], "act2": served["paged"],
+               "act3": ex.serve(PagedServer(model, ctx, params, BATCH,
+                                            CACHE_LEN, device="cuda",
+                                            page_tokens=PAGE_TOKENS), burst())}
+    demand = sum(-(-(len(r.prompt) + r.max_new) // PAGE_TOKENS) for r in burst())
+    if demand < 1.5 * pool_pages:
+        raise AssertionError(f"act 3 demand {demand} pages < 1.5 x {pool_pages}")
+    profiles = {}
+    for name in ("act1", "act2"):
+        c = cluster(name)
+        profiles[name] = profile_tick(c, requests(), PROFILE_TICK)
+        del c
+        torch.cuda.empty_cache()
+
+    reset_counts()
+    pa.paged_attention.launches = 0  # the phase's main path starts here
+    figures, per_act, costs = {}, {}, None
+    for name, (_, reqs, pressured) in acts.items():
+        c, rs = cluster(name), reqs()
+        rec = drive_act(c, rs, pressured=pressured)
+        st = rec["stats"]
+        ex.check_handoff(st, len(rs))
+        ex.check_tokens(name, oracles[name], rec["tokens"])
+        if c.paged:
+            ex.check_drained(c, st)
+        if name == "act2" and st["kv_pages_shared"] < SHARED // PAGE_TOKENS:
+            raise AssertionError(f"act 2: prefix pages were moved: {st}")
+        if name == "act3" and (st["sched_swaps"] < 1
+                               or st["sched_resumes"] != st["sched_evictions"]):
+            raise AssertionError(f"act 3: swaps {st['sched_swaps']}, resumes "
+                                 f"{st['sched_resumes']} of "
+                                 f"{st['sched_evictions']}")
+        per_act[name] = rec["launches"]
+        fig = {
+            "ranks": c.roles, "backends": c._backends,
+            "segment_gib": c.kvseg.numel() * 4 / 2**30,
+            "tok_per_s": st["tok_per_s"], "p50_latency_s": st["p50_latency_s"],
+            "p50_ttft_s": st["p50_ttft_s"], "wall_s": st["wall_s"],
+            "ticks": st["ticks"], "transfers": st["transfer_programs"],
+            "tick_ms_median": float(np.median(list(rec["tick_ms"].values()))),
+            "decode_tick_ms_median": float(np.median(rec["decode_ms"])),
+            "kv_bytes": st["kv_bytes"], "kv_bytes_per_s": st["kv_bytes_per_s"],
+            "kv_plan": st["kv_plan"], "launches": rec["launches"],
+            "requests_token_identical": len(rec["tokens"]),
+        }
+        for key in ("kv_pages_sent", "kv_pages_shared", "prefix_hit_rate",
+                    "pool_free_pages", "sched_evictions", "sched_swaps",
+                    "sched_recomputes", "sched_resumes", "swap_out_bytes",
+                    "swap_in_bytes", "tier_free_slots", "tier_slots",
+                    "swap_plan"):
+            if key in st:
+                fig[key] = st[key]
+        if name in profiles:
+            # the busy share against the same tick's wall in this run,
+            # which ran without the profiler's overhead
+            prof = profiles[name]
+            if rec["progress"].get(PROFILE_TICK + 1) != tuple(prof["progress"]):
+                raise AssertionError(
+                    f"{name}: the profiled tick {prof['progress']} is not "
+                    f"the measured one {rec['progress'].get(PROFILE_TICK + 1)}")
+            wall = rec["tick_ms"][PROFILE_TICK]
+            fig["profiled_tick"] = {**prof, "wall_ms": wall,
+                                    "device_busy_share": prof["device_busy_ms"] / wall}
+        if name == "act3":
+            fig["demand_pages"] = demand
+            costs = {k: dataclasses.asdict(v) for k, v in c.costs.items()}
+        figures[name] = fig
+        del c
+        torch.cuda.empty_cache()
+    launches = {k: v for k, v in all_counts().items() if k in DISAGG_KERNELS}
+    if launches != {k: sum(a[k] for a in per_act.values()) for k in launches}:
+        raise AssertionError(f"serve_disagg launched {launches}, its acts "
+                             f"{per_act}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"serve_disagg never launched: {launches}")
+    emit({"phase": "serve_disagg", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": "bfloat16", "card": card(),
+          "batch": BATCH, "cache_len": CACHE_LEN, "page_tokens": PAGE_TOKENS,
+          "costs": costs, "acts": figures, "launches": launches})
     return launches
 
 
@@ -2139,7 +2503,12 @@ def main():
     kernel = kernel_phase()
     gas_figures = gascore_kernel_phase()
     gas_launches = gas_phase()
-    launches = serve_phase()
+    served = serve_phase()
+    launches = served["launches"]
+    disagg_launches = serve_disagg_phase(served)
+    del served
+    pygc.collect()
+    torch.cuda.empty_cache()
     flash_figures = flash_phase()
     scan_figures = scan_phase()
     flash_launches = train_phase()
@@ -2159,14 +2528,15 @@ def main():
         "name": pa.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:184",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
+        "launches": launches + disagg_launches["paged_attention"],
+        "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
     }] + [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
-        "launches": gas_launches[name],
+        "launches": gas_launches[name] + disagg_launches.get(name, 0),
         **{key: gas_figures[name]["16MiB"][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's

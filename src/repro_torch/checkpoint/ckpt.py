@@ -12,8 +12,10 @@ into place, so a reader never sees a half-written step;
 ``AsyncHandle.wait`` joins before the next save or at shutdown.
 
 numpy has no bfloat16 (without ``ml_dtypes``): a bf16 leaf is written as
-its raw 16-bit words and recorded as ``"bfloat16"`` in the manifest, and
-restored bit for bit.
+its raw 16-bit words under the header the reference's ``np.save`` writes
+for ``ml_dtypes.bfloat16`` (``'descr': '<V2'``), so the two packages'
+files are byte-identical; the manifest records ``"bfloat16"`` and the
+leaf restores bit for bit.
 """
 
 from __future__ import annotations
@@ -41,12 +43,25 @@ def _leaf_paths(tree: Any) -> List[Tuple[str, Any]]:
 
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A private host copy of ``t`` and the dtype name the manifest
-    records (bf16 as its raw 16-bit words)."""
+    records (bf16 as its raw 16-bit words, a ``V2`` view)."""
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        return t.view(torch.int16).numpy().view(np.dtype("V2")), "bfloat16"
     a = t.numpy()
     return a, str(a.dtype)
+
+
+def _save_npy(path: str, a: np.ndarray, dtype_name: str) -> None:
+    """``np.save``, but a bf16 leaf gets the reference's ``'<V2'`` header
+    (``ml_dtypes.bfloat16``'s descr; numpy's own void dtype would write
+    ``'|V2'``) in front of the same raw little-endian words."""
+    if dtype_name != "bfloat16":
+        np.save(path, a)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": "<V2", "fortran_order": False, "shape": a.shape})
+        f.write(np.ascontiguousarray(a).tobytes())
 
 
 class AsyncHandle:
@@ -83,8 +98,8 @@ def save(
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        for k, a, _ in host:
-            np.save(os.path.join(tmp, k.replace("/", "__") + ".npy"), a)
+        for k, a, dt in host:
+            _save_npy(os.path.join(tmp, k.replace("/", "__") + ".npy"), a, dt)
         with open(os.path.join(tmp, _MANIFEST), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):

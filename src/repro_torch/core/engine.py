@@ -209,7 +209,7 @@ class CommEngine:
             # the int32 command block bitcasts into the payload carrier, so
             # payloads AND their target offsets ride ONE transport
             # initiation; the bits arrive unchanged (NaN patterns included).
-            mcarrier = meta.view(xs[0].dtype)
+            mcarrier = transport.bitcast(meta, xs[0].dtype)
             pendings = mover(xs + [mcarrier])
             return pendings[:-1], pendings[-1]
         # non-4-byte carriers: the command block rides its own initiation

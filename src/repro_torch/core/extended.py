@@ -36,6 +36,15 @@ Example (a matmul issued between a put's initiation and its sync)::
 Handles are host-side Python objects (like the engines themselves) that
 live for one ``Context.spmd`` call.  Completion order for ``sync_all`` is
 FIFO (issue order), matching the deterministic static schedule.
+
+Deferred landing: a put's sync inside the program is functional, so it
+builds a new segment partition.  For a segment too large to copy per put
+(a serving cluster's KV pool), ``node.defer(h)`` completes a put handle by
+returning its *landing command* (payloads, target offsets, arrival
+flags) as a program output instead; after ``Context.spmd`` returns,
+:func:`land` writes the commands of all ranks into the rank-stacked
+segment IN PLACE, with the same clamping and flag semantics as the sync
+(the receiver's DMA engine finishing the write).
 """
 from __future__ import annotations
 
@@ -43,10 +52,12 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import transport
 from repro_torch.core.engine import AlreadyWaitedError
 from repro_torch.core.indexing import dynamic_update_slice
 
 __all__ = [
+    "land",
     "Handle",
     "PutHandle",
     "PutvHandle",
@@ -65,6 +76,32 @@ def _land(local: torch.Tensor, data: torch.Tensor, index: torch.Tensor,
     flat = local.reshape(-1)
     new = dynamic_update_slice(flat, data, index)
     return torch.where(flag, new, flat).reshape(local.shape)
+
+
+def land(seg: torch.Tensor, payload: torch.Tensor, offsets: torch.Tensor,
+         flags: torch.Tensor, chunk: int = 1 << 22) -> torch.Tensor:
+    """Land deferred put commands in place: for every rank r and command
+    j in order, ``payload[r, j]`` (L elements) is written at flat offset
+    ``offsets[r, j]`` (clamped to ``[0, S - L]``, as ``sync`` clamps) of
+    rank r's partition of the rank-stacked ``seg`` (n, *local) where
+    ``flags[r, j]`` is set; elsewhere every byte keeps its bits.  No
+    offset or flag is read on the host, and the segment is never copied:
+    its storage is written where it lies.  Returns ``seg``."""
+    n = seg.shape[0]
+    flat = seg.view(n, -1)
+    S = flat.shape[1]
+    m, L = int(payload.shape[1]), int(payload.shape[2])
+    start = offsets.reshape(n, m).to(torch.int64).clamp(0, max(S - L, 0))
+    flags = flags.reshape(n, m).to(torch.bool)
+    for j in range(m):
+        for c0 in range(0, L, chunk):
+            c = min(chunk, L - c0)
+            pos = start[:, j, None] + torch.arange(
+                c0, c0 + c, device=flat.device)
+            cur = flat.gather(1, pos)
+            new = payload[:, j, c0 : c0 + c].to(flat.dtype)
+            flat.scatter_(1, pos, torch.where(flags[:, j, None], new, cur))
+    return seg
 
 
 class Handle:
@@ -137,6 +174,11 @@ class PutHandle(Handle):
     def restore(self, local: torch.Tensor) -> torch.Tensor:
         return self._restore(local)
 
+    def landing(self):
+        """The receiver's landing command: ``(payloads (m, L), offsets
+        (m,), flags (m,))`` with m = 1 (see :func:`land`)."""
+        return self._moved[None], self._midx.reshape(1), self._received.reshape(1)
+
     def _complete(self) -> torch.Tensor:
         return self._restore(self.apply(self._local))
 
@@ -177,7 +219,7 @@ class PutvHandle(PutHandle):
                 else self._meta
             )
             if m.dtype != torch.int32:
-                m = m.view(torch.int32)  # bitcast back from the carrier
+                m = transport.bitcast(m, torch.int32)  # back from the carrier
             n = len(vals)
             self._landed = (vals, m[:n], m[n:] != 0)
         return self._landed
@@ -187,6 +229,10 @@ class PutvHandle(PutHandle):
         for j, v in enumerate(vals):
             local = _land(local, v, offs[j], flags[j])
         return local
+
+    def landing(self):
+        vals, offs, flags = self._land()
+        return torch.stack(vals), offs, flags
 
 
 class GetHandle(Handle):

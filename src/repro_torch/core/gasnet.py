@@ -34,6 +34,7 @@ gasnet_get_nb            ``node.get_nb(seg, frm=..., index=..., size=...)``
                          indices=[...])`` — m writes + their target
                          offsets in one command block
 gasnet_wait_syncnb       ``node.sync(handle)``
+(landing by the caller)  ``node.defer(handle)`` + ``extended.land(...)``
 gasnet_try_syncnb        ``node.try_sync(handle)``
 gasnet_wait_syncnb_all   ``node.sync_all()``
 ======================  ===================================================
@@ -508,6 +509,29 @@ class Node:
             handle.span = None
             obs_trace.active().end_async(sp)
         return result
+
+    def defer(self, handle: extended.PutHandle):
+        """Complete a put handle by handing its landing to the caller of
+        ``Context.spmd``: returns the ``(payloads, offsets, flags)``
+        command the receiver lands, for the program to return and the
+        caller to write into the rank-stacked segment in place with
+        :func:`repro_torch.core.extended.land` — for segments too large to
+        copy per put.  Land deferred puts in the order they were issued.
+        Puts on the same segment object must not mix ``sync`` and
+        ``defer``."""
+        if not isinstance(handle, extended.PutHandle):
+            raise TypeError(f"only puts defer their landing, got {handle.op}")
+        if handle.done:
+            raise extended.AlreadyWaitedError(
+                f"{handle.op} handle already synced")
+        handle.done = True
+        if handle in self._outstanding:
+            self._outstanding.remove(handle)
+        sp = handle.span
+        if sp is not None:
+            handle.span = None
+            obs_trace.active().end_async(sp)
+        return handle.landing()
 
     def try_sync(
         self, handle: extended.Handle

@@ -4,7 +4,8 @@ Port of ``repro.core.sched``: the same cost model, planner and planned
 execution, over the port's engines.  Plans are pure host arithmetic and
 ``describe()`` themselves exactly as the reference's do for the same
 inputs.  The default constants are the reference's, copied verbatim so
-that decisions match it: they are NOT measurements of an H100.
+that decisions match it: they are NOT measurements of an H100;
+:func:`measure_costs` fits a device's own from timed puts.
 
 The paper's GAScore earns its keep not just by moving bytes but by the
 *schedule* it drains from its command FIFO: large transfers are cut into
@@ -35,7 +36,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from typing import Dict, Iterable, Optional
+import time
+from typing import Any, Dict, Iterable, Optional
 
 import torch
 
@@ -49,6 +51,7 @@ __all__ = [
     "CollectivePlan",
     "DEFAULT_COSTS",
     "load_costs",
+    "measure_costs",
     "cost_of",
     "plan_collective",
     "plan_p2p",
@@ -257,6 +260,88 @@ def load_costs(path: str) -> Dict[str, EngineCost]:
             except (KeyError, TypeError, ValueError):
                 continue
     return costs
+
+
+# per-rank payloads the transport is timed at by :func:`measure_costs`
+MEASURE_BYTES = (1 << 10, 1 << 20, 1 << 24, 1 << 26)
+_MEASURED: Dict[tuple, Dict[str, EngineCost]] = {}
+
+
+def _timed_us(fn, device: torch.device, reps: int) -> float:
+    """Median wall microseconds of one call of ``fn`` as a program sees
+    it, its device work included (the device drained before the call and
+    after it), after one warm call.  A wall and not the device's time
+    alone: the software node's moves copy their index lists to the device
+    and wait for it (as every put of theirs in a program does)."""
+    def drain():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn()
+    times = []
+    for _ in range(reps):
+        drain()
+        t0 = time.perf_counter()
+        fn()
+        drain()
+        times.append(1e6 * (time.perf_counter() - t0))
+    return float(sorted(times)[len(times) // 2])
+
+
+def measure_costs(
+    device: Any,
+    backends: Iterable[str] = ("xla", "gascore"),
+    *,
+    sizes: Iterable[int] = MEASURE_BYTES,
+    reps: int = 9,
+) -> Dict[str, EngineCost]:
+    """This device's transport constants: the cost table (the defaults,
+    with each of ``backends`` replaced by its measurement) that plans and
+    prices transfers where the reference's constants, a TPU's, do not
+    hold.
+
+    Each engine moves ``sizes`` bytes per rank between two ranks of a
+    :class:`~repro_torch.core.gasnet.Context` on ``device`` (one
+    ``permute``) and the receiver lands them in place
+    (:func:`~repro_torch.core.extended.land`); the landing is also timed
+    alone.  :func:`try_fit_from_trace` fits α and β from the end-to-end
+    times and splits γ off β from the landing's (its per-KiB slope); an
+    engine whose points do not fit keeps its default.  Measured once per
+    device, engines and sizes."""
+    from repro_torch.core import extended, gasnet
+
+    device = torch.device(device)
+    backends = tuple(sorted(set(backends)))
+    sizes = tuple(sizes)
+    key = (str(device), backends, sizes, reps)
+    if key not in _MEASURED:
+        costs = dict(DEFAULT_COSTS)
+        for backend in backends:
+            ctx = gasnet.Context(2, backend=backend, device=device)
+
+            def move(node, x):
+                return node.engine.permute(x, [1, 0])
+
+            spans, epilogue = [], []
+            for nbytes in sizes:
+                n_el = max(nbytes // 4, 1)
+                x = torch.arange(2 * n_el, dtype=torch.float32,
+                                 device=device).reshape(2, 1, n_el)
+                seg = torch.zeros((2, n_el), dtype=torch.float32, device=device)
+                offsets = torch.zeros((2, 1), dtype=torch.int32, device=device)
+                flags = torch.ones((2, 1), dtype=torch.bool, device=device)
+                put = lambda: extended.land(  # noqa: E731
+                    seg, ctx.spmd(move, x).reshape(2, 1, n_el), offsets, flags)
+                install = lambda: extended.land(  # noqa: E731
+                    seg, x, offsets, flags)
+                spans.append({"bytes": 4 * n_el,
+                              "dur_us": _timed_us(put, device, reps)})
+                epilogue.append({"bytes": 4 * n_el,
+                                 "dur_us": _timed_us(install, device, reps)})
+            costs[backend], _ = try_fit_from_trace(
+                spans, epilogue_spans=epilogue, default=DEFAULT_COSTS[backend])
+        _MEASURED[key] = costs
+    return dict(_MEASURED[key])
 
 
 def cost_of(

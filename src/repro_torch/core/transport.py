@@ -34,6 +34,7 @@ __all__ = [
     "reduce_scatter",
     "all_reduce",
     "all_to_all",
+    "bitcast",
 ]
 
 BACKENDS = ("xla", "gascore")
@@ -168,3 +169,17 @@ def _all_to_all_vmap(info, in_dims, x, ids, n):
         raise ValueError(f"all_to_all dim0 {tuple(xs.shape[1:])} not "
                          f"divisible by {n}")
     return ref.all_to_all(xs), 0
+
+
+@torch.library.custom_op("repro_torch::gas_bitcast", mutates_args=())
+def bitcast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x``'s bits as ``dtype`` of the same width (a copy): the vectored
+    put's int32 command block riding its float32 payload carrier.  Under
+    vmap too, where ``Tensor.view(dtype)`` has no batching rule in every
+    PyTorch release; outside vmap it is the plain bitcast."""
+    return x.view(dtype).clone()
+
+
+@bitcast.register_vmap
+def _bitcast_vmap(info, in_dims, x, dtype):
+    return x.view(dtype).clone(), in_dims[0]

@@ -67,6 +67,11 @@ def _put_fn():
                [_p, _p, _i, _ll, _ll, _ll, _p, _p, _i, _i, _p])
 
 
+def _offset_put_fn():
+    return _fn(PUT, "repro_gascore_offset_put",
+               [_p, _p, _i, _ll, _ll, _ll, _i, _p, _i, _ll, _ll, _i, _i, _p])
+
+
 def _gather_fn():
     return _fn(RING, "repro_gascore_all_gather", [_p, _p, _i, _ll, _i, _i, _p])
 
@@ -170,9 +175,12 @@ def offset_put(
     IN PLACE into ``seg`` (the TPU kernel's ``input_output_aliases``);
     returns ``seg``.
 
-    ``offset`` is an int32 tensor of one offset or one per rank.  Its range
-    is checked on the host before the launch: an out-of-range CUDA write
-    corrupts memory where the TPU's DMA would fault."""
+    ``offset`` is an int32 tensor of one offset or one per rank, clamped to
+    [0, S - L] as JAX clamps (and as ``ref.offset_put`` does), so no offset
+    value raises and no write leaves its row.  On the card the kernel reads
+    the offsets from device memory inside the launch: the host never waits
+    on them.  Offsets held on the host are clamped there and passed by
+    value, as the other puts pass theirs."""
     _check(seg, "seg")
     _check(data, "data")
     if data.device != seg.device or data.dtype != seg.dtype:
@@ -181,22 +189,37 @@ def offset_put(
         raise ValueError(f"seg {tuple(seg.shape)} needs (n, S, ...) rows")
     n, S = seg.shape[0], seg.shape[1]
     if data.dim() != seg.dim() or data.shape[0] != n or (
-            tuple(data.shape[2:]) != tuple(seg.shape[2:])):
+            tuple(data.shape[2:]) != tuple(seg.shape[2:])) or (
+            data.shape[1] > S):
         raise ValueError(f"data {tuple(data.shape)} does not fit seg "
                          f"{tuple(seg.shape)}")
     L = data.shape[1]
     if offset.dtype != torch.int32 or offset.numel() not in (1, n):
         raise TypeError("offset must be int32, one value or one per rank")
-    offs = offset.reshape(-1).expand(n).tolist()  # the host check's sync
-    bad = [o for o in offs if not 0 <= o <= S - L]
-    if bad:
-        raise ValueError(f"offset_put offsets {bad} outside [0, {S - L}]")
+    if offset.device.type not in ("cpu", seg.device.type) or (
+            offset.device.type == "cuda" and offset.device != seg.device):
+        raise ValueError(f"offset on {offset.device}, seg on {seg.device}")
     seg_row, data_row = _row_bytes(seg), _row_bytes(data)
     elem_row = seg_row // S if S else 0
-    dst_rank = [(r + k) % n for r in range(n)]
-    dst_off = [o * elem_row for o in offs]  # byte offset of sender r's write
-    if _put(data, seg, data_row, seg_row, data_row, dst_rank, dst_off):
-        offset_put.launches += 1
+    if offset.device.type == "cpu":
+        offs = [min(max(o, 0), S - L) for o in offset.reshape(-1).expand(n).tolist()]
+        dst_rank = [(r + k) % n for r in range(n)]
+        dst_off = [o * elem_row for o in offs]  # byte offset of sender r
+        if _put(data, seg, data_row, seg_row, data_row, dst_rank, dst_off):
+            offset_put.launches += 1
+        return seg
+    if data_row == 0:
+        return seg
+    off = offset.reshape(-1).contiguous()
+    w = _word_bytes(data_row, seg_row, elem_row, data.data_ptr(),
+                    seg.data_ptr())
+    err = _offset_put_fn()(data.data_ptr(), seg.data_ptr(), n, data_row,
+                           seg_row, data_row, k, off.data_ptr(),
+                           int(off.numel() == n), elem_row, S - L, w,
+                           _sms(seg), _stream(seg))
+    if err != 0:
+        raise RuntimeError(f"gascore offset_put launch failed: CUDA error {err}")
+    offset_put.launches += 1
     return seg
 
 

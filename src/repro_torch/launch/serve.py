@@ -20,12 +20,17 @@ batch; per-row positions let rows be at different generation depths.
   forward, in either server, routes its tokens on the hand-written
   router kernel on the card.
 
+- :class:`PooledDecodeServer` decodes from an external pool shard: the
+  decode side of the disaggregated cluster
+  (``repro_torch.serving.disagg``).
+
 Run: ``python -m repro_torch.launch.serve --role decode --paged``
 (``--arch kimi-k2-1t-a32b`` or ``--arch arctic-480b`` for the MoE archs),
 or ``--arch falcon-mamba-7b`` / ``--arch recurrentgemma-9b`` without
-``--paged`` (their blocks cannot be paged; ``--paged`` raises)
+``--paged`` (their blocks cannot be paged; ``--paged`` raises);
+``--role both [--paged] [--n-memory 1]`` runs the disaggregated cluster
 (``--device cpu`` runs on the CPU, with the kernels' plain versions).
-The tensor-parallel, pooled and disaggregated servers are not ported yet.
+The tensor-parallel servers are not ported yet.
 """
 
 from __future__ import annotations
@@ -197,6 +202,13 @@ class Server:
         slot = self._free_slot()
         if slot is None:
             return False
+        self._bind(req, slot, first_token, position)
+        self._write_row(caches_one, slot)
+        return True
+
+    def _bind(self, req: Request, slot: int, first_token: int,
+              position: int) -> None:
+        """Seat an admitted request in decode row ``slot``."""
         if not req.out:
             req.out.append(int(first_token))
         tr = obs_trace.active()
@@ -211,8 +223,6 @@ class Server:
         self.active[slot] = req
         self.positions[slot] = position
         self.last_token[slot, 0] = int(first_token)
-        self._write_row(caches_one, slot)
-        return True
 
     def _prefill(self, req: Request):
         toks = self._tensor(np.asarray(req.prompt, np.int32)[None])
@@ -712,6 +722,163 @@ class PagedServer(Server):
         return stats
 
 
+class PooledDecodeServer(Server):
+    """Decode server whose KV lives in an EXTERNAL paged store — the
+    disaggregated cluster's per-rank pool shard.
+
+    Rows are bound to page tables by rid (:meth:`admit_paged`); no dense
+    cache row is ever built, and every tick decodes through
+    ``Model.decode_step_paged`` — the same single decode path the
+    colocated :class:`PagedServer` runs.
+
+    Division of labour with the cluster:
+
+    - the cluster owns prefill, admission (page puts over the GAS layer),
+      preemption policy, release, and resume;
+    - the server owns the per-tick write-page claim
+      (``store.prepare_write``) and the batched paged decode.
+
+    ``store.mem`` is the rank's pool segment on the device, the form the
+    wire reads and writes (float32 carrier pages).  The decode step reads
+    and writes the pool in *decode-views* form instead (per-layer pages
+    in the model dtype), kept resident here across ticks.  Two sets keep
+    the forms in step without converting the whole shard: pages whose
+    segment bytes changed (landed by a transfer — :meth:`mark_stale` —
+    or materialised and copy-on-write split here) are re-read into the
+    views before the next decode, and pages the decode wrote are handed
+    back by :meth:`drain_dirty` for the cluster to write into the segment
+    before any swap-out reads them.
+
+    When the pool shard runs dry mid-growth (tiered clusters
+    oversubscribe), ``on_page_shortage(rid, need)`` asks the cluster to
+    preempt; if pages still aren't free the row *stalls* one tick: its
+    write slot is remapped to the scratch page (so a pending
+    copy-on-write split can't corrupt sharers) and its logits are
+    discarded — it retries once the swap-out lands.
+    """
+
+    def __init__(self, model, ctx, params, batch_size: int, cache_len: int,
+                 store, eos_id: int = -1, device: Any = None,
+                 on_page_shortage=None):
+        super().__init__(model, ctx, params, batch_size, cache_len,
+                         eos_id=eos_id, device=device)
+        self.store = store
+        self.layout = store.layout
+        self.on_page_shortage = on_page_shortage
+        self.paged_decode_steps = 0
+        self._decode_paged = _paged_decode_views_fn(
+            model, ctx, self.layout, self.device
+        )
+        self._views = None  # decode-views pool, P+1 rows (scratch last)
+        self._stale: set = set()
+        self._dirty: set = set()
+
+    def _admit(self) -> None:
+        """Admission belongs to the cluster (prefill nodes + GAS puts)."""
+
+    def admit_paged(
+        self, req: Request, first_token: int, position: int
+    ) -> bool:
+        """Bind an installed request's decode row to its page table: the
+        pool shard — not any dense copy — is the KV source of truth.
+        Returns False when no decode row is free."""
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        self._bind(req, slot, first_token, position)
+        return True
+
+    def mark_stale(self, pages) -> None:
+        """Physical pages whose segment bytes changed outside the decode
+        step (landed by a transfer): re-read before the next decode."""
+        self._stale.update(int(p) for p in pages)
+
+    def drain_dirty(self) -> Dict[int, torch.Tensor]:
+        """Physical page -> carrier row the decode wrote since the last
+        drain (device tensors, read from the views)."""
+        pages = sorted(self._dirty)
+        self._dirty = set()
+        if not pages or self._views is None:
+            return {}
+        idx = self._tensor(np.asarray(pages, np.int64))
+        rows = self.layout.views_to_pool(
+            tree_map(lambda v: v.index_select(1, idx), self._views)
+        )
+        return dict(zip(pages, rows))
+
+    def _refresh_views(self) -> None:
+        """Bring the decode views up to the segment: whole on first use,
+        then only the stale pages."""
+        mem = self.store.mem
+        if self._views is None:
+            empty = torch.from_numpy(self.layout.empty_page_row()).to(
+                mem.device)
+            self._views = self.layout.decode_views(
+                torch.cat([mem, empty[None]], dim=0))
+            self._stale.clear()
+            return
+        if not self._stale:
+            return
+        idx = self._tensor(np.asarray(sorted(self._stale), np.int64))
+        self._stale.clear()
+        rows = self.layout.decode_views(mem.index_select(0, idx))
+        for pool, rv in zip(tree_leaves(self._views), tree_leaves(rows)):
+            pool[:, idx] = rv
+
+    def _step(self) -> int:
+        from repro_torch.serving.pool import UNMATERIALIZED
+
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        if not live:
+            return 0
+        # row -> the physical page this tick's write lands in; rows absent
+        # here at decode time are stalled (no write page) and discarded
+        written: Dict[int, int] = {}
+        T = self.layout.page_tokens
+        for i in list(live):
+            req = self.active[i]
+            if req is None:
+                continue  # evicted by an earlier row's shortage handling
+            pos = int(self.positions[i])
+            need = _pool_write_need(self.store, self.layout, req.rid, pos)
+            if need and self.store.n_free < need:
+                ok = bool(self.on_page_shortage) and self.on_page_shortage(
+                    req.rid, need
+                )
+                if self.active[i] is None:
+                    continue  # the shortage handler preempted this row
+                if not ok:
+                    continue  # stall: retry once freed pages land
+            before = self.store.tables[req.rid][pos // T]
+            dst = self.store.prepare_write(req.rid, pos)
+            if before == UNMATERIALIZED or dst != before:
+                self._stale.add(dst)  # materialised or COW-split in mem
+            written[i] = dst
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        if not live:
+            return 0
+        P = self.store.state.n_pages
+        tables = np.full((self.B, self.layout.n_pages), P, np.int32)
+        for i in live:
+            tables[i] = self.store.device_table(self.active[i].rid, absent=P)
+            if i not in written:
+                # stalled: scatter into scratch, never a shared page
+                tables[i, int(self.positions[i]) // T] = P
+        self._refresh_views()
+        logits, self._views = self._decode_paged(
+            self.params,
+            self._tensor(self.last_token),
+            self._tensor(self.positions),
+            self._views,
+            self._tensor(tables),
+        )
+        self.paged_decode_steps += 1
+        self._dirty.update(written.values())
+        advanced = [i for i in live if i in written]
+        self._advance(advanced, _to_host(logits))
+        return len(advanced)
+
+
 CARD_BYTES = 80e9  # device memory of the one H100 the port serves on
 
 
@@ -720,11 +887,30 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--arch", default="qwen3-4b",
                     help="qwen3-4b, falcon-mamba-7b, recurrentgemma-9b, "
                          "kimi-k2-1t-a32b or arctic-480b")
-    ap.add_argument("--role", choices=("decode",), default="decode",
-                    help="decode = colocated continuous batching (the only "
-                         "role ported so far)")
+    ap.add_argument("--role", choices=("prefill", "decode", "memory", "both"),
+                    default="decode",
+                    help="both = disaggregated cluster (prefill pool + "
+                         "decode pool + optional memory ranks over the GAS "
+                         "layer, all ranks on one device); decode = "
+                         "colocated continuous batching; prefill = the "
+                         "prefill pool alone; memory = a memory-only GAS "
+                         "rank (segment capacity, no model compute: "
+                         "reports its tier geometry)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--n-prefill", type=int, default=1)
+    ap.add_argument("--n-decode", type=int, default=1)
+    ap.add_argument("--n-memory", type=int, default=0,
+                    help="memory-only ranks joining the paged cluster: their "
+                         "segments hold the swap tier (serving.tier)")
+    ap.add_argument("--prefill-backend", default="xla",
+                    help="engine of the prefill pool (xla|gascore)")
+    ap.add_argument("--decode-backend", default="xla",
+                    help="engine of the decode pool (xla|gascore)")
+    ap.add_argument("--memory-backend", default="xla",
+                    help="engine of the memory ranks (xla|gascore)")
+    ap.add_argument("--mem-slots", type=int, default=None,
+                    help="tier page slots per memory rank")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -758,6 +944,23 @@ def main(argv: Optional[List[str]] = None) -> None:
     device = resolve_device(args.device)
     model = build_model(cfg)
     ctx = RunCtx()
+    if args.role == "memory":
+        # a memory-only GAS rank exports segment capacity and runs no
+        # model compute: report the tier geometry it would contribute
+        from repro_torch.serving.pool import PagedLayout
+        from repro_torch.serving.tier import MemoryTier
+
+        layout = PagedLayout.from_struct(
+            model.kv_block_struct(ctx, prompt_len=4, cache_len=args.cache_len),
+            cache_len=args.cache_len, page_tokens=args.page_tokens,
+        )
+        slots = args.mem_slots or 2 * args.batch * layout.n_pages
+        stats = dict(MemoryTier(1, slots, layout.page_elems).stats())
+        stats.update({"role": "memory", "page_bytes": layout.page_bytes,
+                      "segment_bytes": slots * layout.page_bytes})
+        for k, v in stats.items():
+            print(f"{k}: {v}")
+        return
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(ctx, gen, device=device)
 
@@ -770,15 +973,46 @@ def main(argv: Optional[List[str]] = None) -> None:
         )
         for rid in range(args.requests)
     ]
-    if args.paged:
-        server = PagedServer(model, ctx, params, args.batch, args.cache_len,
-                             device=device, page_tokens=args.page_tokens)
+    if args.role == "decode":
+        if args.paged:
+            server = PagedServer(model, ctx, params, args.batch,
+                                 args.cache_len, device=device,
+                                 page_tokens=args.page_tokens)
+        else:
+            server = Server(model, ctx, params, args.batch, args.cache_len,
+                            device=device)
+        for req in reqs:
+            server.submit(req)
+        stats = server.run_until_drained()
+    elif args.role == "prefill":
+        t0 = time.monotonic()
+        for req in reqs:
+            toks = torch.tensor([req.prompt], dtype=torch.int32, device=device)
+            logits, _ = model.prefill(params, ctx, {"inputs": toks},
+                                      cache_len=args.cache_len)
+            logits.sum().item()  # wait for the device
+        dt = time.monotonic() - t0
+        stats = {"requests": len(reqs), "wall_s": dt,
+                 "kv_blocks_per_s": len(reqs) / dt if dt else 0.0}
     else:
-        server = Server(model, ctx, params, args.batch, args.cache_len,
-                        device=device)
-    for req in reqs:
-        server.submit(req)
-    stats = server.run_until_drained()
+        from repro_torch.serving.disagg import DisaggCluster
+
+        cluster = DisaggCluster(
+            model, ctx, params,
+            n_prefill=args.n_prefill, n_decode=args.n_decode,
+            n_memory=args.n_memory,
+            decode_batch=args.batch, cache_len=args.cache_len,
+            prefill_backend=args.prefill_backend,
+            decode_backend=args.decode_backend,
+            memory_backend=args.memory_backend,
+            paged=args.paged or args.n_memory > 0,
+            page_tokens=args.page_tokens,
+            mem_slots_per_rank=args.mem_slots,
+            device=device,
+        )
+        for req in reqs:
+            cluster.submit(req)
+        stats = cluster.run_until_drained()
     for k, v in stats.items():
         print(f"{k}: {v}")
 

@@ -25,12 +25,21 @@ plain counter — deterministic across replays of the same schedule.
 Events live in a bounded ring (``collections.deque``), which is what
 makes the flight recorder free: the last-N-ticks dump on rank death is
 just a filter over the ring.
+
+With ``Tracer(annotate=cats)`` every scoped span of the categories
+``cats`` is also a ``torch.profiler.record_function`` range named
+``"<cat>::<name>"``, so a ``torch.profiler`` session attributes the
+device's kernels to the spans that issued them (a range appears on the
+device's timeline spanning its kernels).  Pick categories whose spans do
+not nest: the profiler gives a kernel to its innermost range only.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Collection, Dict, Iterator, List, Optional
+
+import torch
 
 from repro_torch.obs.metrics import Registry
 
@@ -53,6 +62,7 @@ class Span:
     __slots__ = (
         "sid", "name", "cat", "kind", "rank",
         "tick0", "seq0", "tick1", "seq1", "t0_us", "t1_us", "args",
+        "annotation",
     )
 
     def __init__(self, sid, name, cat, kind, rank,
@@ -69,6 +79,7 @@ class Span:
         self.t0_us = t0_us
         self.t1_us = t0_us
         self.args = args
+        self.annotation = None  # open profiler range (annotating tracer)
 
     @property
     def dur_us(self) -> float:
@@ -155,8 +166,10 @@ class Tracer:
     enabled = True
 
     def __init__(self, capacity: int = 65536,
-                 registry: Optional[Registry] = None):
+                 registry: Optional[Registry] = None,
+                 annotate: Collection[str] = ()):
         self.capacity = capacity
+        self.annotate = frozenset(annotate)
         self.registry = registry if registry is not None else Registry()
         self.events: deque = deque(maxlen=capacity)
         self.tick = 0
@@ -202,13 +215,20 @@ class Tracer:
               rank: Optional[int] = None, **args) -> Span:
         """Open a scoped span (must ``end`` before its parent ends —
         use :meth:`span` for the with-statement form)."""
-        return self._open(name, cat, "span", rank, args)
+        span = self._open(name, cat, "span", rank, args)
+        if cat in self.annotate:
+            span.annotation = torch.profiler.record_function(f"{cat}::{name}")
+            span.annotation.__enter__()
+        return span
 
     def end(self, span: Span, **args) -> None:
         if args:
             span.args.update(args)
         span.tick1, span.seq1, span.t1_us = self._stamp()
         self.events.append(span)
+        if span.annotation is not None:
+            span.annotation.__exit__(None, None, None)
+            span.annotation = None
 
     def begin_async(self, name: str, cat: str = "span",
                     rank: Optional[int] = None, **args) -> Span:

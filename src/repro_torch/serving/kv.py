@@ -1,22 +1,44 @@
-"""KV-cache carrier format of the port: bit-transparent float32 blocks.
+"""KV-cache blocks over the GAS layer: the disaggregated-serving data plane.
 
-Counterpart of ``repro.serving.kv`` (the data-plane half that needs no
-GAS layer): :class:`KVLayout` maps a cache tree to one flat float32
-*carrier* vector and back, bit-exactly.  Int leaves are bitcast with
-``Tensor.view`` (never converted), half-precision floats widen exactly.
-``push_block`` waits for the port's GAS layer.
+Counterpart of ``repro.serving.kv``.  A prefill rank finishes a request
+holding a KV cache; a decode rank needs it installed in one of its
+staging slots.  The bulk bytes move as one-sided puts (``Node.put_nb``,
+segmented per ``sched.plan_p2p``); the control packet announcing the
+block rides the Active Message plane (``repro_torch.serving.disagg``).
+
+1. :class:`KVLayout` maps a cache tree to one flat float32 *carrier*
+   vector and back, bit-exactly.  Int leaves are bitcast with
+   ``Tensor.view`` (never converted), half-precision floats widen exactly.
+2. :func:`push_block` ships a block as planned segmented split-phase
+   puts, all initiated before any completes; :func:`sync_push` lands them
+   in the program, or ``Node.defer`` hands each landing to the caller
+   (``extended.land``, in place: the cluster's segments are too large to
+   copy per put).
+3. :func:`handoff_permutation` completes prefill→decode edges into a
+   bijection (the GAScore transports take bijections only); filler edges
+   carry ``pred=False`` puts the receiver discards.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.compat import tree_leaves, tree_unflatten
+from repro_torch.core import sched
 
-__all__ = ["KVLayout", "LeafSpec", "carrier_cast", "carrier_uncast"]
+__all__ = [
+    "KVLayout",
+    "LeafSpec",
+    "carrier_cast",
+    "carrier_uncast",
+    "segment_bounds",
+    "push_block",
+    "sync_push",
+    "handoff_permutation",
+]
 
 _SMALL_INTS = (torch.int8, torch.int16, torch.uint8)
 
@@ -111,3 +133,94 @@ class KVLayout:
             for leaf in self.leaves
         ]
         return tree_unflatten(self.treedef, vals)
+
+
+def segment_bounds(total: int, n_segments: int) -> List[Tuple[int, int]]:
+    """Static ``(offset, size)`` list cutting ``total`` elements into at
+    most ``n_segments`` contiguous near-equal segments (never empty)."""
+    g = max(1, min(int(n_segments), int(total)))
+    base, rem = divmod(int(total), g)
+    bounds: List[Tuple[int, int]] = []
+    offset = 0
+    for i in range(g):
+        size = base + (1 if i < rem else 0)
+        bounds.append((offset, size))
+        offset += size
+    return bounds
+
+
+def push_block(
+    node: Any,
+    seg: torch.Tensor,
+    flat: torch.Tensor,
+    *,
+    to: Any,
+    base_index: Any = 0,
+    pred: Any = None,
+    plan: Optional[sched.CollectivePlan] = None,
+    n_segments: Optional[int] = None,
+    costs: Optional[Dict[str, sched.EngineCost]] = None,
+) -> Tuple[List[Any], sched.CollectivePlan]:
+    """Initiate one KV-block transfer as planned segmented non-blocking puts.
+
+    The segment count comes from ``sched.plan_p2p`` unless pinned via
+    ``n_segments``.  Every segment's ``put_nb`` is initiated here — all in
+    flight at once — and the caller drains them with :func:`sync_push` (or
+    ``Node.defer``) after issuing any compute it wants overlapped.
+
+    Returns ``(handles, plan)``.
+    """
+    flat = flat.reshape(-1)
+    if plan is None:
+        nbytes = int(flat.numel()) * flat.element_size()
+        plan = sched.plan_p2p(nbytes=nbytes, engine=node.engine, costs=costs)
+    g = int(plan.n_segments if n_segments is None else n_segments)
+    handles = []
+    for offset, size in segment_bounds(int(flat.numel()), g):
+        handles.append(
+            node.put_nb(
+                seg,
+                flat[offset : offset + size],
+                to=to,
+                index=base_index + offset,
+                pred=pred,
+            )
+        )
+    return handles, plan
+
+
+def sync_push(node: Any, seg: torch.Tensor, handles: Sequence[Any]) -> torch.Tensor:
+    """Drain one block's put handles in issue order; returns the updated
+    segment (outstanding puts on the same segment compose, see
+    ``Node.sync``)."""
+    for h in handles:
+        seg = node.sync(h)
+    return seg
+
+
+def handoff_permutation(n_nodes: int, edges: Dict[int, int]) -> Tuple[int, ...]:
+    """Complete prefill→decode ``edges`` (src rank -> dst rank) into a full
+    bijection over ``n_nodes`` ranks.
+
+    Hardware (GAScore) transports are bijection-only — every receive
+    semaphore fires exactly once — so ranks without a real edge get filler
+    destinations in stable order; their puts ship ``pred=False`` and the
+    receivers keep their memory untouched.
+    """
+    dst: List[Optional[int]] = [None] * n_nodes
+    used = set()
+    for s, d in edges.items():
+        if not (0 <= s < n_nodes and 0 <= d < n_nodes):
+            raise ValueError(f"edge {s}->{d} outside {n_nodes} ranks")
+        if dst[s] is not None:
+            raise ValueError(f"duplicate source rank {s}")
+        if d in used:
+            raise ValueError(f"duplicate destination rank {d}")
+        dst[s] = d
+        used.add(d)
+    remaining = [r for r in range(n_nodes) if r not in used]
+    for s in range(n_nodes):
+        if dst[s] is None:
+            dst[s] = remaining.pop(0)
+    assert not remaining
+    return tuple(dst)  # type: ignore[arg-type]

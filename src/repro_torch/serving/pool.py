@@ -17,8 +17,15 @@ Counterpart of ``repro.serving.pool``:
    float32 mirror), the allocator state, per-request page tables and the
    prompt-prefix index.
 
+4. :class:`PoolMap` and :func:`fetch_pages` — global page addressing
+   over the ranks' pool segments and the split-phase vectored page fetch
+   (``Node.get_nbv``): the swap-in and prefix-migration plane of the
+   disaggregated cluster.
+
 Sections 2 and 3 are host bookkeeping identical to the reference's, op
-for op.  ``PoolMap`` and ``fetch_pages`` wait for the port's GAS layer.
+for op.  ``mem`` is a host array for the colocated server and a view of
+the rank's device segment in the disaggregated cluster; the store's own
+page writes (lazy materialisation, copy-on-write) work on either.
 """
 
 from __future__ import annotations
@@ -29,7 +36,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.compat import tree_flatten_with_path, tree_leaves, tree_unflatten
+from repro_torch.compat import (
+    TensorSpec,
+    tree_flatten_with_path,
+    tree_leaves,
+    tree_unflatten,
+)
+from repro_torch.core import sched
+from repro_torch.core.indexing import as_i32
 from repro_torch.serving import kv as kv_lib
 
 __all__ = [
@@ -51,6 +65,9 @@ __all__ = [
     "PREFIX_CACHE_RID",
     "PIN_RID",
     "PagedKVStore",
+    "PoolMap",
+    "fetch_pages",
+    "sync_fetch",
 ]
 
 #: Page-table sentinel for a slot whose physical page does not exist yet
@@ -249,6 +266,69 @@ class PagedLayout:
             x = x[:, :, :, None].movedim(0, 2)  # (P, T, L, 1, *tail)
             cols.append(x.reshape(x.shape[0], leaf.size))
         return torch.cat(cols, dim=1)
+
+    def shard_heads(
+        self, tp: int, n_kv_heads: int
+    ) -> Tuple["PagedLayout", np.ndarray]:
+        """Head-shard axis for tensor-parallel decode groups.
+
+        Returns ``(shard_layout, cols)``: the :class:`PagedLayout` of ONE
+        rank's pool shard (``k``/``v`` leaves keep only ``KH/tp`` heads;
+        ``pos`` and other head-free leaves replicated) plus an
+        ``(tp, shard_page_elems)`` int array of full-page carrier columns
+        such that shard ``s`` of a page row is ``row[cols[s]]`` — and the
+        full row is rebuilt by scattering every shard back through its
+        columns (``k``/``v`` columns partition; replicated columns agree
+        bit-for-bit on every shard, so reassembly order is immaterial).
+
+        Page ids, page tables, the allocator and the prefix index are all
+        shard-invariant: every rank of a group holds the same table and
+        the same page count, just ``1/tp``-th of each page's bytes.
+        """
+        if tp <= 1:
+            return self, np.arange(self.page_elems)[None]
+        if n_kv_heads % tp:
+            raise ValueError(
+                f"tp={tp} must divide n_kv_heads={n_kv_heads}"
+            )
+        kh_l = n_kv_heads // tp
+        cols: List[List[np.ndarray]] = [[] for _ in range(tp)]
+        shard_vals = []
+        for (path, _), leaf in zip(tree_flatten_with_path(self.treedef),
+                                   self.leaves):
+            name = path[-1] if path else None
+            inner = (
+                (self.page_tokens,)
+                + leaf.shape[: leaf.axis]
+                + leaf.shape[leaf.axis + 1 :]
+            )
+            idx = np.arange(leaf.size).reshape(inner) + leaf.offset
+            if name in ("k", "v"):
+                if (
+                    len(leaf.shape) < 4
+                    or leaf.axis != 2
+                    or leaf.shape[3] != n_kv_heads
+                ):
+                    raise ValueError(
+                        f"cannot head-shard {name!r} leaf {leaf.shape}: "
+                        f"expected (L, 1, cache_len, {n_kv_heads}, ...)"
+                    )
+                # inner layout is (T, L, 1, KH, *rest): head axis 3
+                for s in range(tp):
+                    sel = idx[:, :, :, s * kh_l : (s + 1) * kh_l]
+                    cols[s].append(sel.reshape(-1))
+                shape = leaf.shape[:3] + (kh_l,) + leaf.shape[4:]
+            else:
+                for s in range(tp):
+                    cols[s].append(idx.reshape(-1))
+                shape = leaf.shape
+            shard_vals.append(TensorSpec(shape, leaf.dtype))
+        shard_struct = tree_unflatten(self.treedef, shard_vals)
+        shard_layout = PagedLayout.from_struct(
+            shard_struct, cache_len=self.cache_len,
+            page_tokens=self.page_tokens,
+        )
+        return shard_layout, np.stack([np.concatenate(c) for c in cols])
 
     def unflatten(self, pages: Any) -> Any:
         """(n_pages, page_elems) carrier pages -> cache tree."""
@@ -481,10 +561,12 @@ class PagedKVStore:
     prompt length is not page-aligned.
     """
 
-    def __init__(self, layout: PagedLayout, n_pages: int):
+    def __init__(self, layout: PagedLayout, n_pages: int, mem: Any = None):
         self.layout = layout
         self.state = make_pool(n_pages)
-        self.mem = np.zeros((n_pages, layout.page_elems), np.float32)
+        self.mem = (np.zeros((n_pages, layout.page_elems), np.float32)
+                    if mem is None else mem)
+        self._empty_dev: Optional[torch.Tensor] = None
         self.tables: Dict[int, Tuple[int, ...]] = {}
         # full-page token chain -> resident physical page
         self._prefix: Dict[Tuple[int, ...], int] = {}
@@ -496,6 +578,16 @@ class PagedKVStore:
         # requests still have replicated tier copies
         self.swap_out_replica_pages = 0
         self.swapped_replicated: Dict[int, int] = {}
+
+    def _empty_row(self) -> Any:
+        """The absent page's carrier row in ``mem``'s own kind: a host
+        array, or a tensor on ``mem``'s device (built once)."""
+        row = self.layout.empty_page_row()
+        if not isinstance(self.mem, torch.Tensor):
+            return row
+        if self._empty_dev is None or self._empty_dev.device != self.mem.device:
+            self._empty_dev = torch.from_numpy(row).to(self.mem.device)
+        return self._empty_dev
 
     # ------------------------------------------------------------------ #
     def plan_admit(self, prompt: Sequence[int], lazy: bool = False) -> AdmitPlan:
@@ -628,7 +720,7 @@ class PagedKVStore:
             self.tables[rid] = tuple(table)
             # a materialising page starts absent: synthesise its init row
             # so the bytes of whoever held it before never resurface
-            self.mem[dst] = self.layout.empty_page_row()
+            self.mem[dst] = self._empty_row()
         else:
             self.state, dst, copied = writable(self.state, page_id)
             if copied:
@@ -816,3 +908,86 @@ class PagedKVStore:
             "swap_out_replica_pages": self.swap_out_replica_pages,
             "prefix_cache_pages": len(self.tables.get(PREFIX_CACHE_RID, ())),
         }
+
+
+# --------------------------------------------------------------------------- #
+# 4. The global address space + split-phase vectored page fetch
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class PoolMap:
+    """Global page addressing over the sharded pool segment: decode rank
+    ``r`` owns local pages ``[0, pages_per_rank)``; global page ``g``
+    lives at flat carrier offset ``local(g) * page_elems`` of rank
+    ``owner(g)``'s partition — a (node, index) global address exactly as
+    in ``core.addrspace``."""
+
+    n_ranks: int
+    pages_per_rank: int
+    page_elems: int
+
+    @property
+    def n_pages(self) -> int:
+        return self.n_ranks * self.pages_per_rank
+
+    def owner(self, g: int) -> int:
+        return int(g) // self.pages_per_rank
+
+    def local(self, g: int) -> int:
+        return int(g) % self.pages_per_rank
+
+    def global_id(self, rank: int, local: int) -> int:
+        return int(rank) * self.pages_per_rank + int(local)
+
+    def offset(self, g: Any, device: Any = None) -> torch.Tensor:
+        """Flat carrier offset of a (possibly batched) global page id in
+        its owner's partition."""
+        return (as_i32(g, device) % self.pages_per_rank) * self.page_elems
+
+
+def fetch_pages(
+    node: Any,
+    seg: torch.Tensor,
+    page_offsets: Any,
+    *,
+    frm: Any,
+    page_elems: int,
+    plan: Optional[sched.CollectivePlan] = None,
+    n_batches: Optional[int] = None,
+    costs: Optional[Dict[str, sched.EngineCost]] = None,
+    pred: Any = None,
+) -> Tuple[List[Any], sched.CollectivePlan]:
+    """Initiate the split-phase prefetch of remote KV pages.
+
+    ``page_offsets`` are flat carrier offsets in the source partition
+    (``PoolMap.offset`` of each global page id).  The fetch is issued as
+    vectored gets (``node.get_nbv`` — m offsets per request/reply pair);
+    ``sched.plan_p2p`` on the total byte count picks how many batches to
+    keep in flight.
+
+    Returns ``(handles, plan)``.
+    """
+    offs = as_i32(page_offsets, node.my_id.device).reshape(-1)
+    m = int(offs.shape[0])
+    if plan is None:
+        plan = sched.plan_p2p(
+            nbytes=m * page_elems * 4, engine=node.engine, costs=costs
+        )
+    g = int(plan.n_segments if n_batches is None else n_batches)
+    handles = []
+    for start, count in kv_lib.segment_bounds(m, g):
+        handles.append(
+            node.get_nbv(
+                seg,
+                frm=frm,
+                indices=offs[start : start + count],
+                size=page_elems,
+                pred=pred,
+            )
+        )
+    return handles, plan
+
+
+def sync_fetch(node: Any, handles: Sequence[Any]) -> torch.Tensor:
+    """Drain one prefetch's handles in issue order; returns the
+    ``(n_pages, page_elems)`` carrier stack."""
+    return torch.cat([node.sync(h) for h in handles], dim=0)

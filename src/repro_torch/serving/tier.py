@@ -13,8 +13,11 @@ the slot arrays are host memory and swap bytes move without a wire.
 request is resident in exactly one tier, tier slots are never leaked or
 double-freed on any LIVE rank, and a drained tier holds nothing.
 
-The device plane (``swap_out_pages`` / ``install_pages`` over remote
-memory access) waits for the port's GAS layer.
+In the disaggregated cluster the slots are the memory ranks' GASNet
+segments and the bytes move only over the wire: :func:`swap_out_pages`
+is one vectored put of m victim pages plus their tier-slot offsets in
+one command block (``Node.put_nbv``), and a swap-in is one vectored get
+(``pool.fetch_pages``) landed by :func:`install_pages`.
 """
 
 from __future__ import annotations
@@ -23,9 +26,13 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core import sched
+from repro_torch.core.indexing import as_i32, dynamic_slice, dynamic_update_slice
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import Registry, counter_property
+from repro_torch.serving.kv import segment_bounds
 
 __all__ = [
     "TierError",
@@ -34,6 +41,8 @@ __all__ = [
     "Holding",
     "MemoryTier",
     "check_tier",
+    "swap_out_pages",
+    "install_pages",
 ]
 
 
@@ -394,3 +403,91 @@ def check_tier(tier: MemoryTier, resident_rids: Sequence[int] = ()) -> None:
         raise AssertionError(
             f"request(s) {sorted(both)} resident in pool AND tier"
         )
+
+
+# --------------------------------------------------------------------------- #
+# device plane: swap bytes over the GAS layer
+# --------------------------------------------------------------------------- #
+def _flags(flags: Any, m: int, device) -> torch.Tensor:
+    if flags is None:
+        return torch.ones((m,), dtype=torch.int32, device=device)
+    return torch.as_tensor(flags, device=device).to(torch.int32).reshape(-1)
+
+
+def swap_out_pages(
+    node: Any,
+    seg: torch.Tensor,
+    src_offsets: Any,
+    dst_offsets: Any,
+    *,
+    to: Any,
+    page_elems: int,
+    flags: Any = None,
+    plan: Optional[sched.CollectivePlan] = None,
+    n_batches: Optional[int] = None,
+    costs: Optional[Dict[str, sched.EngineCost]] = None,
+) -> Tuple[List[Any], sched.CollectivePlan]:
+    """Initiate the split-phase swap-out of m pool pages to a memory rank.
+
+    Reads each page at flat offset ``src_offsets[j]`` of the local pool
+    shard and lands it at ``dst_offsets[j]`` of node ``pattern(me)``'s
+    partition via the vectored put (``node.put_nbv`` — payloads + command
+    block per batch, batch count from ``sched.plan_p2p`` on the total
+    byte count).  ``flags`` gates per page (a rank swapping fewer than m
+    pages this tick clears the tail).  Replication is the caller fanning
+    this call once per placement leg — same sources, each leg's offsets
+    and permutation.  Returns ``(handles, plan)``; drain with
+    ``node.sync`` (or ``node.defer``) per handle.
+    """
+    dev = node.my_id.device
+    src = as_i32(src_offsets, dev).reshape(-1)
+    dst = as_i32(dst_offsets, dev).reshape(-1)
+    m = int(src.shape[0])
+    if int(dst.shape[0]) != m:
+        raise ValueError(f"swap_out_pages: {m} sources vs {dst.shape[0]} dests")
+    flags = _flags(flags, m, dev)
+    local = node.local(seg).reshape(-1)
+    pages = [dynamic_slice(local, src[j], page_elems) for j in range(m)]
+    if plan is None:
+        plan = sched.plan_p2p(
+            nbytes=m * page_elems * 4, engine=node.engine, costs=costs
+        )
+    g = int(plan.n_segments if n_batches is None else n_batches)
+    handles = []
+    for start, count in segment_bounds(m, g):
+        handles.append(
+            node.put_nbv(
+                seg,
+                pages[start : start + count],
+                to=to,
+                indices=dst[start : start + count],
+                pred=flags[start : start + count],
+            )
+        )
+    return handles, plan
+
+
+def install_pages(
+    node: Any,
+    seg: torch.Tensor,
+    fetched: torch.Tensor,
+    dst_offsets: Any,
+    flags: Any = None,
+) -> torch.Tensor:
+    """Land swap-in pages (the ``(m, page_elems)`` stack a vectored get of
+    tier slots returned) at ``dst_offsets`` of the local pool shard,
+    per-page gated — the receive epilogue of a resume.  Returns the
+    updated segment."""
+    m, page_elems = int(fetched.shape[0]), int(fetched.shape[1])
+    dev = fetched.device
+    dst = as_i32(dst_offsets, dev).reshape(-1)
+    flags = _flags(flags, m, dev)
+    local = node.local(seg)
+    flat = local.reshape(-1)
+    for j in range(m):
+        cur = dynamic_slice(flat, dst[j], page_elems)
+        flat = dynamic_update_slice(
+            flat, torch.where(flags[j] > 0, fetched[j].to(flat.dtype), cur),
+            dst[j],
+        )
+    return node._restore(seg, flat.reshape(local.shape))

@@ -234,13 +234,48 @@ def test_cuda_offset_put_in_place_and_range_checked(cuda, dtype):
     out = gc.offset_put(keep, data, offs[:1], 3)
     assert out.data_ptr() == keep.data_ptr()  # written in place
     assert torch.equal(_bits(out), _bits(ref.offset_put(seg, data, offs[:1], 3)))
-    with pytest.raises(ValueError, match="outside"):
-        gc.offset_put(seg.clone(), data, offs + 1, 1)  # 32 > S - L
+    # out of range (32 > S - L, and below 0): clamped as ref.offset_put
+    # clamps, on device and host offsets alike
+    for bad in (offs + 1, offs - 8):
+        want = ref.offset_put(seg, data, bad, 1)
+        for o in (bad, bad.cpu()):
+            got = gc.offset_put(seg.clone(), data, o, 1)
+            assert torch.equal(_bits(got), _bits(want))
     flat = torch.zeros(n, device=cuda, dtype=dtype)
     with pytest.raises(ValueError, match="rows"):
         gc.offset_put(flat, flat.clone(), offs[:1], 1)
     torch.cuda.synchronize()
-    assert gc.offset_put.launches == before + 2
+    assert gc.offset_put.launches == before + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_cuda_offset_put_device_offsets_make_no_host_sync(cuda, dtype):
+    """A device offset stays on the card: the launch enqueues without the
+    host reading it (sync debug mode "error" raises on any sync), and the
+    bytes in range are exact, per-rank and broadcast offsets, every k."""
+    from repro_torch.kernels import gascore as gc
+
+    n, S, L, W = 8, 96, 17, 5
+    seg = _payload(cuda, n, (S, W), dtype, 6)
+    data = _payload(cuda, n, (L, W), dtype, 7)
+    offs = torch.tensor([0, 79, 3, 40, -5, 200, 61, 12], dtype=torch.int32,
+                        device=cuda)
+    cases = [(offs, k) for k in (0, 1, n - 1, 2 * n + 3)] + [(offs[5:6], 2)]
+    wants = [ref.offset_put(seg, data, o, k) for o, k in cases]
+    segs = [seg.clone() for _ in cases]
+    torch.cuda.synchronize()
+    before = gc.offset_put.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gots = [gc.offset_put(s, data, o, k) for s, (o, k) in zip(segs, cases)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert gc.offset_put.launches == before + len(cases)
+    for got, s, want in zip(gots, segs, wants):
+        assert got.data_ptr() == s.data_ptr()
+        assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.cuda
@@ -842,3 +877,88 @@ def test_cuda_moe_prefill_and_decode_match_cpu(cuda, arch):
                          runs["cpu"][1] + runs["cpu"][2]):
         torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
                                    rtol=1e-4)
+
+
+def _smoke_cluster(cuda, **kw):
+    """qwen3-4b SMOKE in f32 on the card, and a disaggregated cluster over
+    it with its decode (and memory) ranks on "gascore"."""
+    from repro_torch.configs.registry import SMOKE
+    from repro_torch.models.build import build_model
+    from repro_torch.parallel.ctx import RunCtx
+    from repro_torch.serving.disagg import DisaggCluster
+
+    cfg = SMOKE["qwen3-4b"]
+    model, ctx = build_model(cfg), RunCtx()
+    params = model.init(ctx, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    cluster = DisaggCluster(model, ctx, params, n_prefill=1, n_decode=1,
+                            decode_batch=2, cache_len=48, paged=True,
+                            page_tokens=8, decode_backend="gascore",
+                            memory_backend="gascore", device=cuda, **kw)
+    return cluster
+
+
+def _colocated_tokens(cluster, reqs):
+    from repro_torch.launch.serve import PagedServer
+
+    server = PagedServer(cluster.model, cluster.ctx, cluster.params, 2, 48,
+                         device=cluster.device, page_tokens=8)
+    for r in reqs:
+        server.submit(r)
+    server.run_until_drained()
+    return {r.rid: r.out for r in server.finished}
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_decode_write_and_page_put_in_one_tick(cuda):
+    """On the card: a tick whose transfer lands a request's pages while
+    the rank's decode writes a page of another; both land, the pages the
+    prefill's bit for bit, and the tokens the colocated server's."""
+    from repro_torch.launch.serve import Request
+    from repro_torch.testing import disagg_suite
+
+    cluster = _smoke_cluster(cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 512, size=n).tolist() for n in (11, 13)]
+    mk = lambda: [Request(rid=i, prompt=p, max_new=9)  # noqa: E731
+                  for i, p in enumerate(prompts)]
+    ptr = cluster.kvseg.data_ptr()
+    got = disagg_suite.put_and_decode_in_one_tick(cluster, *mk())
+    assert cluster.kvseg.data_ptr() == ptr
+    assert got == _colocated_tokens(cluster, mk())
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_swaps_out_a_page_written_that_tick(cuda):
+    """On the card: a page the decode wrote in a tick, swapped out by a
+    preemption staged in that tick, reaches the memory rank as written;
+    the resumed request's tokens are the colocated server's."""
+    from repro_torch.launch.serve import Request
+    from repro_torch.testing import disagg_suite
+
+    cluster = _smoke_cluster(cuda, n_memory=1)
+    prompt = np.random.default_rng(6).integers(0, 512, size=14).tolist()
+    got = disagg_suite.swap_out_of_a_fresh_write(
+        cluster, Request(rid=0, prompt=prompt, max_new=12))
+    assert cluster.metrics.counter("sched_swaps").value == 1
+    assert got == _colocated_tokens(
+        cluster, [Request(rid=0, prompt=prompt, max_new=12)])
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_plans_with_this_cards_measured_costs(cuda):
+    """On the card a cluster built without ``costs`` (as the entry points
+    build it) plans and prices with ``sched.measure_costs`` of the card:
+    finite constants for both engines, fitted, not the reference's."""
+    from repro_torch.core import sched
+
+    cluster = _smoke_cluster(cuda)
+    costs = cluster.costs
+    assert costs == sched.measure_costs(cuda, {"xla", "gascore"})
+    for name in ("xla", "gascore"):
+        c = costs[name]
+        assert c != sched.DEFAULT_COSTS[name]
+        for v in (c.alpha_us, c.beta_us_per_kib, c.gamma_us_per_kib):
+            assert np.isfinite(v) and v >= 0.0
+        assert c.alpha_us > 0.0 and c.beta_us_per_kib + c.gamma_us_per_kib > 0.0
+    assert cluster.scheduler.cost == costs["xla"]
