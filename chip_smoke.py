@@ -28,6 +28,17 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              act 3's offset put of one qwen3-4b layer's KV for a
              2,048-token prompt); launches per kernel checked against each
              program's static schedule.
+4a. overlap — split phase on the side stream against blocking transfers,
+             by ``device_ms``: (a) the reference's blocking and split-phase
+             rings (8 ranks, 4 MiB a hop, transform tanh(c @ w)) on "xla"
+             and "gascore"; (b) 8 vectored gets of 4 qwen3-4b pages (4.72
+             MB each, 2 ranks of 64) beside paged attention at the serve
+             step's shape, against the gets completed one by one first;
+             (c) the segmented against the monolithic ring all-reduce on
+             "gascore" at 8 x 16 MiB.  T, C, the bound (T+C)/max(T,C) and
+             the measured gap printed; outputs byte-equal, no host sync
+             after warm-up, and (a)'s transfer kernels on a stream of
+             their own overlapping a compute kernel (``torch.profiler``).
 5. serve   — qwen3-4b at full width and depth (36 layers, bf16, random
              weights from a seeded generator) through ``PagedServer``:
              16 requests of 128 prompt tokens, 64 new tokens each, four
@@ -51,6 +62,14 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              constants measured in phase 3. AM books, drained pool and
              tier, launches per kernel equal to the transfers' schedule;
              a push tick of acts 1 and 2 under ``torch.profiler``.
+6b. serve_tp — tensor-parallel decode groups of 2 ranks on qwen3-4b at
+             full width and depth: ``TPPagedServer`` on "gascore" and
+             "xla,gascore", f32 tokens identical to phase 5's f32
+             ``PagedServer`` but at near ties (F3's rule, counted); a
+             cluster of 1 prefill rank and a tp=2 decode group held the
+             same way to a tp=1 cluster (f32); bf16 tok/s beside
+             ``PagedServer``'s; one paged-attention launch a layer a step
+             (the vmap rule folds the ranks into the kernel's batch).
 7. flash   — the flash-attention forward, dK/dV and dQ kernels against
              their plain versions at qwen3-4b's training shape (batch 2 x
              seq 2048, 32 q / 8 KV heads of dim 128, causal) in bf16 and
@@ -159,8 +178,10 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import rglru  # noqa: E402
 from repro_torch.kernels import ssm_scan  # noqa: E402
-from repro_torch.launch.serve import PagedServer, Request, Server  # noqa: E402
+from repro_torch.launch.serve import (  # noqa: E402
+    PagedServer, Request, Server, TPPagedServer)
 from repro_torch.obs import trace as obs_trace  # noqa: E402
+from repro_torch.serving import pool as pool_lib  # noqa: E402
 from repro_torch.serving.disagg import DisaggCluster  # noqa: E402
 from repro_torch.models import layers as moe_layers  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
@@ -948,27 +969,11 @@ def serve_phase():
         "peak_device_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     profile_phase(model, ctx, params)
-    record["f32"] = f32_pass(cfg)
+    record["f32"], f32 = f32_pass(cfg)
     emit(record)
     return {"launches": launches, "model": model, "ctx": ctx,
             "params": params, "dense": dense_out, "paged": paged_out,
-            "record": record}
-
-
-def recording(cls):
-    """``cls`` with every decode step's host logits handed to ``on_step
-    (server, live rows, logits)`` before the tokens advance."""
-
-    class Recording(cls):
-        def __init__(self, *a, on_step, **kw):
-            super().__init__(*a, **kw)
-            self.on_step = on_step
-
-        def _advance(self, live, logits):
-            self.on_step(self, live, logits)
-            super()._advance(live, logits)
-
-    return Recording
+            "record": record, "f32": f32}
 
 
 def top2_margin(row):
@@ -976,79 +981,105 @@ def top2_margin(row):
     return float(b - a)
 
 
-def f32_pass(cfg):
-    """Paged vs dense decode of the serve phase's requests at full width
-    and depth in f32: greedy tokens must be identical, except where they
-    part at a near tie — a step where the dense run's top-2 logit margin
-    is below that step's paged-vs-dense max |logit difference| (over the
-    rows whose inputs still agree).  Each near tie is printed; any other
-    divergence fails the phase.  The f32 weights (~16 GB) are freed
-    before returning."""
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    model, ctx = build_model(cfg32), RunCtx()
-    params = model.init(ctx, torch.Generator(device="cuda").manual_seed(0),
-                        device="cuda")
-    dense_rows = {}
+class TieGate:
+    """F3's rule for two greedy decodes of the same requests: tokens must be
+    identical, except where they part at a near tie — a step where the
+    oracle's top-2 logit margin is below that step's max |logit
+    difference| over the rows whose inputs still agree.  ``keep`` records
+    the oracle's rows by (request, tokens so far), ``compare`` holds the
+    other run's rows to them (each a server's ``on_step`` hook), and
+    ``verdict`` fails at any other divergence and returns the figures.
+    Each near tie is printed."""
 
-    def keep(server, live, logits):
+    def __init__(self, rows=None):
+        self.rows = {} if rows is None else rows
+        self.parted, self.ties, self.clear = set(), [], []
+        self.stats = {"steps": 0, "max_abs_diff": 0.0, "min_margin": math.inf}
+
+    def fork(self):
+        """A gate on the same oracle rows, with no comparisons yet."""
+        return TieGate(self.rows)
+
+    def keep(self, server, live, logits):
         for i in live:
             req = server.active[i]
-            dense_rows[(req.rid, len(req.out))] = logits[i].copy()
+            self.rows[(req.rid, len(req.out))] = logits[i].copy()
 
-    dense = recording(Server)(model, ctx, params, BATCH, CACHE_LEN,
-                              device="cuda", on_step=keep)
-    dense_out = ex.serve(dense, requests())
-    del dense
-    parted, ties, clear = set(), [], []
-    stats = {"steps": 0, "max_abs_diff": 0.0, "min_margin": math.inf}
-
-    def compare(server, live, logits):
+    def compare(self, server, live, logits):
         rows = []
         for i in live:
             req = server.active[i]
-            if req.rid in parted:
+            if req.rid in self.parted:
                 continue
-            want = dense_rows.pop((req.rid, len(req.out)))
+            want = self.rows[(req.rid, len(req.out))]
             rows.append((req.rid, len(req.out), logits[i], want))
         if not rows:
             return
         step_diff = max(float(np.abs(got - want).max()) for *_, got, want in rows)
-        stats["steps"] += 1
-        stats["max_abs_diff"] = max(stats["max_abs_diff"], step_diff)
+        self.stats["steps"] += 1
+        self.stats["max_abs_diff"] = max(self.stats["max_abs_diff"], step_diff)
         for rid, k, got, want in rows:
             margin = top2_margin(want)
-            stats["min_margin"] = min(stats["min_margin"], margin)
+            self.stats["min_margin"] = min(self.stats["min_margin"], margin)
             if int(np.argmax(got)) == int(np.argmax(want)):
                 continue
-            parted.add(rid)
+            self.parted.add(rid)
             case = {"rid": rid, "step": k, "margin": margin,
                     "max_abs_diff": step_diff}
-            (ties if margin < step_diff else clear).append(case)
+            (self.ties if margin < step_diff else self.clear).append(case)
             if margin < step_diff:
-                print(f"f32 near tie: request {rid} step {k} margin {margin} "
+                print(f"near tie: request {rid} step {k} margin {margin} "
                       f"difference {step_diff}", file=sys.stderr, flush=True)
 
-    paged = recording(PagedServer)(model, ctx, params, BATCH, CACHE_LEN,
-                                   device="cuda", page_tokens=PAGE_TOKENS,
-                                   on_step=compare)
+    def verdict(self, name, want, got):
+        if self.clear:
+            raise AssertionError(f"{name}: greedy tokens part at clear "
+                                 f"margins: {self.clear}")
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{name}: finished {sorted(got)} of "
+                                 f"{sorted(want)}")
+        same = [r for r in got if got[r] == want[r]]
+        if len(same) != len(want) - len(self.ties):
+            raise AssertionError(f"{name}: {len(want) - len(same)} requests "
+                                 f"differ, {len(self.ties)} near ties")
+        return {"requests_token_identical": len(same),
+                "near_ties": len(self.ties), "ties": self.ties,
+                "steps_compared": self.stats["steps"],
+                "max_abs_logit_diff": self.stats["max_abs_diff"],
+                "min_top2_margin": self.stats["min_margin"]}
+
+
+def f32_pass(cfg):
+    """Paged vs dense decode of the serve phase's requests at full width
+    and depth in f32: greedy tokens must be identical but at near ties
+    (``TieGate``).  The f32 weights (~16 GB) are freed before returning.
+    Returns the figures, and the paged run's tokens and logit rows (a
+    ``TieGate`` the tensor-parallel servers are held to)."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model, ctx = build_model(cfg32), RunCtx()
+    params = model.init(ctx, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    dense_gate, paged_gate = TieGate(), TieGate()
+    dense = Server(model, ctx, params, BATCH, CACHE_LEN, device="cuda")
+    dense.on_step = dense_gate.keep
+    dense_out = ex.serve(dense, requests())
+    del dense
+
+    def both(server, live, logits):
+        dense_gate.compare(server, live, logits)
+        paged_gate.keep(server, live, logits)
+
+    paged = PagedServer(model, ctx, params, BATCH, CACHE_LEN, device="cuda",
+                        page_tokens=PAGE_TOKENS)
+    paged.on_step = both
     paged_out = ex.serve(paged, requests())
-    del paged, params, model, dense_rows
+    del paged, params, model
     pygc.collect()
     torch.cuda.empty_cache()
-    if clear:
-        raise AssertionError(f"f32 paged and dense decode part at clear "
-                             f"margins: {clear}")
-    if sorted(paged_out) != list(range(N_REQ)):
-        raise AssertionError(f"f32: finished {sorted(paged_out)}")
-    same = [r for r in paged_out if paged_out[r] == dense_out[r]]
-    if len(same) != N_REQ - len(ties):
-        raise AssertionError(f"f32: {N_REQ - len(same)} requests differ, "
-                             f"{len(ties)} near ties")
-    return {"layers": cfg32.n_layers, "dtype": "float32",
-            "requests_token_identical": len(same), "near_ties": len(ties),
-            "ties": ties, "steps_compared": stats["steps"],
-            "max_abs_logit_diff": stats["max_abs_diff"],
-            "min_top2_margin": stats["min_margin"]}
+    figures = {"layers": cfg32.n_layers, "dtype": "float32",
+               **dense_gate.verdict("f32 paged vs dense", dense_out,
+                                    paged_out)}
+    return figures, {"gate": paged_gate, "tokens": paged_out}
 
 
 # --------------------------------------------------------------------------- #
@@ -1120,10 +1151,12 @@ def profile_tick(cluster, reqs, tick):
     phases (which do not nest), so that each kernel is attributed to the
     phase it starts in (a range appears on the device's timeline spanning
     its kernels).  The ticks
-    before run untraced.  Returns the device's busy time (its kernels' and
-    copies' durations: one stream), the split by phase, the kernels by
-    name, the profiled wall, and the progress (pushes, tokens) after the
-    tick, by which the measured run's same tick is found."""
+    before run untraced.  Returns the device's busy time (the union of its
+    kernels' and copies' intervals: the transfers run on the side stream,
+    beside the current stream's work) and their summed durations, the
+    split by phase, the kernels by name, the profiled wall, and the
+    progress (pushes, tokens) after the tick, by which the measured run's
+    same tick is found."""
     for r in reqs:
         cluster.submit(r)
     for _ in range(tick - 1):
@@ -1153,7 +1186,6 @@ def profile_tick(cluster, reqs, tick):
             kernels.append((evt.name, t0, (t1 - t0) / 1e3))
     busy, by_name, split = 0.0, {}, {}
     for name, t0, ms in kernels:
-        busy += ms
         rec = by_name.setdefault(name[:90], [0, 0.0])
         rec[0] += 1
         rec[1] += ms
@@ -1164,9 +1196,15 @@ def profile_tick(cluster, reqs, tick):
         rec[1] += ms
     if not kernels:
         raise AssertionError(f"the profiler saw no device work in tick {tick}")
+    end = -math.inf
+    for _, t0, ms in sorted(kernels, key=lambda k: k[1]):
+        t1 = t0 + 1e3 * ms
+        busy += max(0.0, t1 - max(t0, end)) / 1e3
+        end = max(end, t1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return {"tick": tick, "profiled_wall_ms": wall_ms, "kernels": len(kernels),
             "device_busy_ms": busy,
+            "kernel_ms": sum(ms for *_, ms in kernels),
             **{f"{d}_copies": sum(n for k, (n, _) in by_name.items()
                                   if f"Memcpy {d}" in k)
                for d in ("DtoH", "HtoD")},
@@ -1288,6 +1326,481 @@ def serve_disagg_phase(served):
           "d_model": cfg.d_model, "dtype": "bfloat16", "card": card(),
           "batch": BATCH, "cache_len": CACHE_LEN, "page_tokens": PAGE_TOKENS,
           "costs": costs, "acts": figures, "launches": launches})
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel decode groups (parallel/tp.py, TPPagedServer, TP clusters)
+# --------------------------------------------------------------------------- #
+TP = 2
+TP_BACKENDS = ("gascore", "xla,gascore")
+TP_CLUSTER_REQUESTS = N_REQ  # the serve phase's traffic, not cut
+TP_TRANSFERS = ("ring_shift", "perm_put")  # a group all-reduce's kernels
+
+
+def counted(fn):
+    """``fn()`` and the launches per kernel (``all_counts``) it made."""
+    before = all_counts()
+    out = fn()
+    return out, {k: v - before[k] for k, v in all_counts().items()}
+
+
+def per_step(name, launches, steps, n_layers):
+    """Launches a TP decode step, from the launches of a run of ``steps``
+    paged decode steps that launched nothing else: one paged attention a
+    layer for the whole group (the vmap rule's fold), and each transfer
+    kernel the same number of times every step (the step's planned
+    all-reduces)."""
+    if steps == 0 or launches["paged_attention"] != n_layers * steps:
+        raise AssertionError(f"{name}: paged attention launched "
+                             f"{launches['paged_attention']} times in {steps} "
+                             f"TP steps; want {n_layers} a step")
+    uneven = {k: v for k, v in launches.items() if v % steps}
+    if uneven:
+        raise AssertionError(f"{name}: {uneven} launches in {steps} TP steps")
+    return {k: launches[k] // steps for k in DISAGG_KERNELS}
+
+
+def tp_cluster(model, ctx, params, tp):
+    """Act 2's paged setting with one decode group: 1 prefill rank
+    ("xla") and ``tp`` decode ranks ("gascore") forming one group."""
+    return DisaggCluster(model, ctx, params, n_prefill=1, n_decode=tp, tp=tp,
+                         decode_batch=BATCH, cache_len=CACHE_LEN,
+                         prefill_backend="xla", decode_backend="gascore",
+                         paged=True, page_tokens=PAGE_TOKENS, device="cuda")
+
+
+def run_tp_cluster(make, reqs, on_step, n_layers):
+    """Build a cluster with ``make()`` and serve ``reqs`` through it,
+    ``on_step`` hooked on its decode servers.  Returns the stats, the
+    tokens, the launches per kernel (building included), and the launches
+    of the decode group's all-reduces a step: what is left over the
+    transfer programs' schedule and one paged attention a layer a paged
+    decode step, the same every step."""
+    def run():
+        cluster = make()
+        for srv in cluster.decode_servers:
+            srv.on_step = on_step
+        for r in reqs:
+            cluster.submit(r)
+        stats = cluster.run_until_drained()
+        ex.check_handoff(stats, len(reqs))
+        ex.check_drained(cluster, stats)
+        return stats, {r.rid: r.out for r in cluster.finished}
+
+    (stats, tokens), launches = counted(run)
+    extra = {k: v - stats["transfer_launches"].get(k, 0)
+             for k, v in launches.items()}
+    steps = stats["decode_paged_steps"]
+    extra["paged_attention"] -= n_layers * steps
+    if (steps == 0 or extra["paged_attention"] or min(extra.values()) < 0
+            or any(v % steps for v in extra.values())):
+        raise AssertionError(f"TP cluster launches {launches}, schedule "
+                             f"{stats['transfer_launches']}, {steps} paged "
+                             "decode steps")
+    return stats, tokens, launches, {k: extra[k] // steps
+                                     for k in TP_TRANSFERS}
+
+
+def serve_tp_phase(served):
+    """Tensor-parallel decode groups of 2 ranks on qwen3-4b at full width
+    and depth, every rank on this card.  f32 (a second seeded model, ~16
+    GB, plus its rank-stacked shards): ``TPPagedServer`` on "gascore" and
+    "xla,gascore" on the serve phase's traffic, tokens identical to the
+    serve phase's f32 ``PagedServer`` but at near ties under F3's rule
+    (each printed and counted); then a cluster of 1 prefill rank and a
+    tp=2 decode group, held the same way to a tp=1 cluster (the oracle,
+    run before the counts are set to 0).  bf16 (the serve phase's
+    weights): ``TPPagedServer`` on both backends, tok/s beside
+    ``PagedServer``'s of the same run, agreement, launches a step.  One
+    paged-attention launch a layer a TP step; the group all-reduces
+    planned with this card's measured constants, the cluster group's the
+    same a step as the server's on "gascore".  The phase's launches are
+    the sum of its gated runs'."""
+    cfg = served["model"].cfg
+    f32 = served["f32"]
+    rec = {"phase": "serve_tp", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "tp": TP, "card": card(), "batch": BATCH,
+           "cache_len": CACHE_LEN, "page_tokens": PAGE_TOKENS}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model, ctx = build_model(cfg32), RunCtx()
+    params = model.init(ctx, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    reqs = lambda: requests()[:TP_CLUSTER_REQUESTS]  # noqa: E731
+    oracle = TieGate()
+    base, base_tokens, _, base_group = run_tp_cluster(
+        lambda: tp_cluster(model, ctx, params, 1), reqs(), oracle.keep,
+        cfg.n_layers)
+    if any(base_group.values()):
+        raise AssertionError(f"the tp=1 cluster's decode all-reduced: "
+                             f"{base_group} a step")
+    pygc.collect()
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    pa.paged_attention.launches = 0  # the phase's path starts here
+    runs = []
+
+    def tp_server(backend, model, params, on_step=None):
+        srv, built = counted(lambda: TPPagedServer(
+            model, ctx, params, BATCH, CACHE_LEN, tp=TP, tp_backend=backend,
+            device="cuda", page_tokens=PAGE_TOKENS))
+        srv.on_step = on_step
+        def serve():
+            for r in requests():
+                srv.submit(r)
+            st = srv.run_until_drained()
+            return {r.rid: r.out for r in srv.finished}, st
+
+        t0 = time.perf_counter()
+        (out, st), launches = counted(serve)
+        wall = time.perf_counter() - t0
+        runs.extend([built, launches])
+        fig = {"wall_s": wall, "decode_steps": srv.paged_decode_steps,
+               "launches_per_step": per_step(
+                   backend, launches, srv.paged_decode_steps, cfg.n_layers),
+               "costs": {k: dataclasses.asdict(v)
+                         for k, v in srv.costs.items()}}
+        del srv
+        pygc.collect()
+        torch.cuda.empty_cache()
+        return out, st, fig
+
+    rec["f32"] = {}
+    for backend in TP_BACKENDS:
+        gate = f32["gate"].fork()
+        out, _, fig = tp_server(backend, model, params, gate.compare)
+        rec["f32"][backend] = {
+            **gate.verdict(f"f32 TP {backend}", f32["tokens"], out), **fig}
+
+    # the cluster: a tp=2 decode group against the tp=1 oracle, f32
+    stats, tokens, launches, group = run_tp_cluster(
+        lambda: tp_cluster(model, ctx, params, TP), reqs(), oracle.compare,
+        cfg.n_layers)
+    runs.append(launches)
+    if stats["tp"] != TP or stats["n_decode_groups"] != 1:
+        raise AssertionError(f"not one tp={TP} decode group: {stats}")
+    server_step = rec["f32"]["gascore"]["launches_per_step"]
+    if group != {k: server_step[k] for k in TP_TRANSFERS}:
+        raise AssertionError(f"the cluster's TP group launched {group} a "
+                             f"step, TPPagedServer {server_step}")
+    rec["cluster"] = {
+        "requests": TP_CLUSTER_REQUESTS, "dtype": "float32",
+        **oracle.verdict("f32 TP cluster", base_tokens, tokens),
+        "tok_per_s": stats["tok_per_s"], "tp1_tok_per_s": base["tok_per_s"],
+        "ticks": stats["ticks"], "tp1_ticks": base["ticks"],
+        "decode_steps": stats["decode_paged_steps"], "launches": launches,
+        "launches_per_step": {**group, "paged_attention": cfg.n_layers}}
+    del model, params, oracle
+    pygc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 on the serve phase's weights, reported
+    rec["bf16"] = {"paged_tok_per_s": served["record"]["tok_per_s"]}
+    for backend in TP_BACKENDS:
+        out, st, fig = tp_server(backend, served["model"], served["params"])
+        if sorted(out) != list(range(N_REQ)):
+            raise AssertionError(f"bf16 TP {backend}: finished {sorted(out)}")
+        agree = sum(a == b for r in out
+                    for a, b in zip(out[r], served["paged"][r]))
+        rec["bf16"][backend] = {
+            "tok_per_s": st["tok_per_s"], "p50_latency_s": st["p50_latency_s"],
+            **fig, "greedy_token_agreement": agree / (N_REQ * MAX_NEW),
+            "requests_token_identical": sum(out[r] == served["paged"][r]
+                                            for r in out)}
+    total = all_counts()
+    if total != {k: sum(r[k] for r in runs) for k in total}:
+        raise AssertionError(f"serve_tp launched {total}, its runs {runs}")
+    launches = {k: v for k, v in total.items() if k in DISAGG_KERNELS}
+    rec["launches"] = launches
+    emit(rec)
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# split phase on the side stream (core/engine.py)
+# --------------------------------------------------------------------------- #
+OV_RANKS, OV_ROWS, OV_COLS = 8, 8192, 128  # (a): 4 MiB of f32 a rank a hop
+OV_BACKENDS = ("xla", "gascore")
+# (b): qwen3-4b pages of 16 tokens fetched by 8 vectored gets of 4 pages
+FETCH_RANKS, FETCH_PAGES, FETCH_BATCHES, FETCH_PER_BATCH = 2, 64, 8, 4
+AR_ROWS, AR_COLS, AR_SEGMENTS = 16384, 256, 4  # (c): 16 MiB of f32 a rank
+
+
+def ov_transform(c, w):
+    return torch.tanh(c @ w)
+
+
+def blocking_ring(engine, x, w):
+    """The reference's blocking ring (``gas_microbench.py``): each hop's
+    shift completes on the current stream before its transform runs."""
+    cur, acc = x, torch.zeros_like(x)
+    for _ in range(1, engine.n_nodes):
+        cur = engine.shift(cur, 1)
+        acc = acc + ov_transform(cur, w)
+    return acc
+
+
+def overlap_ring(engine, x, w):
+    """The reference's split-phase ring: hop h+1 is initiated (on the side
+    stream) before hop h's transform (on the current stream)."""
+    n = engine.n_nodes
+    cur, acc = x, torch.zeros_like(x)
+    pending = engine.shift_nb(cur, 1)
+    for h in range(1, n):
+        cur = pending.wait()
+        if h < n - 1:
+            pending = engine.shift_nb(cur, 1)
+        acc = acc + ov_transform(cur, w)
+    return acc
+
+
+def no_sync(fn):
+    """One call of ``fn`` under sync debug mode "error": any host wait
+    inside raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def path_call(fn):
+    """One untimed call of ``fn``, a program of the phase's path, with no
+    host sync (``no_sync``): the counts are set to 0 just before it and
+    read just after.  Returns its output and its launches per kernel."""
+    reset_counts()
+    pa.paged_attention.launches = 0
+    out = no_sync(fn)
+    return out, all_counts()
+
+
+def path_pair(name, run, runs, times=1):
+    """``run``'s two programs, blocking and overlapped: each called once to
+    warm up, then once on the path (``path_call``, its launches kept in
+    ``runs``).  The second must launch each kernel ``times`` times as
+    often as the first; returns the warm and the path call's outputs of
+    each."""
+    outs = {}
+    for k, f in run.items():
+        warm = f()
+        outs[k] = (warm, *path_call(f))
+    got = {k: o[2] for k, o in outs.items()}
+    first, second = got.values()
+    if second != {k: times * v for k, v in first.items()}:
+        raise AssertionError(f"{name}: the programs launched {got}")
+    runs.update({f"{name} {k}": v for k, v in got.items()})
+    return {k: o[:2] for k, o in outs.items()}
+
+
+def stream_overlap(fn):
+    """One call of ``fn`` under ``torch.profiler``, enqueued whole behind a
+    sleep kernel (as ``device_ms`` times it: the host's enqueue is slower
+    than these kernels, and without the sleep each kernel would run
+    alone as it arrives), its kernels read from the Chrome trace with
+    their streams.  The compute stream is the one the matrix products
+    run on; every kernel on another stream is a transfer.  Returns the
+    kernel names by stream and how many (transfer, compute) pairs of
+    kernels ran at the same time."""
+    import os
+    import tempfile
+
+    cycles = 1 << 27
+    while True:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(cycles)
+            slept = torch.cuda.Event()
+            slept.record()
+            fn()
+            late = slept.query()
+            torch.cuda.synchronize()
+        if not late:
+            break
+        if cycles >= 1 << 31:
+            raise AssertionError("the host never enqueued the call ahead "
+                                 "of the device")
+        cycles *= 2
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = [(e["name"], e["args"]["stream"], e["ts"], e["ts"] + e["dur"])
+               for e in events
+               if e.get("cat") == "kernel" and "stream" in e.get("args", {})
+               and "sleep" not in e["name"]]
+    compute = {k[1] for k in kernels
+               if any(t in k[0].lower() for t in GEMM_NAMES)}
+    xfer = [k for k in kernels if k[1] not in compute]
+    comp = [k for k in kernels if k[1] in compute]
+    pairs = sum(1 for _, _, a0, a1 in xfer for _, _, b0, b1 in comp
+                if a0 < b1 and b0 < a1)
+    names = {}
+    for name, stream, *_ in kernels:
+        names.setdefault(str(stream), set()).add(name[:60])
+    return {"kernels": len(kernels), "compute_streams": sorted(compute),
+            "transfer_streams": sorted({k[1] for k in xfer}),
+            "transfer_kernels": len(xfer), "overlapping_pairs": pairs,
+            "names": {k: sorted(v) for k, v in names.items()}}
+
+
+def check_streams(name, trace, transfers):
+    """The transfers (``transfers`` of them) ran off the compute stream,
+    and at least one of them beside a compute kernel."""
+    if len(trace["compute_streams"]) != 1 or trace["transfer_kernels"] < (
+            transfers):
+        raise AssertionError(f"{name}: want {transfers} transfer kernels off "
+                             f"the one compute stream: {trace}")
+    if trace["overlapping_pairs"] == 0:
+        raise AssertionError(f"{name}: no transfer kernel overlapped a "
+                             f"compute kernel: {trace}")
+
+
+def gap_record(T, C, blocking, overlapped):
+    return {"T_ms": T, "C_ms": C, "bound": (T + C) / max(T, C),
+            "blocking_ms": blocking, "overlap_ms": overlapped,
+            "gap": blocking / overlapped}
+
+
+def overlap_phase():
+    """Split-phase transfers on the side stream against blocking ones, by
+    ``device_ms`` (the device's time alone; both streams' work lies
+    between its events, the last wait ordering the current stream after
+    the last transfer): (a) the reference's rings (``gas_microbench.py``)
+    at 8 ranks x 4 MiB a hop with the transform tanh(c @ w), on "xla" and
+    "gascore"; (b) the reference's paged-fetch overlap
+    (``train_serve_bench.py``) at qwen3-4b's page, 2 ranks, 8 vectored
+    gets of 4 pages beside paged attention at the serve phase's decode
+    shape; (c) the segmented against the monolithic ring all-reduce on
+    "gascore" at 8 x 16 MiB.  Each prints T (one transfer), C (one
+    compute), the bound (T+C)/max(T,C) and the measured gap
+    (blocking / overlapped).  Gated: overlapped bytes equal to blocking
+    bytes, no host sync after warm-up, and (a)'s profiled overlapped ring
+    runs its transfer kernels on a stream of their own, at least one of
+    them at the same time as a compute kernel.  The gaps are printed.
+    The phase's launches are those of one untimed call of each program
+    (``path_pair``), not of the timing loops or the profiled call."""
+    dev = torch.device("cuda")
+    runs = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    rec = {"phase": "overlap", "card": card()}
+
+    # (a) rings
+    n = OV_RANKS
+    x = torch.randn((n * OV_ROWS, OV_COLS), generator=g, device=dev) * 0.01
+    w = torch.eye(OV_COLS, device=dev) * 0.5
+    stacked = x.reshape(n, OV_ROWS, OV_COLS)
+    C = device_ms(lambda: ov_transform(stacked, w), 20)
+    rec["rings"] = {}
+    for backend in OV_BACKENDS:
+        ctx = gasnet.Context(n, backend=backend, device=dev)
+        spec = (P("node"), P())
+        run = {name: (lambda ring=ring: ctx.spmd(
+            lambda node, v, w: ring(node.engine, v, w), x, w, in_specs=spec))
+            for name, ring in (("blocking", blocking_ring),
+                               ("overlap", overlap_ring))}
+        hop = lambda: ctx.spmd(lambda node, v: node.engine.shift(v, 1), x)  # noqa: E731
+        outs = path_pair(f"ring {backend}", run, runs)  # warm, path
+        _byte_equal(f"overlap ring {backend}", outs["overlap"][1],
+                    outs["blocking"][1])
+        _byte_equal(f"overlap ring {backend} (again)", outs["overlap"][0],
+                    outs["blocking"][0])
+        trace = stream_overlap(run["overlap"])
+        check_streams(f"ring on {backend}", trace, n - 1)
+        rec["rings"][backend] = {
+            **gap_record(device_ms(hop, 20), C, device_ms(run["blocking"], 10),
+                         device_ms(run["overlap"], 10)),
+            "trace": trace}
+
+    # (b) paged fetch beside paged attention
+    cfg = ARCHS["qwen3-4b"]
+    layout = pool_lib.PagedLayout.from_struct(
+        build_model(cfg).kv_block_struct(RunCtx(), prompt_len=4,
+                                         cache_len=CACHE_LEN),
+        cache_len=CACHE_LEN, page_tokens=PAGE_TOKENS)
+    pe = layout.page_elems
+    seg = torch.randn((FETCH_RANKS, FETCH_PAGES * pe), generator=g, device=dev)
+    rng = np.random.default_rng(0)
+    batches = [[int(p) * pe for p in rng.integers(0, FETCH_PAGES,
+                                                  FETCH_PER_BATCH)]
+               for _ in range(FETCH_BATCHES)]
+    attn = kernel_inputs(torch.bfloat16, g, SERVED_LENGTHS)
+
+    def fetch(overlapped, with_attn=True):
+        def prog(node, s):
+            if overlapped:
+                hs = [node.get_nbv(s, frm=gasnet.Shift(1), indices=b, size=pe)
+                      for b in batches]
+            else:
+                got = [node.get_v(s, frm=gasnet.Shift(1), indices=b, size=pe)
+                       for b in batches]
+            out = ops.paged_attention(*attn) if with_attn else attn[0]
+            if overlapped:
+                got = [node.sync(h) for h in hs]
+            return torch.cat(got)[None], out
+
+        return prog
+
+    rec["fetch"] = {"page_bytes": pe * 4, "ranks": FETCH_RANKS,
+                    "pages_per_rank": FETCH_PAGES, "gets": FETCH_BATCHES,
+                    "pages_per_get": FETCH_PER_BATCH}
+    spec = (P("node"), P())
+    C = device_ms(lambda: ops.paged_attention(*attn), 20)
+    for backend in OV_BACKENDS:
+        ctx = gasnet.Context(FETCH_RANKS, backend=backend, device=dev)
+        run = {k: (lambda o=o, a=True: ctx.spmd(fetch(o, a), seg,
+                                                 out_specs=spec))
+               for k, o in (("blocking", False), ("overlap", True))}
+        gets = lambda: ctx.spmd(fetch(False, False), seg, out_specs=spec)  # noqa: E731
+        outs = path_pair(f"fetch {backend}", run, runs)
+        for i in range(2):
+            for j in range(2):
+                _byte_equal(f"fetch {backend}", outs["overlap"][i][j],
+                            outs["blocking"][i][j])
+        want = seg.view(FETCH_RANKS, FETCH_PAGES, pe).roll(-1, 0)
+        flat = [p // pe for b in batches for p in b]
+        _byte_equal(f"fetch {backend} pages", outs["overlap"][1][0].reshape(
+            FETCH_RANKS, -1, pe), want[:, flat])
+        rec["fetch"][backend] = gap_record(
+            device_ms(gets, 10), C, device_ms(run["blocking"], 10),
+            device_ms(run["overlap"], 10))
+
+    # (c) segmented against monolithic ring all-reduce
+    ctx = gasnet.Context(n, backend="gascore", device=dev)
+    x = torch.randn((n * AR_ROWS, AR_COLS), generator=g, device=dev)
+    run = {
+        "monolithic": lambda: ctx.spmd(
+            lambda node, v: collectives.ring_all_reduce(node.engine, v), x),
+        "segmented": lambda: ctx.spmd(
+            lambda node, v: collectives.segmented_ring_all_reduce(
+                node.engine, v, n_segments=AR_SEGMENTS, depth=2), x),
+    }
+    outs = path_pair("all-reduce", run, runs, times=AR_SEGMENTS)
+    _byte_equal("segmented all-reduce", outs["segmented"][1],
+                outs["monolithic"][1])
+    _byte_equal("segmented all-reduce (again)", outs["segmented"][0],
+                outs["monolithic"][0])
+    chunk = x[: n * (AR_ROWS // n)]  # one hop's S/n rows a rank
+    hop = lambda: ctx.spmd(lambda node, v: node.engine.shift(v, 1), chunk)  # noqa: E731
+    chunk = chunk.reshape(n, AR_ROWS // n, AR_COLS)
+    costs = sched.measure_costs(dev, {"xla", "gascore"})
+    plan = sched.plan_collective(
+        "all_reduce", nbytes=AR_ROWS * AR_COLS * 4, n_nodes=n,
+        engine=make_engine("gascore", "node", n), costs=costs)
+    rec["all_reduce"] = {
+        "ranks": n, "mib_per_rank": AR_ROWS * AR_COLS * 4 / 2**20,
+        "segments": AR_SEGMENTS, "depth": 2, "planned": plan.describe(),
+        **gap_record(device_ms(hop, 20), device_ms(lambda: chunk + chunk, 20),
+                     device_ms(run["monolithic"], 10),
+                     device_ms(run["segmented"], 10))}
+    launches = {k: sum(r[k] for r in runs.values()) for k in all_counts()}
+    rec["path_launches"], rec["launches"] = runs, launches
+    emit(rec)
     return launches
 
 
@@ -2503,9 +3016,11 @@ def main():
     kernel = kernel_phase()
     gas_figures = gascore_kernel_phase()
     gas_launches = gas_phase()
+    overlap_launches = overlap_phase()
     served = serve_phase()
     launches = served["launches"]
     disagg_launches = serve_disagg_phase(served)
+    tp_launches = serve_tp_phase(served)
     del served
     pygc.collect()
     torch.cuda.empty_cache()
@@ -2528,7 +3043,8 @@ def main():
         "name": pa.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:184",
-        "launches": launches + disagg_launches["paged_attention"],
+        "launches": launches + disagg_launches["paged_attention"]
+        + overlap_launches["paged_attention"] + tp_launches["paged_attention"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
@@ -2536,7 +3052,8 @@ def main():
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
-        "launches": gas_launches[name] + disagg_launches.get(name, 0),
+        "launches": gas_launches[name] + disagg_launches.get(name, 0)
+        + overlap_launches.get(name, 0) + tp_launches.get(name, 0),
         **{key: gas_figures[name]["16MiB"][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's

@@ -17,6 +17,7 @@ import torch
 
 __all__ = [
     "TensorSpec",
+    "device_const",
     "resolve_device",
     "tree_flatten_with_path",
     "tree_leaves",
@@ -44,6 +45,32 @@ def resolve_device(device: Any = None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+# (values, dtype, device) -> the device tensor holding them
+_CONSTS: dict = {}
+
+
+def _materialize(values: Tuple, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_const(values: Any, dtype: torch.dtype, device: Any) -> torch.Tensor:
+    """A small constant (an index list, a mask) as a tensor on ``device``,
+    built once per ``(values, dtype, device)`` and shared after.  A
+    ``torch.tensor(..., device="cuda")`` of host values copies them from
+    pageable memory, and that copy makes the host wait for the stream to
+    drain; the cached tensor is copied once.  Callers never write to it.
+    The cache is never evicted, so its keys must come from a bounded set:
+    permutations of a group's ranks and their masks, not caller-chosen
+    index lists (``indexing.as_i32`` stages those through pinned memory)."""
+    dev = torch.device(device)
+    key = (tuple(values), dtype, dev)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = _materialize(key[0], dtype, dev)
+    return t
 
 
 def tree_flatten_with_path(tree: Any, path: Tuple = ()) -> Iterator[Tuple]:

@@ -9,7 +9,9 @@ kernels) — engine parity is tested, bit for bit, against the reference.
 All rings are built on the split-phase primitives (``engine.shift_nb`` →
 ``Pending.wait``): each hop's put is initiated *before* the local work of
 the previous hop, the double-buffered schedule a GAScore drains from its
-command FIFO.
+command FIFO.  On the card the put runs on the engine's side stream, so
+in the segmented rings segment k+1's copy runs beside segment k's
+epilogue (its add or store) on the current stream.
 
 Every function runs per rank inside ``Context.spmd`` (or the lockstep
 simulator); rank-dependent slices go through ``core.indexing``.

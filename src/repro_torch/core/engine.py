@@ -17,14 +17,23 @@ software to hardware by swapping the engine.
 All transport methods must be called inside ``Context.spmd``, where the
 engine holds the batched rank ids (``my_id``); each transfer is one
 transport op (``repro_torch.core.transport``) for all ranks.
+
+Split phase on the card: the ``*_nb`` methods enqueue their transport on a
+per-device *side stream* that first waits on the current stream (so the
+producers of the payload come first), and record a CUDA event after it;
+``Pending.wait()`` makes the current stream wait on that event.  Neither
+step waits on the host, and compute issued between initiation and wait
+runs on the current stream beside the transfer.  On the CPU there is no
+stream: initiation runs the transfer, ``wait()`` returns it.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.compat import device_const
 from repro_torch.core import transport
 
 __all__ = [
@@ -37,7 +46,24 @@ __all__ = [
     "EngineMap",
     "make_engine",
     "parse_backend_spec",
+    "side_stream",
 ]
+
+# device index -> the side stream split-phase transfers run on
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream this process's split-phase transfers on ``device`` run
+    on, made at first use and kept (one per device, shared by every
+    engine, so an :class:`EngineMap`'s members queue on one stream)."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    s = _SIDE_STREAMS.get(idx)
+    if s is None:
+        s = _SIDE_STREAMS[idx] = torch.cuda.Stream(device=idx)
+    return s
 
 
 class AlreadyWaitedError(RuntimeError):
@@ -53,21 +79,32 @@ class Pending:
     """An in-flight transport operation (the engine half of split-phase).
 
     ``shift_nb``/``permute_nb`` return a ``Pending`` at *initiation*;
-    ``wait()`` is the *sync point* that yields the delivered value.  In the
-    port the transfer is enqueued on the current CUDA stream at initiation,
-    and compute issued before ``wait()`` is queued behind it on the same
-    stream (no overlap yet: a side stream plus an event is later work).
+    ``wait()`` is the *sync point* that yields the delivered value.  On
+    the card the transfer was enqueued on the side stream
+    (:func:`side_stream`) and an event recorded after it (``events``, one
+    per engine that moved it); ``wait()`` makes the current stream wait
+    on them, so work issued after it sees the data, and the host never
+    waits.  Compute issued between initiation and ``wait()`` runs beside
+    the transfer.  ``events`` is empty on the CPU.
+
+    ``finish`` (optional) runs at the wait on the delivered value, on the
+    current stream: an :class:`EngineMap` selects each receiver's copy
+    there, once every member's event has been waited on.
 
     ``op`` labels the operation for error messages (``shift(k=1)``,
     ``permute``, ...), so a double-wait names the op.
     """
 
-    __slots__ = ("_value", "_waited", "op")
+    __slots__ = ("_value", "_waited", "op", "events", "_finish")
 
-    def __init__(self, value: torch.Tensor, op: str = "transfer"):
+    def __init__(self, value, op: str = "transfer",
+                 events: Sequence[torch.cuda.Event] = (),
+                 finish: Optional[Callable] = None):
         self._value = value
         self._waited = False
         self.op = op
+        self.events = tuple(events)
+        self._finish = finish
 
     @property
     def waited(self) -> bool:
@@ -81,13 +118,36 @@ class Pending:
                 f"Pending {self.op} transfer already waited on"
             )
         self._waited = True
-        return self._value
+        for ev in self.events:
+            torch.cuda.current_stream().wait_event(ev)
+        value = self._value
+        if self._finish is not None:
+            value = self._finish(value)
+        self._value = None
+        return value
 
     def ready(self) -> bool:
-        """Poll (``gasnet_try_syncnb``).  The static SPMD schedule
-        guarantees delivery of every initiated transfer, so this is
-        constant-``True`` — kept for API fidelity."""
+        """Poll (``gasnet_try_syncnb``): True, as in the reference.  The
+        static SPMD schedule delivers every initiated transfer, and
+        ``wait()`` orders the streams on the device without the host
+        waiting, so a handle can always be completed."""
         return True
+
+
+def _split_phase(ids: torch.Tensor, move: Callable, op: str) -> Pending:
+    """Initiate ``move()`` (one transport op) split-phase: on the card on
+    the side stream after it waits on the current stream, an event
+    recorded behind it; on the CPU in line."""
+    if ids.device.type != "cuda":
+        return Pending(move(), op=op)
+    main = torch.cuda.current_stream(ids.device)
+    side = side_stream(ids.device)
+    side.wait_stream(main)  # the payload's producers come first
+    with torch.cuda.stream(side), transport.on_side_stream(side, main):
+        value = move()
+    ev = torch.cuda.Event()
+    ev.record(side)
+    return Pending(value, op=op, events=(ev,))
 
 
 def wait_all(pendings: Sequence["Pending"]) -> List[torch.Tensor]:
@@ -146,13 +206,15 @@ class CommEngine:
     # -- split-phase point-to-point (Extended API transport) ------------- #
     def shift_nb(self, x: torch.Tensor, k: int = 1) -> Pending:
         """Non-blocking :meth:`shift`: initiate the transfer of ``x`` to
-        node ``(me + k) % n`` and return a :class:`Pending` whose
-        ``wait()`` is the sync point."""
-        return Pending(self.shift(x, k), op=f"shift(k={k})")
+        node ``(me + k) % n`` (on the card: on the side stream) and return
+        a :class:`Pending` whose ``wait()`` is the sync point."""
+        return _split_phase(self.my_id(), lambda: self.shift(x, k),
+                            f"shift(k={k})")
 
     def permute_nb(self, x: torch.Tensor, dst: Sequence[int]) -> Pending:
         """Non-blocking :meth:`permute` (split-phase, see :meth:`shift_nb`)."""
-        return Pending(self.permute(x, dst), op="permute")
+        return _split_phase(self.my_id(), lambda: self.permute(x, dst),
+                            "permute")
 
     # -- vectored split-phase transport (engine-level multi-get/multi-put) #
     def _pack_nbv(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -166,13 +228,25 @@ class CommEngine:
         return flats[0] if len(flats) == 1 else torch.cat(flats)
 
     def _unpack_nbv(
-        self, moved: torch.Tensor, xs: Sequence[torch.Tensor], op: str
+        self, moved: Pending, xs: Sequence[torch.Tensor], op: str
     ) -> List[Pending]:
+        """One :class:`Pending` per payload of a vectored move, each
+        completing through the move's events to its static slice."""
+        done: List[torch.Tensor] = []
+
+        def whole(_):
+            if not done:  # the move completes once for all its payloads
+                v = moved._value
+                done.append(v if moved._finish is None else moved._finish(v))
+            return done[0]
+
         out: List[Pending] = []
         offset = 0
         for x in xs:
-            piece = moved[offset : offset + x.numel()].reshape(x.shape)
-            out.append(Pending(piece, op=op))
+            def piece(_, lo=offset, x=x):
+                return whole(None)[lo : lo + x.numel()].reshape(x.shape)
+
+            out.append(Pending(None, op=op, events=moved.events, finish=piece))
             offset += x.numel()
         return out
 
@@ -184,7 +258,7 @@ class CommEngine:
         xs = list(xs)
         if not xs:
             return []
-        moved = self.shift(self._pack_nbv(xs), k)
+        moved = self.shift_nb(self._pack_nbv(xs), k)
         return self._unpack_nbv(moved, xs, op=f"shiftv(k={k})")
 
     def permute_nbv(
@@ -194,7 +268,7 @@ class CommEngine:
         xs = list(xs)
         if not xs:
             return []
-        moved = self.permute(self._pack_nbv(xs), dst)
+        moved = self.permute_nb(self._pack_nbv(xs), dst)
         return self._unpack_nbv(moved, xs, op="permutev")
 
     # -- vectored put transport (payloads + command block in one message) - #
@@ -379,7 +453,6 @@ class EngineMap(CommEngine):
             b: _make_single_engine(b, axis, self.n_nodes, ids) for b in uniq
         }
         self._uniq = tuple(uniq)
-        self._masks: dict = {}  # backend -> (n,) bool on the ids' device
         self.can_permute_partial = all(
             self._engines[b].can_permute_partial for b in self._uniq
         )
@@ -395,12 +468,8 @@ class EngineMap(CommEngine):
         return len(self._uniq) > 1
 
     def _mask(self, backend: str) -> torch.Tensor:
-        m = self._masks.get(backend)
-        if m is None:
-            m = torch.tensor([be == backend for be in self.backends],
-                             device=self.my_id().device)
-            self._masks[backend] = m
-        return m
+        return device_const([be == backend for be in self.backends],
+                            torch.bool, self.my_id().device)
 
     # -- per-edge transport selection ----------------------------------- #
     def _select_by_src(self, outs: dict, src: torch.Tensor) -> torch.Tensor:
@@ -410,25 +479,17 @@ class EngineMap(CommEngine):
             acc = torch.where(self._mask(b)[src.long()], outs[b], acc)
         return acc
 
-    def shift(self, x: torch.Tensor, k: int = 1) -> torch.Tensor:
-        if k % self.n_nodes == 0:
-            return x
-        if not self.is_heterogeneous:
-            return self._engines[self._uniq[0]].shift(x, k)
-        outs = {b: self._engines[b].shift(x, k) for b in self._uniq}
-        src = torch.remainder(self.my_id() - k + 2 * self.n_nodes, self.n_nodes)
-        return self._select_by_src(outs, src)
+    def _shift_src(self, k: int) -> torch.Tensor:
+        return torch.remainder(self.my_id() - k + 2 * self.n_nodes,
+                               self.n_nodes)
 
-    def permute(self, x: torch.Tensor, dst: Sequence[int]) -> torch.Tensor:
-        if not self.is_heterogeneous:
-            return self._engines[self._uniq[0]].permute(x, dst)
+    def _permute_src(self, dst: Sequence[int]) -> torch.Tensor:
         has_none = any(d is None for d in dst)
         if has_none and not self.can_permute_partial:
             raise ValueError(
                 "partial permute (None destinations) unsupported by "
                 f"engine map {self.backends}"
             )
-        outs = {b: self._engines[b].permute(x, dst) for b in self._uniq}
         # receiver j's sender is inv[j]; non-destinations receive zeros
         # from every member engine, so any branch is correct for them.
         inv = [0] * self.n_nodes
@@ -436,8 +497,45 @@ class EngineMap(CommEngine):
             if d is not None:
                 inv[int(d)] = s
         ids = self.my_id()
-        src = torch.tensor(inv, dtype=torch.int32, device=ids.device)[ids.long()]
+        return device_const(inv, torch.int32, ids.device)[ids.long()]
+
+    def shift(self, x: torch.Tensor, k: int = 1) -> torch.Tensor:
+        if k % self.n_nodes == 0:
+            return x
+        if not self.is_heterogeneous:
+            return self._engines[self._uniq[0]].shift(x, k)
+        outs = {b: self._engines[b].shift(x, k) for b in self._uniq}
+        return self._select_by_src(outs, self._shift_src(k))
+
+    def permute(self, x: torch.Tensor, dst: Sequence[int]) -> torch.Tensor:
+        if not self.is_heterogeneous:
+            return self._engines[self._uniq[0]].permute(x, dst)
+        src = self._permute_src(dst)
+        outs = {b: self._engines[b].permute(x, dst) for b in self._uniq}
         return self._select_by_src(outs, src)
+
+    # -- split phase: every member moves on the shared side stream; the
+    # select runs at the wait, after every member's event ---------------- #
+    def _map_nb(self, pendings: dict, src: torch.Tensor, op: str) -> Pending:
+        def select(_):
+            return self._select_by_src(
+                {b: p._value for b, p in pendings.items()}, src)
+
+        events = tuple(ev for p in pendings.values() for ev in p.events)
+        return Pending(None, op=op, events=events, finish=select)
+
+    def shift_nb(self, x: torch.Tensor, k: int = 1) -> Pending:
+        if k % self.n_nodes == 0 or not self.is_heterogeneous:
+            return super().shift_nb(x, k)
+        pendings = {b: self._engines[b].shift_nb(x, k) for b in self._uniq}
+        return self._map_nb(pendings, self._shift_src(k), f"shift(k={k})")
+
+    def permute_nb(self, x: torch.Tensor, dst: Sequence[int]) -> Pending:
+        if not self.is_heterogeneous:
+            return super().permute_nb(x, dst)
+        src = self._permute_src(dst)
+        pendings = {b: self._engines[b].permute_nb(x, dst) for b in self._uniq}
+        return self._map_nb(pendings, src, "permute")
 
     # -- collectives: the put algorithms over the mixed edge transport --- #
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:

@@ -18,12 +18,15 @@ gasnet_wait_syncnb_all   ``node.sync_all()``
 ======================  ====================================================
 
 Split-phase semantics in the port: *initiation* (``put_nb``/``get_nb``)
-enqueues the transport on the current CUDA stream — the software engine's
-indexing, or one launch of the GAScore copy kernel.  The *sync*
-(``node.sync``) lands the data into its destination (segment update for
-puts, reply value for gets).  Compute issued between the two has no data
-dependence on the transfer; it is queued behind it on the same stream
-(real overlap through a side stream and an event is later work).
+enqueues the transport on the engine's side stream — the software
+engine's indexing, or one launch of the GAScore copy kernel — after that
+stream has waited on the current one, and records a CUDA event behind it
+(``repro_torch.core.engine.Pending``).  The *sync* (``node.sync``) makes
+the current stream wait on the event and lands the data into its
+destination (segment update for puts, reply value for gets).  Compute
+issued between the two has no data dependence on the transfer and runs
+on the current stream beside it; the host waits at neither end.  On the
+CPU the transfer runs at initiation.
 
 Example (a matmul issued between a put's initiation and its sync)::
 
@@ -86,7 +89,10 @@ def land(seg: torch.Tensor, payload: torch.Tensor, offsets: torch.Tensor,
     rank r's partition of the rank-stacked ``seg`` (n, *local) where
     ``flags[r, j]`` is set; elsewhere every byte keeps its bits.  No
     offset or flag is read on the host, and the segment is never copied:
-    its storage is written where it lies.  Returns ``seg``."""
+    its storage is written where it lies.  The commands came out of
+    ``Node.defer``, whose wait on each transfer's event ordered the
+    current stream after the wire, so the landing runs after it.  Returns
+    ``seg``."""
     n = seg.shape[0]
     flat = seg.view(n, -1)
     S = flat.shape[1]
@@ -135,11 +141,17 @@ class Handle:
         return self._complete()
 
 
+def _done(p):
+    """The delivered value of a Pending (waited once) or a tensor."""
+    return p.wait() if hasattr(p, "wait") else p
+
+
 class PutHandle(Handle):
     """In-flight ``put_nb``: the payload, target offset and arrival flag
-    have been shipped (transport initiated); :meth:`complete` lands them in
-    the receiver's partition of the segment and returns the updated
-    segment.
+    have been shipped (transport initiated, each a
+    :class:`~repro_torch.core.engine.Pending`); :meth:`complete` waits on
+    them and lands them in the receiver's partition of the segment and
+    returns the updated segment.
 
     ``key`` identifies the segment object the put was issued against, so
     the owning Node can chain several outstanding puts on the same segment
@@ -152,24 +164,30 @@ class PutHandle(Handle):
     def __init__(
         self,
         local: torch.Tensor,
-        moved: torch.Tensor,
-        midx: torch.Tensor,
-        received: torch.Tensor,
+        moved,
+        midx,
+        received,
         restore,
         key: int = 0,
     ):
         super().__init__()
         self._local = local
-        self._moved = moved
-        self._midx = midx
-        self._received = received
+        self._moves = (moved, midx, received)  # Pending | torch.Tensor
+        self._landed = None
         self._restore = restore
         self.key = key
+
+    def _land(self):
+        if self._landed is None:
+            self._landed = tuple(_done(p) for p in self._moves)
+            self._moves = None
+        return self._landed
 
     def apply(self, local: torch.Tensor) -> torch.Tensor:
         """Land the in-flight data into ``local`` (a segment partition of
         the same shape as the one snapshotted at initiation)."""
-        return _land(local, self._moved, self._midx, self._received)
+        moved, midx, received = self._land()
+        return _land(local, moved, midx, received)
 
     def restore(self, local: torch.Tensor) -> torch.Tensor:
         return self._restore(local)
@@ -177,7 +195,8 @@ class PutHandle(Handle):
     def landing(self):
         """The receiver's landing command: ``(payloads (m, L), offsets
         (m,), flags (m,))`` with m = 1 (see :func:`land`)."""
-        return self._moved[None], self._midx.reshape(1), self._received.reshape(1)
+        moved, midx, received = self._land()
+        return moved[None], midx.reshape(1), received.reshape(1)
 
     def _complete(self) -> torch.Tensor:
         return self._restore(self.apply(self._local))
@@ -210,14 +229,8 @@ class PutvHandle(PutHandle):
 
     def _land(self):
         if self._landed is None:
-            vals = [
-                p.wait() if hasattr(p, "wait") else p for p in self._payloads
-            ]
-            m = (
-                self._meta.wait()
-                if hasattr(self._meta, "wait")
-                else self._meta
-            )
+            vals = [_done(p) for p in self._payloads]
+            m = _done(self._meta)
             if m.dtype != torch.int32:
                 m = transport.bitcast(m, torch.int32)  # back from the carrier
             n = len(vals)
@@ -237,17 +250,18 @@ class PutvHandle(PutHandle):
 
 class GetHandle(Handle):
     """In-flight ``get_nb``: the request (offset) has travelled to the
-    source and the reply is on the wire; :meth:`complete` returns the
-    fetched data."""
+    source and the reply is on the wire (a
+    :class:`~repro_torch.core.engine.Pending`); :meth:`complete` waits on
+    it and returns the fetched data."""
 
     op = "get"
 
-    def __init__(self, reply: torch.Tensor):
+    def __init__(self, reply):
         super().__init__()
-        self._reply = reply
+        self._reply = reply  # Pending | torch.Tensor
 
     def _complete(self) -> torch.Tensor:
-        return self._reply
+        return _done(self._reply)
 
 
 class GetvHandle(Handle):
@@ -272,12 +286,7 @@ class GetvHandle(Handle):
         self._pred = pred
 
     def _complete(self) -> torch.Tensor:
-        data = (
-            self._reply.wait()
-            if hasattr(self._reply, "wait")
-            else self._reply
-        )
-        out = data.reshape(self._m, self._size)
+        out = _done(self._reply).reshape(self._m, self._size)
         return torch.where(self._pred, out, torch.zeros_like(out))
 
 

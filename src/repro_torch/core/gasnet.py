@@ -175,6 +175,15 @@ class Node:
             return self.engine.permute(x, to.dst)
         raise TypeError(f"bad pattern {to!r}")
 
+    def _move_nb(self, x: torch.Tensor, to: Pattern):
+        """Split-phase move (``CommEngine.shift_nb``/``permute_nb``):
+        returns the Pending."""
+        if isinstance(to, Shift):
+            return self.engine.shift_nb(x, to.k)
+        if isinstance(to, Perm):
+            return self.engine.permute_nb(x, to.dst)
+        raise TypeError(f"bad pattern {to!r}")
+
     def _move_nbv(self, xs: Sequence[torch.Tensor], to: Pattern) -> list:
         """Vectored split-phase move: one transport initiation for all of
         ``xs`` (see ``CommEngine.shift_nbv``); returns the Pendings."""
@@ -239,8 +248,8 @@ class Node:
         The payload, target offset and arrival flag are shipped at the call
         (transport initiation); the returned handle lands them in the
         segment when synced: ``seg = node.sync(h)``.  Compute issued
-        between the two does not depend on the transfer (on one stream it
-        is queued behind it; the port does not overlap them yet).
+        between the two does not depend on the transfer and runs beside
+        it (the transfer is on the engine's side stream).
 
         ``pred`` gates the write (SPMD conditional put): every rank runs
         the same transfer, but a rank passing ``pred=False`` ships a
@@ -252,9 +261,9 @@ class Node:
         payload = data.reshape(-1).to(local.dtype)
         idx = as_i32(index, dev)
         flag = _bool(pred, dev)
-        moved = self._move(payload, to)
-        midx = self._move(idx, to)
-        received = self._move(flag, to)
+        moved = self._move_nb(payload, to)
+        midx = self._move_nb(idx, to)
+        received = self._move_nb(flag, to)
         self._seg_pins.append(seg)
         h = extended.PutHandle(
             local, moved, midx, received,
@@ -293,7 +302,7 @@ class Node:
         req = self._move(idx, frm)
         data = dynamic_slice(local, req, size)
         # reply: data travels back from the source to me
-        h = extended.GetHandle(self._move(data, inv))
+        h = extended.GetHandle(self._move_nb(data, inv))
         tr = obs_trace.active()
         if tr.enabled:
             h.span = tr.begin_async(
@@ -539,8 +548,10 @@ class Node:
         """Poll one handle (``gasnet_try_syncnb``): ``(done, value)``.
 
         Under the static SPMD schedule every initiated transfer is
-        guaranteed to complete, so the poll always succeeds; the method is
-        kept for GASNet API fidelity and returns ``(True, value)``.
+        guaranteed to complete, and the sync orders the streams on the
+        device without the host waiting, so the poll always succeeds: it
+        returns ``(True, value)`` as the reference does, the value
+        completed through the transfer's event like :meth:`sync`.
         """
         return True, self.sync(handle)
 
@@ -692,7 +703,7 @@ def _bool(pred: Any, device) -> torch.Tensor:
         return torch.ones((), dtype=torch.bool, device=device)
     if isinstance(pred, torch.Tensor):
         return pred.to(torch.bool)
-    return torch.tensor(bool(pred), device=device)
+    return torch.full((), bool(pred), dtype=torch.bool, device=device)
 
 
 class Context:

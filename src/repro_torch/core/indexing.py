@@ -12,16 +12,28 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 __all__ = ["as_i32", "dynamic_slice", "dynamic_update_slice", "take"]
 
 
 def as_i32(v: Any, device: torch.device) -> torch.Tensor:
-    """``jnp.asarray(v, jnp.int32)``: a tensor keeps its batching."""
+    """``jnp.asarray(v, jnp.int32)``: a tensor keeps its batching.  A
+    Python int becomes a device-side fill, which copies nothing from the
+    host.  A sequence (caller-chosen index lists, unbounded in number) is
+    staged in pinned host memory and copied without blocking: a copy from
+    pageable memory would make the host wait for the stream to drain, and
+    the pinned block is not reused before its copy has run."""
     if isinstance(v, torch.Tensor):
         return v.to(torch.int32)
-    return torch.tensor(v, dtype=torch.int32, device=device)
+    a = np.asarray(v, dtype=np.int64)
+    if a.ndim == 0:
+        return torch.full((), int(a), dtype=torch.int32, device=device)
+    host = torch.from_numpy(a.astype(np.int32))
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _start(start: Any, length: int, size: int, device) -> torch.Tensor:

@@ -271,8 +271,10 @@ def _timed_us(fn, device: torch.device, reps: int) -> float:
     """Median wall microseconds of one call of ``fn`` as a program sees
     it, its device work included (the device drained before the call and
     after it), after one warm call.  A wall and not the device's time
-    alone: the software node's moves copy their index lists to the device
-    and wait for it (as every put of theirs in a program does)."""
+    alone: a program's cost is mostly its dispatch on the host (the vmap
+    over ranks, each transport op's enqueue), which no device timer sees;
+    its moves wait on the host for nothing (their index lists are cached
+    on the device)."""
     def drain():
         if device.type == "cuda":
             torch.cuda.synchronize(device)

@@ -16,11 +16,23 @@ the data of all n ranks in one call:
 Every op takes the batched rank ids ``ids`` (``node.my_id``), so its vmap
 rule always fires; called outside vmap an op raises.  Unbatched operands
 (a constant every rank sends) are expanded to n copies first.
+
+Split-phase moves (``CommEngine.*_nb``) run these ops on a side stream
+(:func:`on_side_stream`).  PyTorch's caching allocator ties a block to
+the stream it was allocated on, so the rules, where the tensors are plain
+(a vmap ``BatchedTensor`` cannot be recorded), make the reuse safe with
+``Tensor.record_stream``: each input, made on the current stream, is
+recorded on the side stream, so its block is not handed out again before
+the side stream has read it; each output, made on the side stream, is
+recorded on the current stream, so its block is not reused by the side
+stream before the work queued after the wait has read it.  The rank-
+stacked copy ``_stacked`` makes is made and freed on the side stream.
 """
 
 from __future__ import annotations
 
-from typing import List
+import contextlib
+from typing import List, Tuple
 
 import torch
 
@@ -38,6 +50,30 @@ __all__ = [
 ]
 
 BACKENDS = ("xla", "gascore")
+
+# (side, current) streams while a split-phase move is being enqueued
+_STREAMS: List[Tuple[torch.cuda.Stream, torch.cuda.Stream]] = []
+
+
+@contextlib.contextmanager
+def on_side_stream(side: torch.cuda.Stream, current: torch.cuda.Stream):
+    """The ops called inside run on ``side`` (the caller made it current)
+    on behalf of ``current``: their inputs and outputs are recorded on
+    the other stream (see the module's docstring)."""
+    _STREAMS.append((side, current))
+    try:
+        yield
+    finally:
+        _STREAMS.pop()
+
+
+def _across(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    if _STREAMS and out.is_cuda:
+        side, current = _STREAMS[-1]
+        for t in inputs:
+            t.record_stream(side)
+        out.record_stream(current)
+    return out
 
 
 def _outside(name: str):
@@ -71,8 +107,8 @@ def shift(x: torch.Tensor, ids: torch.Tensor, k: int, n: int,
 def _shift_vmap(info, in_dims, x, ids, k, n, backend):
     xs = _stacked(x, in_dims[0], n)
     if _backend(backend) == "gascore":
-        return ops.ring_shift(xs, k), 0
-    return ref.ring_shift(xs, k), 0
+        return _across(ops.ring_shift(xs, k), x), 0
+    return _across(ref.ring_shift(xs, k), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_permute", mutates_args=())
@@ -87,8 +123,9 @@ def permute(x: torch.Tensor, ids: torch.Tensor, dst: List[int], n: int,
 def _permute_vmap(info, in_dims, x, ids, dst, n, backend):
     xs = _stacked(x, in_dims[0], n)
     if _backend(backend) == "gascore":
-        return ops.perm_put(xs, dst), 0
-    return ref.perm_put(xs, [None if d < 0 else d for d in dst]), 0
+        return _across(ops.perm_put(xs, dst), x), 0
+    return _across(ref.perm_put(xs, [None if d < 0 else d for d in dst]),
+                   x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_offset_put", mutates_args=())
@@ -109,7 +146,8 @@ def _offset_put_vmap(info, in_dims, seg, data, offset, ids, k, n):
         segs = segs.clone()
     datas = _stacked(data, in_dims[1], n)
     offs = _stacked(offset.to(torch.int32), in_dims[2], n)
-    return ops.offset_put(segs, datas, offs, k), 0
+    return _across(ops.offset_put(segs, datas, offs, k), seg, data,
+                   offset), 0
 
 
 @torch.library.custom_op("repro_torch::gas_all_gather", mutates_args=())
@@ -123,8 +161,8 @@ def all_gather(x: torch.Tensor, ids: torch.Tensor, n: int,
 def _all_gather_vmap(info, in_dims, x, ids, n, backend):
     xs = _stacked(x, in_dims[0], n)
     if _backend(backend) == "gascore":
-        return ops.ring_all_gather(xs), 0
-    return ref.all_gather(xs), 0
+        return _across(ops.ring_all_gather(xs), x), 0
+    return _across(ref.all_gather(xs), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_reduce_scatter", mutates_args=())
@@ -141,8 +179,8 @@ def _reduce_scatter_vmap(info, in_dims, x, ids, n, backend):
         raise ValueError(f"reduce_scatter dim0 {tuple(xs.shape[1:])} not "
                          f"divisible by {n}")
     if _backend(backend) == "gascore":
-        return ops.ring_reduce_scatter(xs), 0
-    return ref.reduce_scatter(xs), 0
+        return _across(ops.ring_reduce_scatter(xs), x), 0
+    return _across(ref.reduce_scatter(xs), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_all_reduce", mutates_args=())
@@ -153,7 +191,7 @@ def all_reduce(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
 
 @all_reduce.register_vmap
 def _all_reduce_vmap(info, in_dims, x, ids, n):
-    return ref.all_reduce(_stacked(x, in_dims[0], n)), 0
+    return _across(ref.all_reduce(_stacked(x, in_dims[0], n)), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_all_to_all", mutates_args=())
@@ -168,7 +206,7 @@ def _all_to_all_vmap(info, in_dims, x, ids, n):
     if xs.dim() < 2 or xs.shape[1] % n:
         raise ValueError(f"all_to_all dim0 {tuple(xs.shape[1:])} not "
                          f"divisible by {n}")
-    return ref.all_to_all(xs), 0
+    return _across(ref.all_to_all(xs), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_bitcast", mutates_args=())

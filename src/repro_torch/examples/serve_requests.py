@@ -129,10 +129,12 @@ def check_handoff(stats: Dict[str, Any], n_requests: int) -> None:
 
 
 def check_drained(cluster: DisaggCluster, stats: Dict[str, Any]) -> None:
-    """Every page reference and tier slot came back."""
-    if stats["pool_free_pages"] != cluster.n_decode * cluster.pages_per_rank:
+    """Every page reference and tier slot came back (one pool a decode
+    group)."""
+    pages = len(cluster.stores) * cluster.pages_per_rank
+    if stats["pool_free_pages"] != pages:
         raise AssertionError(f"pool not drained: {stats['pool_free_pages']} "
-                             f"free of {cluster.n_decode * cluster.pages_per_rank}")
+                             f"free of {pages}")
     if cluster.tier is not None and (
             stats["tier_free_slots"] != stats["tier_slots"]):
         raise AssertionError(f"tier not drained: {stats['tier_free_slots']} "

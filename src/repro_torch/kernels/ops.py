@@ -64,6 +64,81 @@ def attention(
                                      block_q, block_k)
 
 
+@torch.library.custom_op("repro_torch::paged_attention", mutates_args=())
+def _paged_attention_op(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: Optional[float],
+) -> torch.Tensor:
+    if q.device.type == "cuda":
+        return _pa.paged_attention(
+            q, k_pages, v_pages, page_table, lengths, scale=scale
+        )
+    if q.device.type == "cpu":
+        return ref.paged_attention(
+            q, k_pages, v_pages, page_table, lengths, scale=scale
+        )
+    raise ValueError(f"no paged_attention for device {q.device}")
+
+
+def _rank_major(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
+    if dim is None:
+        return x.unsqueeze(0).expand((n,) + tuple(x.shape))
+    return x.movedim(dim, 0)
+
+
+def _fold_pools(k: torch.Tensor, v: torch.Tensor):
+    """Rank-stacked pools ``(n, P, T, KH, D)`` as ONE pool of pages and the
+    page offset of each rank in it.  When a rank's pool begins a whole
+    number of pages after the one before (the stacked layouts do: ranks
+    major, each rank's pool a page-strided block), the folded pool is a
+    view over all ranks' storage, so no page is copied; otherwise both
+    pools are copied rank-major."""
+    n, P = k.shape[:2]
+    s0, s1 = k.stride(0), k.stride(1)
+    if (k.stride() == v.stride() and s1 > 0 and s0 % s1 == 0
+            and s0 // s1 >= P):
+        per = s0 // s1
+        size = ((n - 1) * per + P,) + tuple(k.shape[2:])
+        stride = (s1,) + tuple(k.stride()[2:])
+        return (k.as_strided(size, stride, k.storage_offset()),
+                v.as_strided(size, stride, v.storage_offset()), per)
+    k = k.contiguous()
+    v = v.contiguous()
+    return (k.reshape((n * P,) + tuple(k.shape[2:])),
+            v.reshape((n * P,) + tuple(v.shape[2:])), P)
+
+
+@_paged_attention_op.register_vmap
+def _paged_attention_vmap(info, in_dims, q, k_pages, v_pages, page_table,
+                          lengths, scale):
+    """Paged attention over a vmapped rank axis (a tensor-parallel group
+    on one device) as ONE call of the kernel: the ranks fold into the
+    kernel's batch — q ``(n, B, H, D)`` to ``(n·B, H, D)``, the ranks'
+    pools to one pool (:func:`_fold_pools`), rank r's page table offset
+    by r's first page, the lengths repeated — and the output unfolds."""
+    n = info.batch_size
+    qd, kd, vd, td, ld = in_dims[:5]
+    qs = _rank_major(q, qd, n)
+    B = qs.shape[1]
+    if kd is None and vd is None:
+        kp, vp, per = k_pages, v_pages, 0
+    else:
+        kp, vp, per = _fold_pools(_rank_major(k_pages, kd, n),
+                                  _rank_major(v_pages, vd, n))
+    shift = (torch.arange(n, dtype=torch.int32, device=q.device) * per)
+    table = (_rank_major(page_table, td, n).to(torch.int32)
+             + shift[:, None, None]).reshape(n * B, -1)
+    lens = _rank_major(lengths, ld, n).reshape(n * B).contiguous()
+    out = _paged_attention_op(
+        qs.reshape((n * B,) + tuple(qs.shape[2:])).contiguous(), kp, vp,
+        table.contiguous(), lens.to(torch.int32), scale)
+    return out.reshape((n, B) + tuple(out.shape[1:])), 0
+
+
 def paged_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -75,16 +150,11 @@ def paged_attention(
 ) -> torch.Tensor:
     """Decode attention through a page table: q (B, Hq, D) against
     (P, T, Hkv, D) physical pages addressed by page_table (B, NP), masked
-    at lengths (B,)."""
-    if q.device.type == "cuda":
-        return _pa.paged_attention(
-            q, k_pages, v_pages, page_table, lengths, scale=scale
-        )
-    if q.device.type == "cpu":
-        return ref.paged_attention(
-            q, k_pages, v_pages, page_table, lengths, scale=scale
-        )
-    raise ValueError(f"no paged_attention for device {q.device}")
+    at lengths (B,).  A custom op: under ``torch.func.vmap`` over the ranks
+    of a tensor-parallel group its vmap rule folds the ranks into the
+    batch, so the group's attention is still one launch of the kernel."""
+    return _paged_attention_op(q, k_pages, v_pages, page_table, lengths,
+                               scale)
 
 
 def moe_router(

@@ -11,6 +11,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.compat import device_const
+
 __all__ = [
     "ring_shift",
     "perm_put",
@@ -55,11 +57,11 @@ def perm_put(x: torch.Tensor, dst: Sequence[Optional[int]]) -> torch.Tensor:
     for s, d in enumerate(dst):
         if d is not None:
             inv[int(d)] = s
-    src = torch.tensor([max(s, 0) for s in inv], device=x.device)
+    src = device_const([max(s, 0) for s in inv], torch.int64, x.device)
     got = x.index_select(0, src)
     if min(inv) >= 0:
         return got
-    mask = torch.tensor([s >= 0 for s in inv], device=x.device)
+    mask = device_const([s >= 0 for s in inv], torch.bool, x.device)
     mask = mask.reshape((n,) + (1,) * (x.dim() - 1))
     return torch.where(mask, got, torch.zeros_like(got))
 

@@ -23,14 +23,21 @@ batch; per-row positions let rows be at different generation depths.
 - :class:`PooledDecodeServer` decodes from an external pool shard: the
   decode side of the disaggregated cluster
   (``repro_torch.serving.disagg``).
+- :class:`TPPagedServer` and :class:`TPPooledDecodeServer` run the paged
+  decode over a tensor-parallel group of ``tp`` GAS ranks
+  (``repro_torch.parallel.tp``): heads and MLP columns sharded per rank,
+  each rank's pool holding its heads' slice of every page, one planned
+  all-reduce per sub-block (``core.sched``) on the group's engine.  All
+  ranks live on the one device, their shards stacked.
 
 Run: ``python -m repro_torch.launch.serve --role decode --paged``
 (``--arch kimi-k2-1t-a32b`` or ``--arch arctic-480b`` for the MoE archs),
 or ``--arch falcon-mamba-7b`` / ``--arch recurrentgemma-9b`` without
 ``--paged`` (their blocks cannot be paged; ``--paged`` raises);
-``--role both [--paged] [--n-memory 1]`` runs the disaggregated cluster
+``--role both [--paged] [--n-memory 1]`` runs the disaggregated cluster;
+``--tp 2`` serves the paged decode over a tensor-parallel group (with
+``--role decode --paged``, or decode groups of the cluster)
 (``--device cpu`` runs on the CPU, with the kernels' plain versions).
-The tensor-parallel servers are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -148,6 +155,10 @@ class Server:
 
         # rank attributed to this server's trace events
         self.trace_rank: Optional[int] = None
+        # called as on_step(server, live rows, host logits) at every decode
+        # step, before the live rows' tokens advance (None: no hook)
+        self.on_step: Optional[Callable[[Any, List[int], np.ndarray],
+                                        None]] = None
         self.active: List[Optional[Request]] = [None] * batch_size
         self.positions = np.zeros((batch_size,), np.int32)
         self.last_token = np.zeros((batch_size, 1), np.int32)
@@ -275,6 +286,8 @@ class Server:
     def _advance(self, live: List[int], logits: np.ndarray) -> None:
         """Shared post-decode token handling: append/advance each live
         row, replaying preempted-and-recomputed rows without appending."""
+        if self.on_step is not None:
+            self.on_step(self, live, logits)
         for i in live:
             req = self.active[i]
             tok = int(np.argmax(logits[i]))
@@ -825,6 +838,13 @@ class PooledDecodeServer(Server):
         for pool, rv in zip(tree_leaves(self._views), tree_leaves(rows)):
             pool[:, idx] = rv
 
+    def _paged_step(self, token, positions, tables) -> torch.Tensor:
+        """One paged decode over the resident views (written in place);
+        returns the logits."""
+        logits, self._views = self._decode_paged(
+            self.params, token, positions, self._views, tables)
+        return logits
+
     def _step(self) -> int:
         from repro_torch.serving.pool import UNMATERIALIZED
 
@@ -865,18 +885,260 @@ class PooledDecodeServer(Server):
                 # stalled: scatter into scratch, never a shared page
                 tables[i, int(self.positions[i]) // T] = P
         self._refresh_views()
-        logits, self._views = self._decode_paged(
-            self.params,
-            self._tensor(self.last_token),
-            self._tensor(self.positions),
-            self._views,
-            self._tensor(tables),
-        )
+        logits = self._paged_step(self._tensor(self.last_token),
+                                  self._tensor(self.positions),
+                                  self._tensor(tables))
         self.paged_decode_steps += 1
         self._dirty.update(written.values())
         advanced = [i for i in live if i in written]
         self._advance(advanced, _to_host(logits))
         return len(advanced)
+
+
+def _tp_paged_decode_fn(model, ctx, shard_layout, tp: int, backend,
+                        device, costs=None):
+    """The tensor-parallel paged decode step: ``Context.spmd`` over a
+    ``("tp",)`` axis of ``tp`` ranks, each holding one head shard of the
+    weights (``stack_shards``) and of the pool's decode views, and each
+    sub-block's partial sum crossing the group through
+    ``sched.all_reduce`` on the group's engine (``backend`` may be a
+    mixed spec like ``"xla,gascore"``; plans take ``costs``).
+
+    Called as ``step(stacked_params, token, positions, views, tables)``
+    with ``views`` the rank-stacked decode views (every leaf ``(tp, L,
+    P+1, T, ...)``), written in place (the scratch-page wipe and the K/V
+    scatter run under the rank vmap on the batched views); returns every
+    rank's logits, ``(tp, B, vocab)`` — replicated bit for bit (at tp 2
+    every all-reduce schedule adds the same two partial sums).  Paged
+    attention runs as one kernel launch per layer for the whole group
+    (``kernels.ops.paged_attention``'s vmap rule)."""
+    from repro_torch.core import gasnet, sched
+    from repro_torch.core.addrspace import P
+    from repro_torch.parallel.tp import TPGroup
+
+    gas = gasnet.Context(tp, node_axis="tp", backend=backend, device=device)
+    empty_views = shard_layout.decode_views(
+        torch.from_numpy(shard_layout.empty_page_row()[None]).to(device)
+    )
+
+    def body(node, params, token, positions, views, tables):
+        params = tree_map(lambda x: x[0], params)
+        views = tree_map(lambda x: x[0], views)
+        for pool, init in zip(tree_leaves(views), tree_leaves(empty_views)):
+            pool[:, -1] = init[:, 0]
+        engine = node.engine
+        group = TPGroup(
+            tp, lambda x: sched.all_reduce(engine, x, costs=costs))
+        logits, _ = model.decode_step_paged(
+            params, ctx, token, positions, views, tables, tp=group)
+        return logits[None]
+
+    def step(stacked_params, token, positions, views, tables):
+        return gas.spmd(
+            body, stacked_params, token, positions, views, tables,
+            in_specs=(P("tp"), P(), P(), P("tp"), P()), out_specs=P("tp"),
+        )
+
+    return step
+
+
+def _rank_views(shard_layout, rows: List[torch.Tensor]) -> Any:
+    """Each rank's shard rows ``(m, shard_elems)`` as the rank-stacked
+    decode views: every leaf ``(tp, L, m, T, ...)``."""
+    per_rank = [shard_layout.decode_views(r) for r in rows]
+    return tree_map(lambda *xs: torch.stack(xs), *per_rank)
+
+
+def _tp_views(shard_layout, cols: torch.Tensor, rows: torch.Tensor) -> Any:
+    """Full carrier rows ``(m, page_elems)`` as the rank-stacked decode
+    views of their head shards (``cols``: ``(tp, shard_elems)``)."""
+    return _rank_views(shard_layout, [rows.index_select(1, c) for c in cols])
+
+
+def _tp_pool_patch_fn(shard_layout, cols: torch.Tensor):
+    """Stacked-views variant of :func:`_pool_patch_fn`: ``rows`` are FULL
+    carrier rows, split into head shards through ``cols`` (``(tp,
+    shard_elems)`` carrier columns, ``PagedLayout.shard_heads``) and
+    scattered into every rank's pool in place; copies run on every
+    rank."""
+
+    def patch(views, write_dst, rows, copy_src, copy_dst):
+        rowviews = _tp_views(shard_layout, cols, rows)
+        for pool, rv in zip(tree_leaves(views), tree_leaves(rowviews)):
+            if write_dst.numel():
+                pool[:, :, write_dst] = rv
+            if copy_src.numel():
+                pool[:, :, copy_dst] = pool[:, :, copy_src]
+        return views
+
+    return patch
+
+
+def _tp_rows(shard_layout, views, idx: torch.Tensor) -> torch.Tensor:
+    """The carrier rows of pages ``idx`` of every rank's shard, as the
+    rank-stacked views hold them: ``(tp, m, shard_elems)``."""
+    tp = tree_leaves(views)[0].shape[0]
+    return torch.stack([
+        shard_layout.views_to_pool(
+            tree_map(lambda v: v[s].index_select(1, idx), views))
+        for s in range(tp)
+    ])
+
+
+class TPPagedServer(PagedServer):
+    """:class:`PagedServer` whose decode runs over a tensor-parallel group
+    of ``tp`` GAS ranks: attention heads and MLP columns sharded per rank
+    (``repro_torch.parallel.tp``), each rank's pool holding only its heads'
+    slice of every page (``PagedLayout.shard_heads``), one planned
+    all-reduce per sub-block inside the step (:func:`_tp_paged_decode_fn`,
+    on ``tp_backend``: ``"xla"``, ``"gascore"`` or ``"xla,gascore"``,
+    planned with ``sched_cost_table``; on CUDA without one, with this
+    card's constants, ``sched.measure_costs``, as the cluster plans).
+
+    Everything host-side is unchanged from the base class: the allocator,
+    page tables, prefix index, scheduler, tier and the host ``mem``
+    mirror all stay in the FULL layout (pages are sharded by bytes, not
+    by id — every rank holds the same table).  Only the device residency
+    differs: the views are rank-stacked (every leaf ``(tp, L, P+1, T,
+    ...)``), patches pre-shard queued rows through ``shard_cols``, and
+    ``_sync_host`` reassembles the shards bit-exactly.  Prefill runs
+    unsharded on ``params``.
+
+    All ranks live on the one device, so the reference's check that the
+    job has ``tp`` devices has no counterpart here: any ``tp`` dividing
+    both head counts runs.
+    """
+
+    def __init__(self, model, ctx, params, batch_size: int, cache_len: int,
+                 tp: int = 2, tp_backend: str = "xla",
+                 sched_cost_table: Optional[Dict[str, Any]] = None, **kw):
+        super().__init__(model, ctx, params, batch_size, cache_len, **kw)
+        from repro_torch.parallel import tp as tp_lib
+
+        tp_lib.validate_tp(model.cfg, tp)
+        self.tp = tp
+        self.shard_layout, self.shard_cols = self.layout.shard_heads(
+            tp, model.cfg.n_kv_heads
+        )
+        self._cols = torch.from_numpy(self.shard_cols).to(self.device)
+        self._stacked_params = tp_lib.stack_shards(params, tp)
+        if sched_cost_table is None and self.device.type == "cuda":
+            # the reference's default constants are a TPU's: plan the
+            # group's all-reduces with this card's own, measured once
+            from repro_torch.core import sched
+            from repro_torch.core.engine import parse_backend_spec
+
+            sched_cost_table = sched.measure_costs(
+                self.device, {"xla", *parse_backend_spec(tp_backend, tp)})
+        self.costs = sched_cost_table
+        self._decode_tp = _tp_paged_decode_fn(
+            model, ctx, self.shard_layout, tp, tp_backend, self.device,
+            costs=sched_cost_table,
+        )
+        self._patch = _tp_pool_patch_fn(self.shard_layout, self._cols)
+
+    def _sync_host(self) -> None:
+        if self._dev_views is None:
+            return
+        if self._pending_rows or self._pending_copies:
+            self._apply_pending()
+        P = self.store.state.n_pages
+        idx = torch.arange(P, device=self.device)
+        shards = _tp_rows(self.shard_layout, self._dev_views, idx)
+        full = torch.empty((P, self.layout.page_elems), dtype=torch.float32,
+                           device=self.device)
+        for s in range(self.tp):
+            full[:, self._cols[s]] = shards[s]
+        self.store.mem[:] = full.cpu().numpy()
+        self._dev_views = None
+
+    def _decode_via_tables(self, tables: np.ndarray) -> np.ndarray:
+        if self._dev_views is None:  # (re-)upload, pre-sharded per rank
+            mem = np.concatenate(
+                [self.store.mem, self.layout.empty_page_row()[None]], axis=0
+            )
+            self._dev_views = _tp_views(self.shard_layout, self._cols,
+                                        self._tensor(mem))
+        if self._pending_rows or self._pending_copies:
+            self._apply_pending()
+        logits = self._decode_tp(
+            self._stacked_params,
+            self._tensor(self.last_token),
+            self._tensor(self.positions),
+            self._dev_views,
+            self._tensor(tables),
+        )
+        self.paged_decode_steps += 1
+        return _to_host(logits[0])
+
+
+class TPPooledDecodeServer(PooledDecodeServer):
+    """One logical decode server for a tensor-parallel GROUP of cluster
+    ranks: the group's pool is striped across the members' segments BY
+    HEADS (member ``s`` holds every page's slice for its heads —
+    ``PagedLayout.shard_heads``), and each tick's decode runs over the
+    group's ranks with one planned all-reduce per sub-block
+    (:func:`_tp_paged_decode_fn`).
+
+    The allocator, page tables and request rows are group-level (one
+    logical server, one store, whose ``mem`` is the leader's partition);
+    only page payloads are sharded.  ``shard_mems`` are the members' pool
+    partitions in the cluster's segment tensor (entry 0 is ``store.mem``);
+    the decode views are rank-stacked, stale pages are re-read from every
+    member, and :meth:`drain_dirty` hands back ``(tp, shard_elems)`` rows
+    for the cluster to write into every member's partition."""
+
+    def __init__(self, model, ctx, params, batch_size: int, cache_len: int,
+                 store, shard_mems: List[torch.Tensor], tp: int,
+                 tp_backend: str = "xla",
+                 costs: Optional[Dict[str, Any]] = None, eos_id: int = -1,
+                 device: Any = None, on_page_shortage=None):
+        super().__init__(model, ctx, params, batch_size, cache_len,
+                         store=store, eos_id=eos_id, device=device,
+                         on_page_shortage=on_page_shortage)
+        from repro_torch.parallel import tp as tp_lib
+
+        tp_lib.validate_tp(model.cfg, tp)
+        self.tp = tp
+        self.shard_mems = shard_mems
+        self._stacked_params = tp_lib.stack_shards(params, tp)
+        # self.layout is the SHARD layout (the store is built with it)
+        self._decode_tp = _tp_paged_decode_fn(
+            model, ctx, self.layout, tp, tp_backend, self.device, costs=costs
+        )
+
+    def drain_dirty(self) -> Dict[int, torch.Tensor]:
+        """Physical page -> ``(tp, shard_elems)`` rows the decode wrote
+        since the last drain (device tensors, read from the views)."""
+        pages = sorted(self._dirty)
+        self._dirty = set()
+        if not pages or self._views is None:
+            return {}
+        idx = self._tensor(np.asarray(pages, np.int64))
+        rows = _tp_rows(self.layout, self._views, idx)
+        return {pp: rows[:, j] for j, pp in enumerate(pages)}
+
+    def _refresh_views(self) -> None:
+        if self._views is None:
+            empty = torch.from_numpy(self.layout.empty_page_row()).to(
+                self.device)
+            self._views = _rank_views(
+                self.layout,
+                [torch.cat([m, empty[None]], dim=0) for m in self.shard_mems])
+            self._stale.clear()
+            return
+        if not self._stale:
+            return
+        idx = self._tensor(np.asarray(sorted(self._stale), np.int64))
+        self._stale.clear()
+        rows = _rank_views(self.layout,
+                           [m.index_select(0, idx) for m in self.shard_mems])
+        for pool, rv in zip(tree_leaves(self._views), tree_leaves(rows)):
+            pool[:, :, idx] = rv
+
+    def _paged_step(self, token, positions, tables):
+        return self._decode_tp(self._stacked_params, token, positions,
+                               self._views, tables)[0]
 
 
 CARD_BYTES = 80e9  # device memory of the one H100 the port serves on
@@ -924,7 +1186,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "per request, prompt prefixes shared by page table")
     ap.add_argument("--page-tokens", type=int, default=8,
                     help="tokens per KV page (must divide --cache-len)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel decode group size: heads and MLP "
+                         "columns sharded over tp GAS ranks (all on the "
+                         "one device), one planned all-reduce per "
+                         "sub-block; needs --paged")
+    ap.add_argument("--tp-backend", default=None,
+                    help="engine of the TP group's all-reduces "
+                         "(xla|gascore|xla,gascore; default: "
+                         "--decode-backend)")
     args = ap.parse_args(argv)
+    if args.tp > 1 and not args.paged:
+        ap.error("--tp > 1 shards the paged pool by heads: add --paged")
+    tp_backend = args.tp_backend or args.decode_backend
 
     from repro_torch.configs.registry import ARCHS, SMOKE
     from repro_torch.models.build import build_model
@@ -974,7 +1248,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         for rid in range(args.requests)
     ]
     if args.role == "decode":
-        if args.paged:
+        if args.tp > 1:
+            server = TPPagedServer(model, ctx, params, args.batch,
+                                   args.cache_len, tp=args.tp,
+                                   tp_backend=tp_backend, device=device,
+                                   page_tokens=args.page_tokens)
+        elif args.paged:
             server = PagedServer(model, ctx, params, args.batch,
                                  args.cache_len, device=device,
                                  page_tokens=args.page_tokens)
@@ -1008,6 +1287,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             paged=args.paged or args.n_memory > 0,
             page_tokens=args.page_tokens,
             mem_slots_per_rank=args.mem_slots,
+            tp=args.tp, tp_backend=tp_backend,
             device=device,
         )
         for req in reqs:

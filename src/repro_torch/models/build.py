@@ -117,6 +117,7 @@ class Model:
         positions: torch.Tensor,  # (B,) int32 — index of the new token
         pool_caches: Any,
         page_table: torch.Tensor,  # (B, NP) int32 physical page ids
+        tp=None,
     ) -> Tuple[torch.Tensor, Any]:
         """Decode one token for every request THROUGH the page table.
 
@@ -124,14 +125,21 @@ class Model:
         re-laid as ``(physical pages, page_tokens)`` — the
         ``PagedLayout.decode_views`` of the pool, shared by the whole
         batch.  The new token's K/V scatter straight into the pool (in
-        place) and attention runs on the paged-attention kernel."""
+        place) and attention runs on the paged-attention kernel.
+
+        ``tp`` (a :class:`~repro_torch.parallel.tp.TPGroup`) runs this
+        rank's head shard: ``params`` and ``pool_caches`` hold only this
+        rank's heads (``tp.shard_decode_params`` /
+        ``PagedLayout.shard_heads``) and each sub-block's partial sum
+        crosses the group via ``tp.psum`` — one planned all-reduce per
+        attention and MLP, logits replicated."""
         cfg = self.cfg
         pos = positions[:, None]
         x = T.embed(params["io"], cfg, ctx, token)
         x, pool_caches = T.stack_apply(
             self.dec_segments, params["dec"], cfg, ctx, x,
             mode="decode", caches=pool_caches, positions=pos,
-            page_table=page_table,
+            page_table=page_table, tp=tp,
         )
         logits = T.logits_fn(params["io"], cfg, ctx, x)[:, 0]
         return logits, pool_caches

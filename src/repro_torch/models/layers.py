@@ -109,7 +109,9 @@ def _gqa_scores_softmax_v(q, k, v, mask, scale):
     KH = k.shape[2]
     G = H // KH
     qg = q.reshape(B, Sq, KH, G, Dh)
-    qs = qg * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    # the scale in q's dtype, filled on the device (a host tensor copied
+    # to the card would make the host wait for the stream)
+    qs = qg * torch.full((), scale, dtype=q.dtype, device=q.device)
     s = torch.einsum("bqkgd,bskd->bkgqs", qs.float(), k.float())
     s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -157,6 +159,7 @@ def apply_attention(
     cache: Optional[Params] = None,
     cache_len: int = 0,
     page_table: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Causal self-attention sub-block (pre-norm, residual added by caller).
     ``window`` (the ``local`` kind) limits each query to the keys less
@@ -177,6 +180,11 @@ def apply_attention(
     token's K/V scatter straight into the request's (COW-resolved,
     materialised) page and attention runs through the table on
     ``kernels.ops.paged_attention`` — the CUDA kernel on the card.
+
+    Tensor-parallel (``tp`` a :class:`~repro_torch.parallel.tp.TPGroup`):
+    the weights and cache hold this rank's heads only, every head-local
+    step runs unchanged, and the output projection's partial sum crosses
+    the group via ``tp.psum``.
     """
     dh = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(dh)
@@ -265,6 +273,8 @@ def apply_attention(
         raise ValueError(mode)
 
     o = torch.einsum("bshk,hkd->bsd", out, wo.reshape(-1, dh, D))
+    if tp is not None:
+        o = tp.maybe_psum(o)
     return o.to(x.dtype), new_cache
 
 
@@ -283,14 +293,19 @@ def mlp_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=(),
 
 
 def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor,
-              ctx: RunCtx) -> torch.Tensor:
-    """Gated SiLU MLP (pre-norm, residual added by caller)."""
+              ctx: RunCtx, tp=None) -> torch.Tensor:
+    """Gated SiLU MLP (pre-norm, residual added by caller).  Under ``tp``
+    the columns of ``wi``/``wg`` and the rows of ``wo`` are this rank's
+    and the partial output is summed over the group."""
     h = apply_norm(p["norm"], x)
     wi = use_weight(p["wi"], ctx)
     wo = use_weight(p["wo"], ctx)
     wg = use_weight(p["wg"], ctx)
     z = F.silu(h @ wg) * (h @ wi)
-    return (z @ wo).to(x.dtype)
+    y = z @ wo
+    if tp is not None:
+        y = tp.maybe_psum(y)
+    return y.to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #

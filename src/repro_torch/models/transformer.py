@@ -65,19 +65,20 @@ def block_apply(
     cache_len: int,
     positions: torch.Tensor,
     page_table: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     if kind in ("global", "local", "dense", "moe"):
         a, ac = L.apply_attention(
             p["attn"], cfg, ctx, x, positions=positions,
             window=cfg.local_window if kind == "local" else None, mode=mode,
             cache=None if cache is None else cache["attn"],
-            cache_len=cache_len, page_table=page_table,
+            cache_len=cache_len, page_table=page_table, tp=tp,
         )
         x = x + a
         if kind == "moe":
             x = x + L.apply_moe(p["moe"], cfg, ctx, x)
         else:
-            x = x + L.apply_mlp(p["mlp"], cfg, x, ctx)
+            x = x + L.apply_mlp(p["mlp"], cfg, x, ctx, tp=tp)
         new_cache = {"attn": ac}
     elif kind in ("mamba", "rec"):
         if page_table is not None:
@@ -87,7 +88,7 @@ def block_apply(
                       cache=None if cache is None else cache["mix"])
         x = x + m
         if kind == "rec":
-            x = x + L.apply_mlp(p["mlp"], cfg, x, ctx)
+            x = x + L.apply_mlp(p["mlp"], cfg, x, ctx, tp=tp)
         new_cache = {"mix": mc}
     else:
         raise ValueError(f"block kind {kind!r} is not ported yet")
@@ -143,11 +144,13 @@ def stack_apply(
     cache_len: int = 0,
     positions: torch.Tensor,
     page_table: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, List[Any]]:
     """``train`` returns ``(x, None)``, differentiable in ``x`` and the
     parameters; ``prefill`` builds and returns stacked caches; ``decode``
     writes the given stacked caches in place (through per-layer views) and
-    returns them."""
+    returns them.  ``tp`` (a ``TPGroup``) runs every block on this rank's
+    shard, its sub-blocks' partial sums crossing the group."""
     if mode == "train":
         for seg, sp in zip(segments, seg_params):
 
@@ -179,7 +182,7 @@ def stack_apply(
                     kind, lp[key], cfg, ctx, x, mode=mode,
                     cache=None if lc is None else lc[key],
                     cache_len=cache_len, positions=positions,
-                    page_table=page_table,
+                    page_table=page_table, tp=tp,
                 )
             per_layer.append(ncs)
         if mode == "prefill":

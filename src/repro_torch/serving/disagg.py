@@ -38,13 +38,24 @@ payloads, offsets and arrival flags cross the wire on the ranks' engines
 each put's landing is deferred (``Node.defer``) and written into the
 stacked segment in place after the program (``extended.land``) — no
 segment is ever copied.  A decode step on every decode server is queued
-between the transfer's launch and its consume, as in the reference (on
-one stream it does not overlap the transfer yet).
+between the transfer's launch and its consume, as in the reference; the
+transfer's moves run on the engines' side stream (``core.engine``), the
+decode on the current one.
+
+- **Tensor-parallel decode groups** (``tp > 1``, paged only) — the decode
+  pool is carved into groups of ``tp`` consecutive ranks; a group is one
+  logical decode server (``launch.serve.TPPooledDecodeServer``) whose
+  pool is striped across its members' segments BY HEADS
+  (``PagedLayout.shard_heads``).  A prefill rank pushes each page's head
+  shard to the member that owns it (``perm`` is a tuple of per-shard
+  permutations), the group leader receives the control plane, and the
+  decode's written pages come back as ``(tp, shard_elems)`` rows, one
+  per member.  Not composed with memory ranks (as in the reference).
 
 Out of this slice (they raise ``NotImplementedError`` naming their
-``ROADMAP.md`` queue 1 item): ``tp > 1`` (item 6), spare ranks, rank
-kills and recovery, elastic join (item 7), and the flight recorder's
-dump at a rank's death (item 8).  The heartbeat runs as in the reference.
+``ROADMAP.md`` queue 1 item): spare ranks, rank kills and recovery,
+elastic join (item 7), and the flight recorder's dump at a rank's death
+(item 8).  The heartbeat runs as in the reference.
 """
 
 from __future__ import annotations
@@ -147,6 +158,7 @@ class DisaggCluster:
         decode_step_us: float = 2000.0,
         prefill_us: float = 4000.0,
         tp: int = 1,
+        tp_backend: Optional[str] = None,
         heartbeat_timeout: int = 3,
         tier_replicas: int = 1,
         replicate_all_swaps: bool = False,
@@ -154,14 +166,23 @@ class DisaggCluster:
         metrics: Optional[Registry] = None,
         device: Any = None,
     ):
-        from repro_torch.launch.serve import PooledDecodeServer, Server
+        from repro_torch.launch.serve import (
+            PooledDecodeServer, Server, TPPooledDecodeServer)
         from repro_torch.runtime.ft import HeartbeatMonitor
         from repro_torch.serving import scheduler as sched_lib
 
         if n_memory and not paged:
             raise ValueError("memory ranks require paged=True (page swap)")
         if tp > 1:
-            raise _todo("tensor-parallel decode groups (tp > 1)", 6)
+            if not paged:
+                raise ValueError(
+                    "tp > 1 requires paged=True (the TP group shards the "
+                    "page pool by heads)"
+                )
+            if n_memory:
+                raise ValueError(
+                    "TP decode groups not yet composed with memory tiering"
+                )
         if n_spare:
             raise _todo("spare ranks and elastic join", 7)
 
@@ -177,9 +198,13 @@ class DisaggCluster:
         self.max_done = decode_batch
         self.paged = paged
         self.tp = tp
-        self.n_groups = n_decode
+        self.tp_backend = tp_backend or decode_backend
+        self.n_groups = n_decode // tp
 
         self.roles = mesh_lib.serve_roles(n_prefill, n_decode, n_memory, tp=tp)
+        # decode-group leader ranks: the rank whose segment backs the
+        # group's store and which receives the group's control plane
+        self.group_leaders = [n_prefill + g * tp for g in range(self.n_groups)]
         self._backends = mesh_lib.role_backends(
             self.roles, prefill=prefill_backend, decode=decode_backend,
             memory=memory_backend,
@@ -213,6 +238,7 @@ class DisaggCluster:
             self.shard_layout, self.shard_cols = self.playout.shard_heads(
                 tp, model.cfg.n_kv_heads
             )
+            self._cols = torch.from_numpy(self.shard_cols).to(self.device)
             self.seg_elems = self.pages_per_rank * self.shard_layout.page_elems
             # per-PAGE put plan: each page is its own planned transfer
             self.plan = sched.plan_p2p(
@@ -307,26 +333,46 @@ class DisaggCluster:
         # ---- pools ------------------------------------------------------
         if paged:
             pool_elems = self.pages_per_rank * self.shard_layout.page_elems
+            # every member's pool partition, a view of its segment row
+            # (entry 0, the leader's, backs the group's store)
+            self.shard_mems = [
+                [self.kvseg[self.member_rank(g, s), :pool_elems].view(
+                    self.pages_per_rank, self.shard_layout.page_elems)
+                 for s in range(tp)]
+                for g in range(self.n_groups)
+            ]
             self.stores = [
-                pool_lib.PagedKVStore(
-                    self.shard_layout, self.pages_per_rank,
-                    mem=self.kvseg[self.decode_rank(d), :pool_elems].view(
-                        self.pages_per_rank, self.shard_layout.page_elems),
-                )
-                for d in range(n_decode)
+                pool_lib.PagedKVStore(self.shard_layout, self.pages_per_rank,
+                                      mem=self.shard_mems[g][0])
+                for g in range(self.n_groups)
             ]
-            self.decode_servers = [
-                PooledDecodeServer(
-                    model, ctx, params, decode_batch, cache_len,
-                    store=self.stores[d], eos_id=eos_id, device=self.device,
-                    on_page_shortage=(
-                        lambda rid, need, d=d: self._decode_shortage(d, rid, need)
-                    ),
-                )
-                for d in range(n_decode)
-            ]
+
+            def shortage(g):
+                return lambda rid, need: self._decode_shortage(g, rid, need)
+
+            if tp > 1:
+                self.decode_servers = [
+                    TPPooledDecodeServer(
+                        model, ctx, params, decode_batch, cache_len,
+                        store=self.stores[g], shard_mems=self.shard_mems[g],
+                        tp=tp, tp_backend=self.tp_backend, costs=costs,
+                        eos_id=eos_id, device=self.device,
+                        on_page_shortage=shortage(g),
+                    )
+                    for g in range(self.n_groups)
+                ]
+            else:
+                self.decode_servers = [
+                    PooledDecodeServer(
+                        model, ctx, params, decode_batch, cache_len,
+                        store=self.stores[g], eos_id=eos_id,
+                        device=self.device, on_page_shortage=shortage(g),
+                    )
+                    for g in range(self.n_groups)
+                ]
         else:
             self.stores = []
+            self.shard_mems = []
             self.decode_servers = [
                 Server(model, ctx, params, decode_batch, cache_len,
                        eos_id=eos_id, device=self.device)
@@ -343,9 +389,10 @@ class DisaggCluster:
         # one in-flight push per prefill worker: (request, pool, slot,
         # block, admit plan)
         self.pending_push: List[Optional[Tuple]] = [None] * n_prefill
-        self.staged: List[Dict[int, int]] = [dict() for _ in range(n_decode)]
+        self.staged: List[Dict[int, int]] = [
+            dict() for _ in range(self.n_groups)]
         self._done_queue: List[Tuple[int, int, int]] = []  # (d, rid+1, origin)
-        self._finished_seen = [0] * n_decode
+        self._finished_seen = [0] * self.n_groups
         self._rr_decode = 0
         self.kv_transfers = 0
         self.transfer_programs = 0
@@ -385,9 +432,14 @@ class DisaggCluster:
     # role views
     # ------------------------------------------------------------------ #
     def decode_rank(self, d: int) -> int:
-        """Rank of decode pool ``d``: its segment backs the pool's store
-        and it receives the pool's control-plane AMs."""
-        return self.n_prefill + d
+        """Rank of decode GROUP ``d``'s leader (its only member at tp=1):
+        the rank whose segment backs the group's store and which receives
+        the group's control-plane AMs."""
+        return self.group_leaders[d]
+
+    def member_rank(self, g: int, s: int) -> int:
+        """Rank of member ``s`` of decode group ``g`` (its head shard)."""
+        return self.group_leaders[g] + s
 
     def memory_rank(self, m: int) -> int:
         return self._memory_base + m
@@ -433,8 +485,12 @@ class DisaggCluster:
             # data plane: planned segmented split-phase puts
             handles = []
             if self.paged:
-                # one pred-gated put per page, landing at the allocator's
-                # slot; prefix-shared pages trace with pred=False
+                # one pred-gated put per page PER HEAD SHARD, each shard
+                # landing at the allocator's slot of its group member's
+                # segment (the same offset on every member: the
+                # partitions are congruent); ``perm`` holds one
+                # permutation per shard; prefix-shared pages trace with
+                # pred=False
                 for s, pm in enumerate(perm):
                     for j in range(self.playout.n_pages):
                         hs, _ = kv_lib.push_block(
@@ -502,12 +558,15 @@ class DisaggCluster:
         flag), of a vectored put (payloads and command block as one) and
         of each leg of a vectored get is one ``perm_put`` of all ranks;
         each of the AM flush's two routes (request and reply) moves 5
-        fields with n - 1 ``ring_shift`` each."""
+        fields with n - 1 ``ring_shift`` each.  A paged push moves every
+        page once per head shard (``tp`` times).  The TP groups' decode
+        all-reduces are not transfer kernels: they run inside the decode
+        step (``launch.serve._tp_paged_decode_fn``)."""
         if "gascore" not in self._backends:
             return {}
         seg = kv_lib.segment_bounds
         if self.paged:
-            puts = self.playout.n_pages * len(
+            puts = self.tp * self.playout.n_pages * len(
                 seg(self.shard_layout.page_elems, self.plan.n_segments))
             batches = len(seg(self.max_swap, self.swap_plan.n_segments))
         else:
@@ -591,9 +650,12 @@ class DisaggCluster:
                     self.health.first_token(req.rid, req.t_first)
             if self.paged:
                 # the allocator assigns the pages now (host control
-                # plane); the payloads go one-sided into those slots
+                # plane); the payloads go one-sided into those slots,
+                # each page pre-striped by heads for the group's members:
+                # (tp, n_pages, shard_page_elems), the identity at tp=1
                 pages = self.playout.flatten(caches_one)
-                shards = pages[None]  # (tp=1, n_pages, page_elems)
+                shards = (pages[:, self._cols].transpose(0, 1)
+                          if self.tp > 1 else pages[None])
                 plan = self.stores[d].plan_admit(req.prompt, lazy=True)
                 self.stores[d].commit(req.rid, plan)
                 self.pending_push[p] = (req, d, slot, shards, plan)
@@ -725,16 +787,21 @@ class DisaggCluster:
 
     def _apply_decode_writes(self) -> None:
         """Write this tick's decode-written pages back into the pool
-        segment (device to device), before any swap-out reads them.
-        Transfer targets are disjoint from decode write pages: admission
-        puts and swap-in installs land only in freshly allocated pages,
-        and swap-out destinations live on memory ranks."""
+        segment (device to device), before any swap-out reads them —
+        every member's head shard of them in a TP group.  Transfer
+        targets are disjoint from decode write pages: admission puts and
+        swap-in installs land only in freshly allocated pages, and
+        swap-out destinations live on memory ranks."""
         for g, server in enumerate(self.decode_servers):
             rows = server.drain_dirty()
             if rows:
-                idx = torch.tensor(list(rows), dtype=torch.int64,
-                                   device=self.device)
-                self.stores[g].mem[idx] = torch.stack(list(rows.values()))
+                idx = self._tensor(np.asarray(list(rows), np.int64))
+                stacked = torch.stack(list(rows.values()))
+                if self.tp > 1:  # (m, tp, shard_elems): one per member
+                    for s, mem in enumerate(self.shard_mems[g]):
+                        mem[idx] = stacked[:, s]
+                else:
+                    self.stores[g].mem[idx] = stacked
 
     def _run_resumes(self) -> None:
         """Stage swap-ins: a swapped-out request resumes onto the decode
@@ -802,8 +869,13 @@ class DisaggCluster:
                 and not self._fetch_jobs):
             return None
         if self.paged:
-            perm = (kv_lib.handoff_permutation(
-                self.n, {p: self.decode_rank(d) for p, (_, d, _, _, _) in pushes}),)
+            # one handoff permutation per head shard: prefill rank p's
+            # shard-s slice goes to member s of its target group
+            perm = tuple(
+                kv_lib.handoff_permutation(
+                    self.n, {p: self.member_rank(d, s)
+                             for p, (_, d, _, _, _) in pushes})
+                for s in range(self.tp))
         else:
             perm = kv_lib.handoff_permutation(
                 self.n, {p: self.decode_rank(d) for p, (_, d, _, _, _) in pushes})

@@ -562,8 +562,6 @@ def test_swap_out_of_a_page_written_that_tick(models):
 
 
 def test_out_of_slice_paths_raise_naming_their_roadmap_item(models):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _cluster(models, paged=True, tp=2)
     with pytest.raises(NotImplementedError, match="item 7"):
         _cluster(models, paged=True, n_spare=1)
     cluster = _cluster(models, paged=True, page_tokens=PAGE,

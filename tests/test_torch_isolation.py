@@ -34,12 +34,14 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
         capture_output=True, text=True, timeout=120, env=env, cwd=ROOT,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    # every module of slices 1-5 was imported (the GAS substrate, its
+    # every module of slices 1-12 was imported (the GAS substrate, its
     # kernels, the simulator, the node map and the examples among them; the
     # training path: flash-attention kernels, AdamW, data, checkpoints,
     # trainer and its entry point; the scan kernels' wrappers and the
     # falcon-mamba and recurrentgemma configs; the router kernel's wrapper
-    # and the kimi-k2 and arctic configs)
+    # and the kimi-k2 and arctic configs; slice 11's cluster, tier, health
+    # and heartbeat; slice 12's tensor-parallel groups, parallel/tp.py and
+    # testing/tp_suite.py)
     assert int(proc.stdout.split()[-1]) >= 61
 
 

@@ -962,3 +962,262 @@ def test_cuda_cluster_plans_with_this_cards_measured_costs(cuda):
             assert np.isfinite(v) and v >= 0.0
         assert c.alpha_us > 0.0 and c.beta_us_per_kib + c.gamma_us_per_kib > 0.0
     assert cluster.scheduler.cost == costs["xla"]
+
+
+# --------------------------------------------------------------------------- #
+# split phase on the side stream; no host sync on the GAS programs' path
+# --------------------------------------------------------------------------- #
+GAS_BACKENDS = ["xla", "gascore", "xla,gascore"]
+
+
+def _gas_programs(cuda, backend):
+    """A ring program (segmented ring all-reduce, the planned all-reduce,
+    the all-n-1-puts exchange), a vectored get of host-listed offsets and
+    a put at a host int offset with a host bool flag, on 8 ranks; each
+    returns its rank-stacked result."""
+    from repro_torch.core import collectives, gasnet, sched
+
+    n = 8
+    ctx = gasnet.Context(n, backend=backend, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((n * n * 4, 64), generator=g, device=cuda)
+    seg = torch.randn((n, 4096), generator=g, device=cuda)
+    data = torch.randn((n, 96), generator=g, device=cuda)
+
+    def ring(node, v):
+        e = node.engine
+        return torch.cat([
+            collectives.segmented_ring_all_reduce(e, v, n_segments=2, depth=2),
+            sched.all_reduce(e, v), collectives.exchange(e, v)])
+
+    def vget(node, s):
+        return node.get_v(s, frm=gasnet.Shift(3), indices=[0, 512, 1030],
+                          size=256)[None]
+
+    def put(node, s, d):
+        return node.put(s, d[0], to=gasnet.Shift(1), index=8, pred=True)
+
+    return [lambda: ctx.spmd(ring, x), lambda: ctx.spmd(vget, seg),
+            lambda: ctx.spmd(put, seg, data)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", GAS_BACKENDS)
+def test_cuda_gas_programs_make_no_host_sync_after_warmup(cuda, backend):
+    """After one warm-up call (kernels built, index constants cached), a
+    ring program, a vectored get and a put run under sync debug mode
+    "error", which raises on any host wait: index lists, offsets and
+    flags no longer cross from pageable host memory.  The same
+    bytes as the warm-up.  The results are compared (a host read) after
+    the guarded region; nothing inside it reads the device."""
+    programs = _gas_programs(cuda, backend)
+    warm = [p() for p in programs]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [p() for p in programs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for a, b in zip(got, warm):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", GAS_BACKENDS)
+def test_cuda_distinct_index_lists_make_no_host_sync(cuda, backend):
+    """Vectored gets at index lists never seen before, under sync debug
+    mode "error": each list is staged in pinned memory and copied without
+    the host waiting, and none is kept in the constant cache.  The
+    results are read after the guarded region."""
+    from repro_torch import compat
+    from repro_torch.core import gasnet
+
+    n, S = 4, 2048
+    ctx = gasnet.Context(n, backend=backend, device=cuda)
+    seg = torch.randn((n, S), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    lists = [[(37 * i + 101 * j) % (S - 16) for j in range(3)]
+             for i in range(12)]
+
+    def vget(idx):
+        return ctx.spmd(lambda node, s: node.get_v(
+            s, frm=gasnet.Shift(1), indices=idx, size=16).reshape(1, -1), seg)
+
+    vget([0, 1, 2])  # warm-up: kernels built, constants cached
+    cached = len(compat._CONSTS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [vget(idx) for idx in lists]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert len(compat._CONSTS) == cached
+    for idx, out in zip(lists, got):
+        want = torch.stack([torch.cat([seg[(r + 1) % n, k:k + 16]
+                                       for k in idx]) for r in range(n)])
+        assert torch.equal(_bits(out), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", GAS_BACKENDS)
+def test_cuda_split_phase_transfer_runs_beside_the_current_stream(cuda,
+                                                                   backend):
+    """A ``shift_nb`` completes on the side stream while the current
+    stream is still busy (a sleep kernel queued after the initiation),
+    without a host sync; ``wait()`` then orders the current stream after
+    it, and the bytes are the blocking shift's."""
+    import time
+
+    from repro_torch.core import gasnet
+
+    n = 4
+    x = torch.randn((n, 1 << 20), device=cuda)
+    ctx = gasnet.Context(n, backend=backend, device=cuda)
+    want = ctx.spmd(lambda node, v: node.engine.shift(v, 1), x)
+    seen = {}
+
+    def prog(node, v):
+        p = node.engine.shift_nb(v, 1)
+        torch.cuda._sleep(1 << 28)  # the current stream: ~0.1 s busy
+        busy = torch.cuda.Event()
+        busy.record()
+        t0 = time.monotonic()
+        while not all(ev.query() for ev in p.events):
+            assert time.monotonic() - t0 < 30, "the transfer never ran"
+        seen["beside"] = not busy.query()
+        seen["events"] = len(p.events)
+        return p.wait()
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ctx.spmd(prog, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert seen["events"] == (2 if "," in backend else 1)
+    assert seen["beside"], "the transfer waited for the current stream"
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", GAS_BACKENDS)
+def test_cuda_split_phase_input_freed_after_initiation(cuda, backend):
+    """Allocator stress: the payload is freed right after initiation, while
+    the side stream has not read it yet (it sleeps first), and the current
+    stream at once fills a tensor of the same size (the freed block, were
+    it handed out again).  The transfer must deliver the payload's bytes:
+    the input is recorded on the side stream."""
+    from repro_torch.core import gasnet
+    from repro_torch.core.engine import side_stream
+
+    n, elems = 4, 1 << 22
+    x = torch.randn((n, elems), device=cuda)
+    ctx = gasnet.Context(n, backend=backend, device=cuda)
+    side = side_stream(cuda)
+
+    def prog(node, v):
+        src = v * 3.0  # made on the current stream, owned by the program
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(1 << 27)  # the side stream's read comes late
+        p = node.engine.shift_nb(src, 1)
+        del src
+        junk = torch.full_like(v, 7.0)
+        return p.wait(), junk
+
+    for _ in range(3):
+        got, junk = ctx.spmd(prog, x, out_specs=(gasnet.P("node"),) * 2)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(ref.ring_shift(x * 3.0, 1)))
+        assert bool((junk == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention_vmap_rule_one_launch_per_group(cuda, dtype):
+    """Paged attention under vmap over 2 ranks (a TP group's rank-stacked
+    pools, one layer of each): ONE launch, each rank's output equal to
+    the plain version on its own pool."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    tp, L, P, T, KH, D, B, H, NP = 2, 3, 41, 16, 4, 128, 8, 16, 10
+    k = torch.randn((tp, L, P, T, KH, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((tp, L, P, T, KH, D), generator=g, device=cuda).to(dtype)
+    q = torch.randn((tp, B, H, D), generator=g, device=cuda).to(dtype)
+    table = torch.randint(0, P, (B, NP), generator=g, device=cuda,
+                          dtype=torch.int32)
+    lens = torch.randint(0, NP * T + 1, (B,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    before = pa.paged_attention.launches
+    got = torch.func.vmap(lambda q, k, v: ops.paged_attention(
+        q, k[2], v[2], table, lens))(q, k, v)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    for r in range(tp):
+        want = ref.paged_attention(q[r], k[r, 2], v[r, 2], table, lens)
+        torch.testing.assert_close(got[r].float(), want.float(), atol=atol,
+                                   rtol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_tp_suite(cuda):
+    """The TP suite on the card at the SMOKE width: the group all-reduce
+    bitwise on the three backends, ``TPPagedServer`` (tp=2) and a cluster
+    with a tp=2 decode group token-identical to tp=1; one paged-attention
+    launch per layer per TP decode step."""
+    from repro_torch.configs.registry import SMOKE
+    from repro_torch.launch.serve import TPPagedServer
+    from repro_torch.models.build import build_model
+    from repro_torch.parallel.ctx import RunCtx
+    from repro_torch.testing import tp_suite
+
+    tp_suite.all_reduce_parity(cuda)
+    model, ctx = build_model(SMOKE["qwen3-4b"]), RunCtx()
+    params = model.init(ctx, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    tp_suite.server_parity(model, ctx, params, cuda,
+                           backends=("xla", "gascore", "xla,gascore"))
+    srv = TPPagedServer(model, ctx, params, 3, 32, tp=2, tp_backend="gascore",
+                        device=cuda, page_tokens=8)
+    before = pa.paged_attention.launches
+    tp_suite._serve(srv, tp_suite.smoke_requests(model.cfg.vocab))
+    assert (pa.paged_attention.launches - before
+            == model.cfg.n_layers * srv.paged_decode_steps)
+    tp_suite.cluster_parity(model, ctx, params, cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_and_dense_decode_make_no_host_sync(cuda):
+    """A qwen3-4b (SMOKE) prefill and a dense decode step enqueue without a
+    host wait once warm (sync debug mode "error"); the tokens the server
+    reads from the logits (a host read, as in the reference) are read
+    after the guarded region."""
+    from repro_torch.configs.registry import SMOKE
+    from repro_torch.models.build import build_model
+    from repro_torch.parallel.ctx import RunCtx
+
+    model, ctx = build_model(SMOKE["qwen3-4b"]), RunCtx()
+    params = model.init(ctx, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    toks = torch.randint(0, 512, (1, 13), device=cuda, dtype=torch.int32)
+
+    def run():
+        logits, caches = model.prefill(params, ctx, {"inputs": toks},
+                                       cache_len=32)
+        nxt = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+        pos = torch.full((1,), 13, dtype=torch.int32, device=cuda)
+        step, _ = model.decode_step(params, ctx, nxt, pos, caches)
+        return logits, step
+
+    warm = run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for a, b in zip(got, warm):
+        assert torch.equal(a, b)
