@@ -70,6 +70,16 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              same way to a tp=1 cluster (f32); bf16 tok/s beside
              ``PagedServer``'s; one paged-attention launch a layer a step
              (the vmap rule folds the ranks into the kernel's batch).
+6c. serve_ft — fault-tolerant elastic serving of qwen3-4b at full width
+             and depth in f32 (its own seeded weights): the fault suite's
+             kill-decode mid-handoff (1 prefill "xla", 2 decode and 2
+             memory "gascore" ranks, 2 tier replicas, 1 spare), quorum
+             restore, elastic join, heartbeat delay and chaos(0), each
+             against its no-failure twin (identical tokens but at counted
+             near ties); kills under sync debug mode, one flight dump a
+             death, a valid exported trace, launches per kernel equal to
+             the clusters' schedule; ticks from kill to detection, the
+             death tick's wall beside a normal tick's, recovered counts.
 7. flash   — the flash-attention forward, dK/dV and dQ kernels against
              their plain versions at qwen3-4b's training shape (batch 2 x
              seq 2048, 32 q / 8 KV heads of dim 128, causal) in bf16 and
@@ -180,6 +190,7 @@ from repro_torch.kernels import rglru  # noqa: E402
 from repro_torch.kernels import ssm_scan  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     PagedServer, Request, Server, TPPagedServer)
+from repro_torch.obs import export as obs_export  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serving import pool as pool_lib  # noqa: E402
 from repro_torch.serving.disagg import DisaggCluster  # noqa: E402
@@ -188,6 +199,7 @@ from repro_torch.models.build import build_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.ctx import RunCtx  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.testing import fault_suite  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -1514,6 +1526,219 @@ def serve_tp_phase(served):
     launches = {k: v for k, v in total.items() if k in DISAGG_KERNELS}
     rec["launches"] = launches
     emit(rec)
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# fault-tolerant elastic serving (serving/disagg.py, testing/fault_suite.py)
+# --------------------------------------------------------------------------- #
+# the suite's mix at the serve cell's pages and cache: even rids share a
+# 64-token prefix, prompts of 48-128 tokens, 16-32 new tokens; the quorum
+# scenario's burst on act 3's pool (one request's full cache) with act
+# 3's decode batch
+FT_SIZE = fault_suite.Size(
+    page_tokens=PAGE_TOKENS, cache_len=CACHE_LEN, decode_batch=2,
+    n_requests=6, shared_pages=SHARED // PAGE_TOKENS,
+    even_tail=(1, PROMPT_LEN - SHARED + 1), private_len=(48, PROMPT_LEN + 1),
+    max_new=(16, 33), burst_scale=4, quorum_pages=CACHE_LEN // PAGE_TOKENS,
+    quorum_batch=BATCH)
+FT_BACKENDS = dict(prefill_backend="xla", decode_backend="gascore",
+                   memory_backend="gascore")
+FT_SEED = 0  # chaos(0)
+
+
+def sync_free(fn):
+    """``fn`` wrapped to run under sync debug mode "error" on the card (a
+    host wait inside raises), with no synchronisation around it: a
+    transfer may still be in flight on the side stream."""
+    def call(*a, **kw):
+        if not torch.cuda.is_available():
+            return fn(*a, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return call
+
+
+class FTWatch:
+    """How the ``serve_ft`` phase runs a scenario's two clusters (the
+    suite's ``run``) and holds the faulted tokens to the twin's (its
+    ``parity``).  Both runs: the host tracer on (its registry the
+    cluster's, so ``export.validate`` checks RMA bytes against the
+    counters), launches per kernel equal to the cluster's schedule (its
+    transfer programs' kernels, one paged attention a layer a paged decode
+    step).  The twin's decode servers keep their logit rows, the faulted
+    run's are compared to them (``TieGate``: F3's rule; replayed rows of a
+    recompute-resume are checked by the server itself, token for token).
+    The faulted run: every kill under sync debug mode, a dead group's
+    server stepping no more after its kill, one flight dump per death, a
+    valid exported trace; its figures are kept in ``record``."""
+
+    def __init__(self, name, counter=all_counts):
+        self.name, self.counter = name, counter
+        self.gate, self.record, self.launches = None, {}, []
+
+    def run(self, label, model, ctx, params, reqs, hook=None, **kw):
+        if label == "twin":
+            self.gate = TieGate()
+        look = self.gate.keep if label == "twin" else self.gate.compare
+
+        def on_step(server, live, logits):
+            look(server, [i for i in live if not server.replaying.get(i)],
+                 logits)
+
+        def setup(cluster):
+            for srv in cluster.decode_servers:
+                srv.on_step = on_step
+
+        frozen = {}
+
+        def watched(cluster, phase, tick):
+            down = {g for g in range(cluster.n_groups)
+                    if cluster._group_down(g)}
+            sync_free(hook)(cluster, phase, tick)
+            for g in range(cluster.n_groups):
+                if cluster._group_down(g) and g not in down:
+                    frozen[g] = cluster.decode_servers[g].paged_decode_steps
+
+        tracer = obs_trace.enable(obs_trace.Tracer(capacity=1 << 20))
+        before = self.counter()
+        try:
+            cl, stats, toks = fault_suite.run_cluster(
+                model, ctx, params, reqs, hook=watched if hook else None,
+                setup=setup, metrics=tracer.registry, **kw)
+        finally:
+            obs_trace.disable()
+        got = {k: v - before[k] for k, v in self.counter().items()}
+        want = {**dict.fromkeys(got, 0), **stats["transfer_launches"],
+                "paged_attention": model.cfg.n_layers
+                * stats["decode_paged_steps"]}
+        if got != want:
+            raise AssertionError(f"{self.name} {label}: launches {got}, "
+                                 f"schedule says {want}")
+        self.launches.append(got)
+        still = {g: cl.decode_servers[g].paged_decode_steps for g in frozen}
+        if still != frozen:
+            raise AssertionError(f"{self.name}: a dead group stepped on: "
+                                 f"{frozen} at its kill, {still} at the end")
+        ticks = {e.tick0: e.dur_us / 1e3
+                 for e in tracer.spans(cat="tick", name="tick")}
+        if label == "twin":
+            self.twin_ticks = ticks
+            self.record["twin_ticks"] = len(ticks)
+            return cl, stats, toks
+        phases = {}
+        for e in tracer.spans(cat="tick_phase"):
+            phases.setdefault(e.tick0, {})[e.name] = e.dur_us / 1e3
+        problems = obs_export.validate(obs_export.chrome_trace(tracer),
+                                       tracer.registry)
+        if problems:
+            raise AssertionError(f"{self.name}: the exported trace is "
+                                 f"invalid: {problems[:5]}")
+        deaths = [e.tick0 for e in tracer.events
+                  if e.cat == "ft" and e.name == "rank_death"]
+        if len(cl.flight_dumps) != stats["rank_failures"] or len(deaths) != (
+                stats["rank_failures"]):
+            raise AssertionError(
+                f"{self.name}: {stats['rank_failures']} deaths, "
+                f"{len(deaths)} traced, {len(cl.flight_dumps)} flight dumps")
+        kills = hook.log if hook else []
+        normal = [ms for t, ms in ticks.items() if t not in deaths]
+        self.record.update({
+            "ticks": len(ticks), "kills": [list(k) for k in kills],
+            "detected_at": deaths,
+            "ticks_to_detection": [d - k[0] for d, k in zip(deaths, kills)],
+            "kill_tick_ms": [ticks[k[0]] for k in kills],
+            "death_tick_ms": [ticks[d] for d in deaths],
+            "death_tick_phases_ms": [phases[d] for d in deaths],
+            "twin_tick_ms_at_death": [self.twin_ticks.get(d) for d in deaths],
+            "normal_tick_ms_median": float(np.median(normal)),
+            "flight_dump_events": [len(d["events"]) for d in cl.flight_dumps],
+            "trace_events": len(tracer.events),
+            "launches": got,
+            **{k: stats[k] for k in (
+                "rank_failures", "recovered_reroutes", "recovered_recompute",
+                "elastic_joins", "migrated_prefix_pages", "decode_paged_steps",
+                "sched_swaps", "tier_quorum_restores", "tok_per_s", "wall_s")
+               if k in stats},
+        })
+        return cl, stats, toks
+
+    def parity(self, base, got, what):
+        self.record.update(self.gate.verdict(what, base, got))
+
+
+def ft_scenarios(model, ctx, params, size, device, counter=all_counts):
+    """The fault suite's scenarios 1-4 and ``chaos(FT_SEED)`` on ``model``
+    at ``size`` on ``device``, each run through an ``FTWatch``.  Returns
+    each scenario's record and every run's launches per kernel."""
+    kw = dict(size=size, device=device, **FT_BACKENDS)
+    plan = {
+        "kill_decode": lambda w: fault_suite.scenario_kill_decode(
+            model, ctx, params, run=w.run, parity=w.parity, **kw),
+        "quorum_restore": lambda w: fault_suite.scenario_quorum_restore(
+            model, ctx, params, run=w.run, parity=w.parity, **kw),
+        "elastic_join": lambda w: fault_suite.scenario_elastic_join(
+            model, ctx, params, run=w.run, parity=w.parity, **kw),
+        "heartbeat_delay": lambda w: fault_suite.scenario_heartbeat_delay(
+            model, ctx, params, run=w.run, parity=w.parity, **kw),
+        "chaos": lambda w: fault_suite.scenario_chaos(
+            model, ctx, params, FT_SEED, run=w.run, parity=w.parity, **kw),
+    }
+    records, launches = {}, []
+    for name, go in plan.items():
+        watch = FTWatch(name, counter)
+        out = go(watch)
+        rec = watch.record
+        if name == "kill_decode" and rec["kills"][0][1] != "pre_consume":
+            raise AssertionError(f"kill_decode: not mid-handoff: {rec}")
+        if name == "elastic_join":
+            rec["served_on_joined"] = out["served_on_joined"]
+        records[name] = rec
+        launches.extend(watch.launches)
+        del out
+        pygc.collect()
+    return records, launches
+
+
+def serve_ft_phase(served=None):
+    """Fault-tolerant elastic serving of qwen3-4b at full width and depth
+    in f32 (a seeded model of its own, ~16 GB, freed after), every rank on
+    this card: the fault suite's kill-decode mid-handoff (1 prefill "xla",
+    2 decode "gascore", 2 memory "gascore" with 2 replicas, 1 spare),
+    quorum restore, elastic join, heartbeat delay and ``chaos(0)``, each
+    against its no-failure twin (``FTWatch``).  Clusters plan with this
+    card's measured transport constants.  The counts are set to 0 at the
+    phase's start; its launches are the sum of its runs'."""
+    cfg = (served["model"].cfg if served is not None
+           else ARCHS["qwen3-4b"])
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model, ctx = build_model(cfg32), RunCtx()
+    params = model.init(ctx, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    # the transport constants the clusters plan with, measured once a
+    # process (timed puts): before the counts are set to 0
+    sched.measure_costs("cuda", ("xla", "gascore"))
+    reset_counts()
+    pa.paged_attention.launches = 0  # the phase's path starts here
+    t0 = time.perf_counter()
+    records, runs = ft_scenarios(model, ctx, params, FT_SIZE, "cuda")
+    wall = time.perf_counter() - t0
+    del model, params
+    pygc.collect()
+    torch.cuda.empty_cache()
+    total = all_counts()
+    if total != {k: sum(r[k] for r in runs) for k in total}:
+        raise AssertionError(f"serve_ft launched {total}, its runs {runs}")
+    launches = {k: v for k, v in total.items() if k in DISAGG_KERNELS}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"serve_ft never launched: {launches}")
+    emit({"phase": "serve_ft", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": "float32", "card": card(),
+          "size": dataclasses.asdict(FT_SIZE), "backends": FT_BACKENDS,
+          "wall_s": wall, "scenarios": records, "launches": launches})
     return launches
 
 
@@ -3021,6 +3246,7 @@ def main():
     launches = served["launches"]
     disagg_launches = serve_disagg_phase(served)
     tp_launches = serve_tp_phase(served)
+    ft_launches = serve_ft_phase(served)
     del served
     pygc.collect()
     torch.cuda.empty_cache()
@@ -3044,7 +3270,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:184",
         "launches": launches + disagg_launches["paged_attention"]
-        + overlap_launches["paged_attention"] + tp_launches["paged_attention"],
+        + overlap_launches["paged_attention"] + tp_launches["paged_attention"]
+        + ft_launches["paged_attention"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
@@ -3053,7 +3280,8 @@ def main():
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
         "launches": gas_launches[name] + disagg_launches.get(name, 0)
-        + overlap_launches.get(name, 0) + tp_launches.get(name, 0),
+        + overlap_launches.get(name, 0) + tp_launches.get(name, 0)
+        + ft_launches.get(name, 0),
         **{key: gas_figures[name]["16MiB"][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's

@@ -386,7 +386,8 @@ class PagedServer(Server):
     def __init__(self, model, ctx, params, batch_size: int, cache_len: int,
                  eos_id: int = -1, device: Any = None, page_tokens: int = 8,
                  n_pool_pages: Optional[int] = None,
-                 decode_step_us: float = 2000.0, prefill_us: float = 4000.0):
+                 decode_step_us: float = 2000.0, prefill_us: float = 4000.0,
+                 health: Optional[Any] = None):
         unpaged = sorted(set(model.cfg.layer_kinds()) & UNPAGED_KINDS)
         if unpaged:  # the reference fails here too (no token axis to page)
             raise ValueError(
@@ -414,6 +415,14 @@ class PagedServer(Server):
             page_bytes=self.layout.page_bytes,
             decode_step_us=decode_step_us, prefill_us=prefill_us,
         )
+        # live SLO monitor (``obs.health.HealthMonitor``): tracked per
+        # submit, ticked per step; with its backpressure on, the scheduler
+        # defers below-floor admissions while deadlines are at risk.
+        # Inert (risk 0) for requests without finite deadlines.
+        self.health = health
+        self._tick_no = 0
+        if health is not None and getattr(health, "backpressure", False):
+            self.scheduler.attach_health(health)
         self._by_rid: Dict[int, Request] = {}
         self._preempted: Dict[int, Dict[str, Any]] = {}
         self._decode_paged = _paged_decode_views_fn(
@@ -473,6 +482,8 @@ class PagedServer(Server):
             req.rid, req.slo or SLO(), prompt_len=len(req.prompt),
             now=req.t_enqueue,
         )
+        if self.health is not None:
+            self.health.track(req.rid, req.slo or SLO(), req.t_enqueue)
 
     def _pending(self) -> bool:
         return super()._pending() or bool(self._preempted)
@@ -564,6 +575,8 @@ class PagedServer(Server):
             if tr.enabled:
                 tr.instant("req_first_token", cat="req",
                            rank=self.trace_rank, rid=req.rid)
+            if self.health is not None:
+                self.health.first_token(req.rid, req.t_first)
         if tr.enabled:
             tr.instant("req_admit", cat="req", rank=self.trace_rank,
                        rid=req.rid, slot=slot, position=position)
@@ -721,10 +734,23 @@ class PagedServer(Server):
         return _to_host(logits)
 
     # ------------------------------------------------------------------ #
+    def step(self) -> int:
+        n = super().step()
+        if self.health is not None:
+            self._tick_no += 1
+            self.health.tick(
+                self._tick_no, time.monotonic(),
+                progress={r.rid: len(r.out)
+                          for r in self.active if r is not None},
+            )
+        return n
+
     def _release(self, req: Request) -> None:
         self.store.release(req.rid)
         if req.rid in self._by_rid:
             self.scheduler.on_done(req.rid)
+        if self.health is not None:
+            self.health.retire(req.rid)
 
     def run_until_drained(self, max_ticks: int = 10000) -> Dict[str, Any]:
         stats = super().run_until_drained(max_ticks)

@@ -52,10 +52,22 @@ decode on the current one.
   decode's written pages come back as ``(tp, shard_elems)`` rows, one
   per member.  Not composed with memory ranks (as in the reference).
 
-Out of this slice (they raise ``NotImplementedError`` naming their
-``ROADMAP.md`` queue 1 item): spare ranks, rank kills and recovery,
-elastic join (item 7), and the flight recorder's dump at a rank's death
-(item 8).  The heartbeat runs as in the reference.
+- **Fault tolerance and elasticity** (paged only) — every live rank beats
+  once per tick and the heartbeat monitor declares a rank dead after
+  ``heartbeat_timeout`` missed ticks; recovery then runs by role before
+  any scheduling decision: a dead decode group's in-flight admissions
+  re-route, its residents recompute-resume and its pending restores
+  re-stage; a dead memory rank's requests restore from a surviving
+  replica leg (quorum) or recompute; a dead prefill rank's push is undone
+  and re-queued.  The plans are re-derived over the surviving engine map
+  with the constants the cluster already holds.  At each death the
+  tracer's last ``flight_ticks`` ticks are frozen into ``flight_dumps``
+  (``obs.export.flight_dump``).  ``join_decode_rank`` promotes an idle
+  spare rank (``n_spare``) into a new decode group on its own segment row
+  (the ring never changes size) and migrates the busiest group's prefix
+  index to it over one vectored get.  A killed rank's segment row is
+  poisoned (:data:`POISON_BITS`) so that a recovery path reading a dead
+  rank's bytes breaks token parity instead of passing unseen.
 """
 
 from __future__ import annotations
@@ -67,8 +79,10 @@ import numpy as np
 import torch
 
 from repro_torch.compat import resolve_device
-from repro_torch.core import am, extended, gasnet, sched
+from repro_torch.core import am, extended, gasnet, indexing, sched
+from repro_torch.core import engine as engine_lib
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.obs import export as obs_export
 from repro_torch.obs import health as health_lib
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import Registry, counter_property
@@ -76,13 +90,16 @@ from repro_torch.serving import kv as kv_lib
 from repro_torch.serving import pool as pool_lib
 from repro_torch.serving import tier as tier_lib
 
-__all__ = ["DisaggCluster"]
+__all__ = ["DisaggCluster", "POISON_BITS"]
 
-
-def _todo(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, item {item})"
-    )
+# A dead rank's segment row is filled with this 32-bit word.  The segment
+# is float32 and carries the pool's pages bit for bit, so a page of a
+# narrower dtype sits in its halves or quarters: all ones is a NaN in
+# every lane of every dtype a page can carry -- float32 (exponent all
+# ones, mantissa nonzero), each bfloat16 or float16 half, each 8-bit
+# float quarter -- where float32's quiet NaN 0x7FC00000 leaves its low
+# bfloat16 half 0.0.
+POISON_BITS = -1  # 0xFFFFFFFF as an int32
 
 
 def _merge_landings(landings: List[Tuple[torch.Tensor, ...]]) -> List[Tuple]:
@@ -132,6 +149,11 @@ class DisaggCluster:
     swap_out_bytes = counter_property("swap_out_bytes")
     swap_in_bytes = counter_property("swap_in_bytes")
     transfer_programs = counter_property("transfer_programs")
+    rank_failures = counter_property("rank_failures")
+    recovered_recompute = counter_property("recovered_recompute")
+    recovered_reroutes = counter_property("recovered_reroutes")
+    elastic_joins = counter_property("elastic_joins")
+    migrated_prefix_pages = counter_property("migrated_prefix_pages")
 
     def __init__(
         self,
@@ -164,6 +186,7 @@ class DisaggCluster:
         replicate_all_swaps: bool = False,
         n_spare: int = 0,
         metrics: Optional[Registry] = None,
+        flight_ticks: int = 64,
         device: Any = None,
     ):
         from repro_torch.launch.serve import (
@@ -173,6 +196,8 @@ class DisaggCluster:
 
         if n_memory and not paged:
             raise ValueError("memory ranks require paged=True (page swap)")
+        if n_spare and not paged:
+            raise ValueError("spare ranks require paged=True (elastic join)")
         if tp > 1:
             if not paged:
                 raise ValueError(
@@ -183,15 +208,16 @@ class DisaggCluster:
                 raise ValueError(
                     "TP decode groups not yet composed with memory tiering"
                 )
-        if n_spare:
-            raise _todo("spare ranks and elastic join", 7)
 
         self.device = resolve_device(device)
         self.metrics = metrics if metrics is not None else Registry()
+        self.flight_ticks = flight_ticks
+        self.flight_dumps: List[Dict[str, Any]] = []
         self.model, self.ctx, self.params = model, ctx, params
         self.n_prefill, self.n_decode = n_prefill, n_decode
         self.n_memory = n_memory
-        self.n = n_prefill + n_decode + n_memory
+        self.n_spare = n_spare
+        self.n = n_prefill + n_decode + n_memory + n_spare
         self._memory_base = n_prefill + n_decode
         self.cache_len = cache_len
         self.n_slots = n_slots
@@ -200,10 +226,15 @@ class DisaggCluster:
         self.tp = tp
         self.tp_backend = tp_backend or decode_backend
         self.n_groups = n_decode // tp
+        self._decode_batch = decode_batch
+        self._eos_id = eos_id
 
-        self.roles = mesh_lib.serve_roles(n_prefill, n_decode, n_memory, tp=tp)
+        self.roles = mesh_lib.serve_roles(n_prefill, n_decode, n_memory, tp=tp,
+                                          n_spare=n_spare)
         # decode-group leader ranks: the rank whose segment backs the
-        # group's store and which receives the group's control plane
+        # group's store and which receives the group's control plane; an
+        # elastic join appends a promoted spare, so a group's rank stays a
+        # table read across membership changes
         self.group_leaders = [n_prefill + g * tp for g in range(self.n_groups)]
         self._backends = mesh_lib.role_backends(
             self.roles, prefill=prefill_backend, decode=decode_backend,
@@ -332,13 +363,10 @@ class DisaggCluster:
 
         # ---- pools ------------------------------------------------------
         if paged:
-            pool_elems = self.pages_per_rank * self.shard_layout.page_elems
             # every member's pool partition, a view of its segment row
             # (entry 0, the leader's, backs the group's store)
             self.shard_mems = [
-                [self.kvseg[self.member_rank(g, s), :pool_elems].view(
-                    self.pages_per_rank, self.shard_layout.page_elems)
-                 for s in range(tp)]
+                [self._pool_view(self.member_rank(g, s)) for s in range(tp)]
                 for g in range(self.n_groups)
             ]
             self.stores = [
@@ -427,6 +455,17 @@ class DisaggCluster:
         )
         self.fault_hook = None  # callable(cluster, phase, tick)
         self.beat_filter = None  # callable(rank, tick) -> bool
+        self.killed: set = set()  # fault injection: ranks that stopped
+        self.dead_ranks: set = set()  # declared dead by the monitor
+        self.dead_groups: set = set()  # decode groups with a dead member
+        self.rank_failures = 0
+        self.recovered_recompute = 0
+        self.recovered_reroutes = 0
+        self.elastic_joins = 0
+        self.migrated_prefix_pages = 0
+        # in-flight prefix-index migration to a freshly joined group:
+        # {"donor": g, "n": pages} until its vectored get lands
+        self._pending_migration: Optional[Dict[str, int]] = None
 
     # ------------------------------------------------------------------ #
     # role views
@@ -444,8 +483,38 @@ class DisaggCluster:
     def memory_rank(self, m: int) -> int:
         return self._memory_base + m
 
+    def _group_down(self, g: int) -> bool:
+        """True when any member rank of decode group ``g`` is killed or
+        declared dead: a TP group fails as a unit."""
+        if g in self.dead_groups:
+            return True
+        return any(self.member_rank(g, s) in self.killed
+                   or self.member_rank(g, s) in self.dead_ranks
+                   for s in range(self.tp))
+
+    def _pool_view(self, rank: int) -> torch.Tensor:
+        """Rank ``rank``'s pool partition: a ``(pages, page_elems)`` view
+        of its segment row, never a copy."""
+        pool_elems = self.pages_per_rank * self.shard_layout.page_elems
+        return self.kvseg[rank, :pool_elems].view(
+            self.pages_per_rank, self.shard_layout.page_elems)
+
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _poison(self, ranks) -> None:
+        """Fill the segment rows of ``ranks`` with :data:`POISON_BITS`, on
+        the current stream after every transfer enqueued on the side
+        stream so far (its reads and landings come first); the host does
+        not wait."""
+        if not ranks:
+            return
+        if self.kvseg.is_cuda:
+            torch.cuda.current_stream(self.device).wait_stream(
+                engine_lib.side_stream(self.device))
+        bits = self.kvseg.view(torch.int32)
+        for r in sorted(ranks):
+            bits[r].fill_(POISON_BITS)
 
     # ------------------------------------------------------------------ #
     # request intake
@@ -585,9 +654,10 @@ class DisaggCluster:
         """(decode pool index, staging slot) with capacity, round-robin;
         paged mode also needs free pages for an unshared admission and
         prefers the rank holding the longest resident prompt prefix."""
-        order = [(self._rr_decode + i) % self.n_groups
-                 for i in range(self.n_groups)]
-        if self.paged and prompt is not None:
+        order = [d for d in ((self._rr_decode + i) % self.n_groups
+                             for i in range(self.n_groups))
+                 if not self._group_down(d)]
+        if self.paged and prompt is not None and order:
             matches = {d: self.stores[d].prefix_match(prompt) for d in order}
             best = max(matches.values())
             if best > 0:
@@ -621,6 +691,8 @@ class DisaggCluster:
         taken = {push[1] for push in self.pending_push if push is not None}
         order = self._admission_queue()
         for p in range(self.n_prefill):
+            if p in self.killed or p in self.dead_ranks:
+                continue  # dead prefill workers take no new requests
             if self.pending_push[p] is not None or not order:
                 continue
             req = order[0]
@@ -683,6 +755,8 @@ class DisaggCluster:
         slo = getattr(req, "slo", None) or SLO()
         expired = time.monotonic() > req.t_enqueue + slo.ttft_deadline_s
         for d in range(self.n_groups):
+            if self._group_down(d):
+                continue
             shortage = need - self.stores[d].n_free
             if shortage <= 0:
                 continue  # pages are not this rank's blocker (slots are)
@@ -793,6 +867,8 @@ class DisaggCluster:
         swap-in installs land only in freshly allocated pages, and
         swap-out destinations live on memory ranks."""
         for g, server in enumerate(self.decode_servers):
+            if self._group_down(g):
+                continue  # a dead group's writes die with its shard
             rows = server.drain_dirty()
             if rows:
                 idx = self._tensor(np.asarray(list(rows), np.int64))
@@ -823,7 +899,8 @@ class DisaggCluster:
             if snap["position"] % self.playout.page_tokens == 0:
                 need += 1
             best = next((d for d in range(self.n_groups)
-                         if self.stores[d].n_free >= need), None)
+                         if not self._group_down(d)
+                         and self.stores[d].n_free >= need), None)
             if best is None:
                 continue
             phys = self.stores[best].admit_resume(rid, hold.logical)
@@ -849,7 +926,10 @@ class DisaggCluster:
                 row = next(ix for ix, r in enumerate(server.active)
                            if r is not None and r.rid == rid)
                 server.start_replay(row, snap["replay"])
-            self.tier.release(rid)
+            # a memory rank's death may have scrubbed the holding after
+            # the pages landed (they are already safe in the pool)
+            if rid in self.tier.holdings:
+                self.tier.release(rid)
             for s in self.stores:
                 s.note_swap_in(rid)
             del self._installable[rid]
@@ -966,7 +1046,9 @@ class DisaggCluster:
         for kernel, n in self.transfer_kernels(
                 perm_swap is not None, perm_fetch is not None).items():
             self.metrics.counter(f"{kernel}_launches").inc(n)
-        t = self._tensor
+        # int32 rows, page lists among them (chosen per tick, so not
+        # cached): staged through pinned memory, no host wait
+        t = lambda x: indexing.as_i32(x, self.device)  # noqa: E731
         return self.gas.spmd(
             body, self.kvseg, t(self.inbox), t(self.acks), t(self.done),
             outflat, t(meta), t(page_meta), t(done_meta), t(swap_meta),
@@ -978,6 +1060,8 @@ class DisaggCluster:
         newly finished requests as completion reports for the next
         transfer."""
         for d, server in enumerate(self.decode_servers):
+            if self._group_down(d):
+                continue  # a dead rank computes nothing from the kill on
             self.decoded_tokens += server.step()
             fresh = server.finished[self._finished_seen[d]:]
             self._finished_seen[d] = len(server.finished)
@@ -1001,6 +1085,9 @@ class DisaggCluster:
             extended.land(self.kvseg, *cmd)
         if fetched:
             extended.land(self.kvseg, *fetched)
+        # a dead rank's row stays poisoned: the landings may have written
+        # into it (a put to a group killed mid-handoff)
+        self._poison(self.killed | self.dead_ranks)
         sp = getattr(self, "_transfer_span", None)
         if sp is not None:
             self._transfer_span = None
@@ -1019,28 +1106,57 @@ class DisaggCluster:
         # a landed swap-in becomes installable into a decode row
         if self._inflight_swap is not None:
             rid, d, src, legs = self._inflight_swap
-            self.stores[d].note_swap_out(rid, len(src), replicas=len(legs) - 1)
-            self.stores[d].evict_request(rid)
-            self._preempted[rid]["swapped"] = True
             self._inflight_swap = None
+            if self._group_down(d):
+                # the source died mid-put: the tier bytes are not to be
+                # trusted -- requeue; detection turns it into recompute
+                self._swap_jobs.insert(0, (rid, d, src, legs))
+            else:
+                self.stores[d].note_swap_out(rid, len(src),
+                                             replicas=len(legs) - 1)
+                self.stores[d].evict_request(rid)
+                self._preempted[rid]["swapped"] = True
         if self._inflight_fetch is not None:
-            rid, d, remote, local, _ = self._inflight_fetch
-            self.decode_servers[d].mark_stale(
-                [o // self.playout.page_elems for o in local])
-            self._installable[rid] = d
-            self.swap_in_bytes += len(remote) * self.playout.page_bytes
+            job = self._inflight_fetch
+            rid, d, remote, local, src_rank = job
             self._inflight_fetch = None
-        # prefill side: retire acknowledged pushes
+            if (src_rank in self.killed or src_rank in self.dead_ranks
+                    or (rid >= 0 and self._group_down(d))):
+                # source or target died mid-get: the fetched bytes are
+                # poison -- requeue; detection re-stages or recomputes
+                self._fetch_jobs.insert(0, job)
+            else:
+                self.decode_servers[d].mark_stale(
+                    [o // self.playout.page_elems for o in local])
+                self.swap_in_bytes += len(remote) * self.playout.page_bytes
+                if rid < 0:
+                    # a prefix migration landed: the joined group's
+                    # adopted pages hold the donor's bytes -- unpin them
+                    # on the donor
+                    donor = (self._pending_migration or {}).get("donor")
+                    if donor is not None:
+                        self.stores[donor].unpin_pages()
+                    self.migrated_prefix_pages += len(remote)
+                    self._pending_migration = None
+                else:
+                    self._installable[rid] = d
+        # prefill side: retire acknowledged pushes -- never on the word of
+        # a dead group (its program still ran on this device: its acks are
+        # voided here, as on real hardware they would never arrive)
         for p, push in enumerate(self.pending_push):
             if push is None:
                 continue
             req, d, slot, _, _ = push
+            if self._group_down(d):
+                continue
             if int(self.acks[p, slot]) == req.rid + 1:
                 self.kv_acked += 1
                 req.origin_rank = p
                 self.pending_push[p] = None
         # decode side: install staged blocks into servers with free rows
         for d, server in enumerate(self.decode_servers):
+            if self._group_down(d):
+                continue
             rank = self.decode_rank(d)
             for slot in range(self.n_slots):
                 if not int(self.inbox[rank, slot, 0]):
@@ -1078,16 +1194,33 @@ class DisaggCluster:
                                       position=position)
 
     # ------------------------------------------------------------------ #
-    # liveness
+    # fault tolerance: heartbeats, death recovery, elastic scale-out
     # ------------------------------------------------------------------ #
+    def kill_rank(self, rank: int) -> None:
+        """Fault injection: rank ``rank`` stops beating, computing and
+        acknowledging from this instant.  Its segment row is poisoned
+        (:data:`POISON_BITS`, after any transfer in flight has read it) so
+        that a recovery path reading a dead rank's bytes breaks token
+        parity instead of passing unseen.  Detection is automatic within
+        ``heartbeat_timeout`` ticks."""
+        if not self.paged:
+            raise ValueError("fault injection requires paged=True")
+        if not 0 <= rank < self.n:
+            raise ValueError(f"rank {rank} outside the {self.n}-rank ring")
+        self.killed.add(rank)
+        self._poison({rank})
+
     def _heartbeat(self) -> None:
-        """Tick-clocked liveness: every rank beats once per tick (on a
+        """Tick-clocked liveness: every live rank beats once per tick (on a
         real cluster the beat is an AM to the coordinator); the monitor
-        declares a silent rank dead after ``heartbeat_timeout`` ticks."""
+        declares a silent rank dead after ``heartbeat_timeout`` missed
+        ticks, and recovery runs before any scheduling decision."""
         if not self.paged:
             return
         tr = obs_trace.active()
         for r in range(self.n):
+            if r in self.killed or r in self.dead_ranks:
+                continue
             if self.beat_filter is not None and not self.beat_filter(
                     r, self._tick_no):
                 if tr.enabled:
@@ -1098,15 +1231,242 @@ class DisaggCluster:
             self._on_rank_failed(r)
 
     def _on_rank_failed(self, rank: int) -> None:
-        raise _todo(
-            f"recovery from the death of rank {rank} ({self.roles[rank]}) "
-            "and its flight-recorder dump (item 8)", 7)
+        if rank in self.dead_ranks:
+            return
+        self.dead_ranks.add(rank)
+        self.rank_failures += 1
+        role = self.roles[rank]
+        tr = obs_trace.active()
+        if tr.enabled:
+            tr.instant("rank_death", cat="ft", rank=rank, role=role)
+            # flight recorder: the ring's last ticks at the moment of
+            # death, before recovery changes anything
+            self.flight_dumps.append(obs_export.flight_dump(
+                tr, self.flight_ticks, reason=f"rank {rank} ({role}) died",
+                rank=rank))
+        if role == "decode":
+            g = next(g for g, lead in enumerate(self.group_leaders)
+                     if lead <= rank < lead + self.tp)
+            self._recover_decode(g)
+        elif role == "memory":
+            self._recover_memory(rank - self._memory_base)
+        elif role == "prefill":
+            self._recover_prefill(rank)
+        # spares are idle: nothing to recover
+        self._rebuild_plans()
 
-    def kill_rank(self, rank: int) -> None:
-        raise _todo("fault injection (kill_rank)", 7)
+    def _to_recompute(self, rid: int) -> None:
+        """Route a request whose pages (pool or tier) died through the
+        bit-exact recompute-resume path: re-prefill, replay the generated
+        tokens, continue; the tokens already streamed are kept."""
+        req = self.by_rid[rid]
+        snap = self._preempted.get(rid)
+        if snap is None:
+            self._preempted[rid] = {
+                "mode": "recompute", "position": 0, "last_token": 0,
+                "n_mat": 0, "swapped": False, "replay": [],
+            }
+            self.scheduler.on_preempted(rid, "recompute")
+        else:
+            snap["mode"] = "recompute"
+            snap["swapped"] = False
+            snap.pop("staged", None)
+        if req not in self.queue:
+            self.queue.append(req)
+        self.recovered_recompute += 1
+
+    def _recover_decode(self, g: int) -> None:
+        """Decode group ``g`` died: re-route its in-flight admissions,
+        turn its residents into recompute-resumes, re-stage its pending
+        tier restores on surviving groups, and retire its pool shard."""
+        self.dead_groups.add(g)
+        server = self.decode_servers[g]
+        lead = self.decode_rank(g)
+        # pushes to the dead group re-route: their pages never became
+        # visible to a live rank (its acks are voided); the prefill token
+        # they carry is kept, so re-admission elsewhere is bit-exact
+        for p, push in enumerate(self.pending_push):
+            if push is not None and push[1] == g:
+                self.pending_push[p] = None
+                self.queue.append(push[0])
+                self.recovered_reroutes += 1
+        self.staged[g].clear()
+        self.inbox[lead] = 0
+        # completion AMs the dead group can no longer send
+        self._done_queue = [e for e in self._done_queue if e[0] != g]
+        # staged swap-outs from the dead group: the victim's pages lived
+        # in its lost pool -- release the planned tier slots, recompute
+        for job in [j for j in self._swap_jobs if j[1] == g]:
+            self._swap_jobs.remove(job)
+            rid = job[0]
+            if self.tier is not None and rid in self.tier.holdings:
+                self.tier.release(rid)
+            self._to_recompute(rid)
+        # staged fetches into the dead group: the tier copy survives
+        # (holdings release only at install) -- re-stage on a live group
+        for job in [j for j in self._fetch_jobs if j[1] == g]:
+            self._fetch_jobs.remove(job)
+            if job[0] >= 0:
+                self._preempted[job[0]]["staged"] = False
+        # prefix migrations sourced at the dead group: the donor bytes
+        # never arrived -- drop the target's adopted-but-empty pages
+        for job in [j for j in self._fetch_jobs if j[0] < 0 and j[4] == lead]:
+            self._fetch_jobs.remove(job)
+            self.stores[job[1]].release_prefix_cache()
+            self._pending_migration = None
+        # restored-but-not-installed requests on the dead group: re-stage
+        # (their pool copy died with the shard)
+        for rid, d in list(self._installable.items()):
+            if d == g:
+                del self._installable[rid]
+                self._preempted[rid]["staged"] = False
+        # resident rows recover through recompute-resume replay
+        for i, r in enumerate(server.active):
+            if r is None:
+                continue
+            server.evict_row(i)
+            self._to_recompute(r.rid)
+        for req in list(server.queue):
+            server.queue.remove(req)
+            if req not in self.queue:
+                self.queue.append(req)
+        # fresh (empty) bookkeeping over the same segment row, so the
+        # survivor invariants hold and nothing refers to the lost pages
+        self.stores[g] = pool_lib.PagedKVStore(
+            self.shard_layout, self.pages_per_rank, mem=self.shard_mems[g][0])
+        server.store = self.stores[g]
+
+    def _recover_memory(self, m: int) -> None:
+        """Memory rank ``m`` died: scrub its tier placements.  Requests
+        with a surviving replica leg restore from it (the quorum read);
+        requests whose last copy died recompute."""
+        mrank = self.memory_rank(m)
+        handled: set = set()
+        # staged swap-outs with a leg on the dead rank: drop that leg; a
+        # job with no live leg left turns into recompute
+        for job in list(self._swap_jobs):
+            rid, d, src, legs = job
+            live = tuple(leg for leg in legs if leg[0] != mrank)
+            if len(live) == len(legs):
+                continue
+            if live:
+                self._swap_jobs[self._swap_jobs.index(job)] = (
+                    rid, d, src, live)
+            else:
+                self._swap_jobs.remove(job)
+                if not self._group_down(d):
+                    self.stores[d].evict_request(rid)
+                if rid in self.tier.holdings:
+                    self.tier.release(rid)
+                self._to_recompute(rid)
+                handled.add(rid)
+        # staged fetches sourced at the dead rank: undo the target's
+        # resume allocation; the re-stage picks a surviving leg
+        for job in [j for j in self._fetch_jobs
+                    if j[0] >= 0 and j[4] == mrank]:
+            self._fetch_jobs.remove(job)
+            rid, d = job[0], job[1]
+            if not self._group_down(d):
+                self.stores[d].evict_request(rid)
+            self._preempted[rid]["staged"] = False
+        for rid in self.tier.mark_failed(m):
+            if rid in handled or rid in self._installable:
+                continue  # handled above, or already safe in a pool
+            self._to_recompute(rid)
+
+    def _recover_prefill(self, p: int) -> None:
+        """Prefill worker ``p`` died: its push in flight (if any) is undone
+        on the live target and the request re-queued for a surviving
+        worker (the prefill is recomputed: still bit-exact)."""
+        push = self.pending_push[p]
+        if push is None:
+            return
+        req, d, slot, _, _ = push
+        self.pending_push[p] = None
+        if not self._group_down(d):
+            self.stores[d].evict_request(req.rid)
+        self.staged[d].pop(slot, None)
+        if req not in self.queue:
+            self.queue.append(req)
+        self.recovered_reroutes += 1
+
+    def _rebuild_plans(self) -> None:
+        """Re-plan the transfers over the surviving engine map: a dead
+        rank's engine leaves the cost model, so the segment counts derive
+        from the ranks that remain.  The constants are the ones the
+        cluster holds (on the card, measured at construction): nothing is
+        measured in the middle of a recovery.  The launch schedule
+        (:meth:`transfer_kernels`) reads the plans in force each tick."""
+        alive = tuple(b for r, b in enumerate(self._backends)
+                      if r not in self.dead_ranks)
+        if not alive:
+            return
+        engine = engine_lib.make_engine(alive, self.gas.node_axis, len(alive))
+        self.plan = sched.plan_p2p(nbytes=self.shard_layout.page_bytes,
+                                   engine=engine, costs=self.costs)
+        self.swap_plan = sched.plan_p2p(
+            nbytes=self.max_swap * self.playout.page_bytes, engine=engine,
+            costs=self.costs)
 
     def join_decode_rank(self) -> int:
-        raise _todo("elastic scale-out (join_decode_rank)", 7)
+        """Elastic scale-out: promote an idle spare rank into a NEW decode
+        group (``launch.mesh.promote_spare``; the ring never changes size,
+        so every permutation and segment shape stays valid).  The joined
+        group's store is a view of the spare's segment row, and the
+        busiest live group's prefix index migrates to it: entries adopted
+        on the host, page bytes shipped as ONE vectored get on the swap
+        plane.  Returns the promoted rank."""
+        from repro_torch.launch.serve import PooledDecodeServer
+
+        if not self.paged or self.tp != 1:
+            raise ValueError("elastic join requires paged=True and tp == 1")
+        spare = next((r for r, role in enumerate(self.roles)
+                      if role == "spare" and r not in self.killed
+                      and r not in self.dead_ranks), None)
+        if spare is None:
+            raise RuntimeError("no live spare rank to promote")
+        self.roles = mesh_lib.promote_spare(self.roles, spare, to="decode")
+        g = self.n_groups
+        self.group_leaders.append(spare)
+        self.shard_mems.append([self._pool_view(spare)])
+        store = pool_lib.PagedKVStore(self.shard_layout, self.pages_per_rank,
+                                      mem=self.shard_mems[g][0])
+        self.stores.append(store)
+        self.staged.append({})
+        self._finished_seen.append(0)
+        self.n_groups += 1
+        server = PooledDecodeServer(
+            self.model, self.ctx, self.params, self._decode_batch,
+            self.cache_len, store=store, eos_id=self._eos_id,
+            device=self.device,
+            on_page_shortage=lambda rid, need: self._decode_shortage(
+                g, rid, need))
+        server.trace_rank = spare
+        self.decode_servers.append(server)
+        self.elastic_joins += 1
+        tr = obs_trace.active()
+        if tr.enabled:
+            tr.instant("elastic_join", cat="ft", rank=spare, group=g)
+        # prefix-index migration: warm the new pool from the live group
+        # holding the largest index, so affinity routing can target it
+        donor, best = None, 0
+        for d in range(g):
+            if self._group_down(d):
+                continue
+            n = len(self.stores[d].prefix_entries())
+            if n > best:
+                donor, best = d, n
+        if donor is not None and self._pending_migration is None:
+            entries = self.stores[donor].prefix_entries()[: self.max_swap]
+            pairs = store.adopt_prefix(entries)
+            if pairs:
+                self.stores[donor].pin_pages([dp for dp, _ in pairs])
+                remote = [dp * self.playout.page_elems for dp, _ in pairs]
+                local = [lp * self.playout.page_elems for _, lp in pairs]
+                self._fetch_jobs.append(
+                    (-1, g, remote, local, self.decode_rank(donor)))
+                self._pending_migration = {"donor": donor, "n": len(pairs)}
+        return spare
 
     # ------------------------------------------------------------------ #
     def tick(self) -> None:
@@ -1165,6 +1525,7 @@ class DisaggCluster:
             and not self._installable
             and self._inflight_swap is None
             and self._inflight_fetch is None
+            and self._pending_migration is None
         )
 
     def _latencies(self) -> Tuple[List[float], List[float]]:
@@ -1231,6 +1592,11 @@ class DisaggCluster:
                 "pool_free_pages": free_pages,
                 "decode_paged_steps": sum(
                     s.paged_decode_steps for s in self.decode_servers),
+                "rank_failures": self.rank_failures,
+                "recovered_recompute": self.recovered_recompute,
+                "recovered_reroutes": self.recovered_reroutes,
+                "elastic_joins": self.elastic_joins,
+                "migrated_prefix_pages": self.migrated_prefix_pages,
                 "heartbeat_failed": list(self.monitor.failed),
             })
             stats.update(self.scheduler.stats())

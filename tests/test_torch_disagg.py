@@ -561,20 +561,24 @@ def test_swap_out_of_a_page_written_that_tick(models):
         models, [serve.Request(rid=0, prompt=prompt, max_new=12)])
 
 
-def test_out_of_slice_paths_raise_naming_their_roadmap_item(models):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _cluster(models, paged=True, n_spare=1)
-    cluster = _cluster(models, paged=True, page_tokens=PAGE,
-                       heartbeat_timeout=2)
-    for call in (lambda: cluster.kill_rank(0), cluster.join_decode_rank):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
-    cluster.beat_filter = lambda rank, tick: rank != 1  # rank 1 goes silent
-    with pytest.raises(NotImplementedError, match="item 8"):
-        for _ in range(4):
-            cluster.tick()
-    with pytest.raises(ValueError, match="paged"):
-        _cluster(models, n_memory=1)
+@pytest.mark.parametrize("what", ["spares without paged",
+                                  "memory ranks without paged",
+                                  "kill_rank on a dense cluster",
+                                  "join_decode_rank at tp > 1"])
+def test_cluster_refuses_what_the_reference_refuses(models, what):
+    """The reference's refusals (``serving/disagg.py``): spare and memory
+    ranks need the paged pool, fault injection needs it too, and an
+    elastic join makes a tp=1 group only."""
+    calls = {
+        "spares without paged": lambda: _cluster(models, n_spare=1),
+        "memory ranks without paged": lambda: _cluster(models, n_memory=1),
+        "kill_rank on a dense cluster": lambda: _cluster(models).kill_rank(0),
+        "join_decode_rank at tp > 1": lambda: _cluster(
+            models, n_prefill=1, n_decode=2, tp=2, n_spare=1, paged=True,
+            page_tokens=PAGE).join_decode_rank(),
+    }
+    with pytest.raises(ValueError, match="paged|tp == 1"):
+        calls[what]()
 
 
 # --------------------------------------------------------------------------- #

@@ -891,11 +891,10 @@ def _smoke_cluster(cuda, **kw):
     model, ctx = build_model(cfg), RunCtx()
     params = model.init(ctx, torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
-    cluster = DisaggCluster(model, ctx, params, n_prefill=1, n_decode=1,
-                            decode_batch=2, cache_len=48, paged=True,
-                            page_tokens=8, decode_backend="gascore",
-                            memory_backend="gascore", device=cuda, **kw)
-    return cluster
+    shape = dict(n_prefill=1, n_decode=1, decode_batch=2, cache_len=48,
+                 paged=True, page_tokens=8, decode_backend="gascore",
+                 memory_backend="gascore", device=cuda)
+    return DisaggCluster(model, ctx, params, **{**shape, **kw})
 
 
 def _colocated_tokens(cluster, reqs):
@@ -1221,3 +1220,45 @@ def test_cuda_prefill_and_dense_decode_make_no_host_sync(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, warm):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_kill_mid_handoff_poisons_without_a_host_sync(cuda):
+    """On the card: a decode rank killed between a tick's transfer launch
+    and its consume (the mid-handoff window, the transfer possibly still
+    on the side stream) is poisoned with no host wait (sync debug mode
+    "error"); after every later consume its whole row holds the poison
+    word, the segment keeps its storage and every store stays a view of
+    its row; every request still finishes."""
+    from repro_torch.launch.serve import Request
+    from repro_torch.serving.disagg import POISON_BITS
+
+    cluster = _smoke_cluster(cuda, n_decode=2)
+    ptr = cluster.kvseg.data_ptr()
+    rows = [s.mem.data_ptr() for s in cluster.stores]
+    killed = []
+
+    def hook(c, phase, tick):
+        push = next((p for p in c.pending_push if p is not None), None)
+        if phase != "pre_consume" or killed or push is None:
+            return
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            c.kill_rank(c.decode_rank(push[1]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        killed.append(c.decode_rank(push[1]))
+
+    cluster.fault_hook = hook
+    rng = np.random.default_rng(3)
+    for rid in range(4):
+        cluster.submit(Request(rid=rid, max_new=6, prompt=rng.integers(
+            0, 512, size=int(rng.integers(6, 20))).tolist()))
+    stats = cluster.run_until_drained()
+    assert killed and stats["rank_failures"] == 1
+    assert sorted(r.rid for r in cluster.finished) == [0, 1, 2, 3]
+    row = cluster.kvseg[killed[0]]
+    assert bool((row.view(torch.int32) == POISON_BITS).all())
+    assert bool(torch.isnan(row).all())
+    assert cluster.kvseg.data_ptr() == ptr
+    assert [s.mem.data_ptr() for s in cluster.stores] == rows
