@@ -80,6 +80,11 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              death, a valid exported trace, launches per kernel equal to
              the clusters' schedule; ticks from kill to detection, the
              death tick's wall beside a normal tick's, recovered counts.
+6d. profiler — the device-time profiler (``obs/profile.py``): the paged
+             kernel and its plain version at ``profiling_targets``' shapes
+             (``measured="device"``, beside ``device_ms``), then
+             ``PagedServer.profile_decode`` twice mid-serving of phase 5's
+             traffic at full width and depth: tokens equal phase 5's.
 7. flash   — the flash-attention forward, dK/dV and dQ kernels against
              their plain versions at qwen3-4b's training shape (batch 2 x
              seq 2048, 32 q / 8 KV heads of dim 128, causal) in bf16 and
@@ -101,6 +106,27 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              first 2 warm-up); losses and grad norms finite, the step-0
              loss near ln(vocab), each kernel's launches per step checked;
              then one more step under ``torch.profiler``.
+8a. train_dp — data-parallel training on the GAS layer
+             (``examples/train_lm.py``): qwen3-4b at full width on 2
+             layers (bf16), global batch 12 x 512 over 4 ranks, 10 steps,
+             a checkpoint every 4, 1 rank lost at step 6, the restore of
+             step 4 on 3 ranks (bitwise); once each with the engine's
+             all-reduce ("xla"), the f32 GAS ring and the int8
+             error-feedback ring ("gascore").  Gates: the f32 ring bitwise
+             on "xla" and "gascore" and within 1e-5 of the plain mean; the
+             int8 ring within 5%, 4 (n - 1) ``ring_shift`` launches, each
+             rank's error state exactly comp - dequant; finite losses; the
+             flash kernels once a layer a rank a step.  Step ms, peak GiB
+             and a profiled step's busy share.
+8b. pipeline — GPipe (``parallel/pipeline.py``) over 4 ranks, stage
+             tanh(x @ w_s), w (4, 2560, 2560) f32, 8 microbatches of (512,
+             2560): forward within 1e-5 and gradients within 2e-4 of the
+             sequential chain on "xla" under sync debug mode "error"; the
+             "gascore" forward bitwise equal, its gradient refused.
+8c. scan_chunked — the chunked scans (``scan_impl="chunked"``) against
+             the kernels at the scan phase's full-width cases (its
+             tolerances) and in the f32 prefill of falcon-mamba-7b and
+             recurrentgemma-9b at full width; both times printed.
 9. scan    — the selective-scan (mamba-1) and gated-linear-scan (RG-LRU)
              kernels against their plain versions, bf16 and f32, at the
              serving prefill's full widths (falcon-mamba: B 1 and 4 x S
@@ -160,8 +186,10 @@ import gc as pygc  # "gc" names the GAScore kernels below
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -171,13 +199,14 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.compat import tree_leaves  # noqa: E402
+from repro_torch.compat import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.core import collectives, gasnet, sched  # noqa: E402
 from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.gasnet import P  # noqa: E402
 from repro_torch.examples import heterogeneous_pipeline, quickstart  # noqa: E402
 from repro_torch.examples import serve_requests as ex  # noqa: E402
+from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.data.synthetic import Loader, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -191,12 +220,14 @@ from repro_torch.kernels import ssm_scan  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     PagedServer, Request, Server, TPPagedServer)
 from repro_torch.obs import export as obs_export  # noqa: E402
+from repro_torch.obs import profile as obs_profile  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serving import pool as pool_lib  # noqa: E402
 from repro_torch.serving.disagg import DisaggCluster  # noqa: E402
 from repro_torch.models import layers as moe_layers  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
-from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim import adamw, compression  # noqa: E402
+from repro_torch.parallel import pipeline  # noqa: E402
 from repro_torch.parallel.ctx import RunCtx  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.testing import fault_suite  # noqa: E402
@@ -3225,6 +3256,445 @@ def serve_moe_phase(arch):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# data-parallel training on the GAS ring (examples/train_lm.py), GPipe
+# (parallel/pipeline.py), the profiler (obs/profile.py), the chunked scans
+# --------------------------------------------------------------------------- #
+DP_LAYERS = 2  # reduced: n_layers 36 -> 2 (the int8 ring's state, below)
+DP_RANKS, DP_AFTER = 4, 3  # reduced: ranks 8 -> 4 -> 3
+DP_BATCH, DP_SEQ = 12, 512  # global batch; 3 then 4 sequences a rank
+DP_STEPS, DP_CKPT_EVERY, DP_FAIL_AT = 10, 4, 6
+DP_RUNS = (("psum", "xla"), ("gas_ring", "gascore"),
+           ("gas_ring_int8", "gascore"))
+DP_RING_REL = 1e-5  # the f32 ring against the plain mean: summation order
+DP_INT8_REL = 0.05  # the reference's gate (testing/dist_suite.py:44)
+
+
+def all_launches():
+    """Launches so far of every kernel on this slice's path."""
+    return {**counts(), **counts(FLASH_KERNELS),
+            "paged_attention": pa.paged_attention.launches}
+
+
+def reset_all_launches():
+    reset_counts()
+    reset_counts(FLASH_KERNELS)
+    pa.paged_attention.launches = 0
+
+
+def rel_err(got, want):
+    """Max |got - want| over max |want|."""
+    den = want.abs().max().clamp_min(torch.finfo(torch.float32).tiny)
+    return float((got - want).abs().max() / den)
+
+
+def synced_ms(fn):
+    """Host wall of ``fn()`` ending in a synchronise, and its output."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def dp_reduction_checks(cfg):
+    """One step's gradients at full width on DP_RANKS ranks, reduced off
+    the main path: the f32 ring bitwise equal on "xla" and "gascore" and
+    within DP_RING_REL of the plain mean; the int8 ring on "gascore"
+    within DP_INT8_REL, 4 (n - 1) ``ring_shift`` launches, and each
+    rank's new error state exactly its compensated gradient minus the
+    dequantized payload."""
+    model = build_model(cfg)
+    params = tree_map(lambda t: t.requires_grad_(), model.init(
+        RunCtx(), torch.Generator(device="cuda").manual_seed(0),
+        device="cuda"))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        cfg, DP_BATCH, DP_SEQ, seed=1).batch_at(0).items()}
+    n = DP_RANKS
+    _, stacked = train_lm.local_grads(model, params, batch, n, flat=True)
+    del params, model, batch
+    mean = stacked.sum(0) / n
+    rec, ring = {"elements": stacked.shape[1]}, {}
+    for engine in ("xla", "gascore"):
+        ms, (red, _) = synced_ms(lambda: train_lm.reduce_grads(
+            stacked, None, n_nodes=n, reduce_mode="gas_ring", engine=engine))
+        ring[engine] = red.clone()
+        del red
+        rec[f"gas_ring_{engine}_ms"] = ms
+    if not torch.equal(ring["xla"], ring["gascore"]):
+        raise AssertionError("train_dp: the f32 ring differs on xla and "
+                             "gascore")
+    rec["gas_ring_rel"] = rel_err(ring["xla"], mean)
+    del ring
+    if rec["gas_ring_rel"] > DP_RING_REL:
+        raise AssertionError(f"train_dp: f32 ring rel {rec['gas_ring_rel']}")
+    err = torch.zeros_like(stacked)
+    before = gc.ring_shift.launches
+    ms, (red8, new_err) = synced_ms(lambda: train_lm.reduce_grads(
+        stacked, err, n_nodes=n, reduce_mode="gas_ring_int8",
+        engine="gascore"))
+    rec["gas_ring_int8_gascore_ms"] = ms
+    rec["int8_ring_shift_launches"] = gc.ring_shift.launches - before
+    if rec["int8_ring_shift_launches"] != 4 * (n - 1):
+        raise AssertionError(f"train_dp: {rec['int8_ring_shift_launches']} "
+                             f"ring_shift launches, want {4 * (n - 1)}")
+    rec["gas_ring_int8_rel"] = rel_err(red8, mean)
+    del red8
+    if rec["gas_ring_int8_rel"] > DP_INT8_REL:
+        raise AssertionError(f"train_dp: int8 rel {rec['gas_ring_int8_rel']}")
+    for r in range(n):
+        comp = stacked[r] + err[r]
+        q, sc = compression.quantize_int8(comp)
+        if not torch.equal(new_err[r],
+                           comp - compression.dequantize_int8(q, sc)):
+            raise AssertionError(f"train_dp: rank {r}'s error state is not "
+                                 "comp - dequant")
+        del comp, q
+    # bytes a rank puts on the wire in one all-reduce: 2 (n - 1) hops of
+    # L / n elements, f32, or int8 plus one f32 scale a hop
+    L = stacked.shape[1]
+    rec["wire_bytes_per_rank"] = {"f32": 2 * (n - 1) * (L // n) * 4,
+                                  "int8": 2 * (n - 1) * (L // n + 4)}
+    del stacked, err, new_err, mean
+    pygc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_dp_run(cfg, mode, engine):
+    """One run of ``train_lm.train`` on the card: DP_RANKS ranks, the
+    failure at DP_FAIL_AT, the restart on DP_AFTER.  Gates each step's
+    launches (``DP_LAYERS`` of each flash kernel a rank; 4 (n - 1)
+    ``ring_shift`` a compressed all-reduce), finite losses and the bitwise
+    restore; then one more step under ``torch.profiler``."""
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    tmp = tempfile.mkdtemp(prefix="train_dp_")
+    try:
+        reset_all_launches()  # the main path starts here
+        wall, out = synced_ms(lambda: train_lm.train(
+            cfg, steps=DP_STEPS, reduce_mode=mode, engine=engine,
+            batch=DP_BATCH, seq=DP_SEQ, n_nodes=DP_RANKS,
+            n_lost=DP_RANKS - DP_AFTER, fail_at=DP_FAIL_AT,
+            ckpt_every=DP_CKPT_EVERY, ckpt_dir=tmp, device="cuda",
+            say=lambda *a, **k: None,
+            on_step=lambda step, n, rec: marks.append((n, all_launches()))))
+        launches = all_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prev = {k: 0 for k in launches}
+    for n, now in marks:
+        step = {k: now[k] - prev[k] for k in now}
+        prev = now
+        want = {name: DP_LAYERS * n for name in FLASH_KERNELS}
+        if mode == "gas_ring_int8":
+            want["ring_shift"] = 4 * (n - 1)
+        got = {k: step[k] for k in want}
+        if got != want:
+            raise AssertionError(f"train_dp {mode}: launches {got} a step on "
+                                 f"{n} ranks, want {want}")
+    hist, restart = out["history"], out["restart"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_dp {mode}: losses {losses}")
+    if not (restart.get("bitwise") and restart["n_nodes"] == DP_AFTER
+            and restart["restored_step"] == DP_CKPT_EVERY):
+        raise AssertionError(f"train_dp {mode}: restart {restart}")
+    n = out["restart"]["n_nodes"]
+    model = build_model(cfg)
+    opt = adamw.AdamWConfig(lr=3e-3, weight_decay=0.0)
+    step_fn = train_lm.make_step(model, opt, n, mode, engine=engine)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        cfg, DP_BATCH, DP_SEQ, seed=1).batch_at(DP_STEPS).items()}
+    prof = profile_call(lambda: float(step_fn(
+        out["params"], out["opt_state"], out["err"], batch)[3]["loss"]))
+    del out, step_fn, model, batch
+    pygc.collect()
+    torch.cuda.empty_cache()
+    ms = [h["step_ms"] for h in hist]
+    return {
+        "engine": engine, "wall_s": wall / 1e3, "losses": losses,
+        "ranks_by_step": [h["n_nodes"] for h in hist],
+        "step_ms": ms,
+        "step_ms_median_4_ranks": float(np.median(
+            [m for m, h in zip(ms[1:], hist[1:]) if h["n_nodes"] == DP_RANKS])),
+        "step_ms_median_3_ranks": float(np.median(
+            [m for m, h in zip(ms, hist) if h["n_nodes"] == DP_AFTER][1:])),
+        "peak_gib": peak, "restart": restart, "launches": launches,
+        "profile_step": prof,
+    }
+
+
+def train_dp_phase():
+    """qwen3-4b at full width, 2 layers, data-parallel on the GAS layer
+    (``train_lm``): the reductions' gates, then one run per reduce mode.
+    Returns the launches of the three runs."""
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"], n_layers=DP_LAYERS)
+    t0 = time.perf_counter()
+    checks = dp_reduction_checks(cfg)
+    runs, total = {}, {k: 0 for k in all_launches()}
+    for mode, engine in DP_RUNS:
+        runs[mode] = train_dp_run(cfg, mode, engine)
+        for k, v in runs[mode]["launches"].items():
+            total[k] += v
+    emit({"phase": "train_dp", "arch": cfg.name, "layers": cfg.n_layers,
+          "reduced": {"n_layers": [36, DP_LAYERS],
+                      "ranks": [8, DP_RANKS, DP_AFTER]},
+          "d_model": cfg.d_model, "dtype": "bfloat16",
+          "params": checks["elements"], "batch": DP_BATCH, "seq": DP_SEQ,
+          "steps": DP_STEPS, "ckpt_every": DP_CKPT_EVERY,
+          "fail_at": DP_FAIL_AT, "remat": train_lm.LOCAL_CTX.remat,
+          "checks": checks, "runs": runs, "launches": total,
+          "phase_s": time.perf_counter() - t0})
+    return total
+
+
+PIPE_S, PIPE_M, PIPE_MB, PIPE_D = 4, 8, 512, 2560
+PIPE_FWD_TOL, PIPE_GRAD_TOL = 1e-5, 2e-4  # the reference's
+
+
+def pipe_stage(wl, xx):
+    return torch.tanh(xx @ wl[0])
+
+
+def pipeline_phase():
+    """GPipe over 4 ranks at qwen3-4b's width: forward and gradients on
+    "xla" against the sequential chain, after a warm-up under sync debug
+    mode "error"; the "gascore" forward bitwise the "xla" one, its
+    gradient refused.  Returns the launches of the gated runs."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xm = torch.randn((PIPE_M, PIPE_MB, PIPE_D), generator=gen, device="cuda")
+    w0 = torch.randn((PIPE_S, PIPE_D, PIPE_D), generator=gen,
+                     device="cuda") / math.sqrt(PIPE_D)
+
+    def pipe(backend, w):
+        ctx = gasnet.Context(PIPE_S, backend=backend, device="cuda")
+        return ctx.spmd(
+            lambda node, wl, xs: pipeline.gpipe(
+                pipe_stage, wl, xs, engine=node.engine, n_stages=PIPE_S),
+            w, xm, in_specs=(P("node"), P()), out_specs=P())
+
+    def xla_step():
+        w = w0.clone().requires_grad_()
+        out = pipe("xla", w)
+        (out ** 2).sum().backward()
+        return out.detach(), w.grad
+
+    def chain_step(per_microbatch=True):
+        """The sequential chain, microbatch by microbatch as GPipe runs
+        it (each weight gradient summed over 512-row products in
+        microbatch order), or over the whole batch at once (4,096-row
+        products: another summation order, printed, not gated)."""
+        w = w0.clone().requires_grad_()
+        out = (torch.stack([pipeline_chain(w, x) for x in xm])
+               if per_microbatch else pipeline_chain(w, xm))
+        (out ** 2).sum().backward()
+        return out.detach(), w.grad
+
+    xla_step()  # warm-up: index constants cached, plan made
+    torch.cuda.synchronize()
+    reset_all_launches()  # the main path starts here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, grad = xla_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with torch.no_grad():
+        gout = pipe("gascore", w0)
+    launches = all_launches()
+    refused = False
+    try:
+        pipe("gascore", w0.clone().requires_grad_()).sum().backward()
+    except RuntimeError as e:
+        refused = "forward-only" in str(e)
+    want_out, want_grad = chain_step()
+    fwd_err = float((out - want_out).abs().max())
+    grad_err = float((grad - want_grad).abs().max())
+    grad_scale = float(want_grad.abs().max())
+    whole_out, whole_grad = chain_step(per_microbatch=False)
+    whole = {"fwd_max_abs_err": float((out - whole_out).abs().max()),
+             "grad_max_abs_err": float((grad - whole_grad).abs().max()),
+             "grad_max_abs": float(whole_grad.abs().max())}
+    del whole_out, whole_grad
+    torch.testing.assert_close(out, want_out, atol=PIPE_FWD_TOL, rtol=0)
+    # the reference's gradients are O(1) at its shapes; here each weight
+    # gradient sums 4,096 products and is far larger, so its 2e-4 holds
+    # relative to the largest |gradient| (f32 rounding of the sums)
+    torch.testing.assert_close(grad / grad_scale, want_grad / grad_scale,
+                               atol=PIPE_GRAD_TOL, rtol=PIPE_GRAD_TOL)
+    if not torch.equal(gout, out):
+        raise AssertionError("pipeline: gascore forward differs from xla")
+    if not refused:
+        raise AssertionError("pipeline: the gascore gradient was not refused")
+    timing = {
+        "xla_fwd_bwd_ms": [synced_ms(xla_step)[0] for _ in range(3)],
+        "xla_fwd_ms": [synced_ms(lambda: pipe("xla", w0))[0]
+                       for _ in range(3)],
+        "gascore_fwd_ms": [synced_ms(lambda: pipe("gascore", w0))[0]
+                           for _ in range(3)],
+        "chain_fwd_bwd_ms": [synced_ms(chain_step)[0] for _ in range(3)],
+    }
+    emit({"phase": "pipeline", "stages": PIPE_S, "microbatches": PIPE_M,
+          "microbatch": [PIPE_MB, PIPE_D], "dtype": "float32",
+          "fwd_max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
+          "grad_max_abs": grad_scale,
+          "tol": {"fwd": PIPE_FWD_TOL, "grad_of_max": PIPE_GRAD_TOL},
+          "whole_batch_chain": whole,
+          "sync_debug": "error", "gascore_bitwise": True,
+          "gascore_grad_refused": refused, "launches": launches, **timing})
+    return launches
+
+
+def pipeline_chain(w, xs):
+    o = xs
+    for i in range(w.shape[0]):
+        o = torch.tanh(o @ w[i])
+    return o
+
+
+PROFILE_DECODE_AT = (8, 40)  # decode steps after which the step is timed
+PROFILE_ITERS, PROFILE_WARMUP = 6, 2
+
+
+def profile_obs_phase(served):
+    """``DeviceProfiler.profile_many`` over ``profiling_targets`` at the
+    reference's shapes (device-timed, beside ``device_ms`` of the same
+    kernel call), then ``PagedServer.profile_decode`` mid-serving of the
+    serve cell's traffic at qwen3-4b's full width and depth: the tokens
+    equal the serve phase's run without it.  Returns the launches of the
+    served run."""
+    prof = obs_profile.DeviceProfiler(device="cuda")
+    targets = ops.profiling_targets(device="cuda")
+    best = prof.profile_many(targets, rounds=6, warmup=2)
+    recs = {r["name"]: r for r in prof.records}
+    if set(recs) != {"paged_attention_kernel", "paged_attention_ref"} or any(
+            r["measured"] != "device" for r in recs.values()):
+        raise AssertionError(f"profile: records {prof.records}")
+    kernel = dict(targets[0][2], device_ms=device_ms(targets[0][1], 20),
+                  profile_us=best["paged_attention_kernel"],
+                  ref_profile_us=best["paged_attention_ref"])
+    err = float((targets[0][1]() - targets[1][1]()).abs().max())
+    if err > KERNEL_ATOL[torch.float32]:
+        raise AssertionError(f"profile: kernel vs plain {err}")
+
+    server = PagedServer(served["model"], served["ctx"], served["params"],
+                         BATCH, CACHE_LEN, device="cuda",
+                         page_tokens=PAGE_TOKENS)
+    for r in requests():
+        server.submit(r)
+    reset_all_launches()  # the main path starts here
+    timed, at = [], list(PROFILE_DECODE_AT)
+    while server.queue or any(r is not None for r in server.active):
+        server.step()
+        if at and server.paged_decode_steps >= at[0]:
+            at.pop(0)
+            before = pa.paged_attention.launches
+            us = server.profile_decode(prof, iters=PROFILE_ITERS,
+                                       warmup=PROFILE_WARMUP)
+            timed.append((server.paged_decode_steps, us,
+                          pa.paged_attention.launches - before))
+    launches = all_launches()
+    tokens = {r.rid: r.out for r in server.finished}
+    if tokens != served["paged"]:
+        diff = [rid for rid in tokens if tokens[rid] != served["paged"][rid]]
+        raise AssertionError(f"profile_decode changed the tokens of {diff}")
+    # one launch a layer in every step served and every re-execution the
+    # profiler ran (warm-up, timed calls, and the calls its clock retried)
+    n_layers = served["model"].cfg.n_layers
+    reruns = [t[2] for t in timed]
+    if (launches["paged_attention"] - sum(reruns)
+            != n_layers * server.paged_decode_steps or any(
+                r % n_layers or r < n_layers * (PROFILE_ITERS + PROFILE_WARMUP)
+                for r in reruns)):
+        raise AssertionError(f"profile: {launches['paged_attention']} paged "
+                             f"attention launches, {reruns} of them "
+                             f"re-executions, in {server.paged_decode_steps} "
+                             "decode steps")
+    decode = prof.spans("paged_decode_step")
+    if len(decode) != len(PROFILE_DECODE_AT) or any(
+            r["measured"] != "device" for r in decode):
+        raise AssertionError(f"profile: decode records {decode}")
+    emit({"phase": "profiler", "targets": recs, "kernel": kernel,
+          "kernel_vs_plain_max_abs_err": err,
+          "decode": [dict(r, after_step=t[0], reexecutions=t[2] // n_layers)
+                     for r, t in zip(decode, timed)],
+          "decode_steps": server.paged_decode_steps,
+          "tokens_identical": True, "launches": launches})
+    del server
+    return launches
+
+
+def scan_chunked_phase():
+    """The chunked scans (``scan_impl="chunked"``) against the kernel path:
+    at the scan phase's full-width cases (bf16 and f32, both held to
+    ``SCAN_TOL``, timed by ``device_ms`` beside the kernel), then the
+    prefill of each arch at full width (f32 on the consistency check's
+    layers) held to ``CONSIST_REL_TOL``, both prefills timed."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    scans = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        args = ssm_inputs(SSM_FULL[0], dtype, gen)
+        y, h = ops.selective_scan(*args, final_state=True, impl="chunked")
+        ky, kh = ops.selective_scan(*args, final_state=True)
+        scans[f"selective_scan {SSM_FULL[0]} {dname}"] = {
+            "y_err": within("chunked selective_scan y", y, ky,
+                            SCAN_TOL[dtype]),
+            "h_err": within("chunked selective_scan h", h, kh,
+                            SCAN_TOL[torch.float32]),
+            "chunked_ms": device_ms(lambda: ops.selective_scan(
+                *args, final_state=True, impl="chunked"), 5, flush),
+            "kernel_ms": device_ms(lambda: ops.selective_scan(
+                *args, final_state=True), 20, flush)}
+        del args, y, h, ky, kh
+        a, b = lru_inputs(LRU_FULL[0], dtype, gen)
+        scans[f"gated_linear_scan {LRU_FULL[0]} {dname}"] = {
+            "y_err": within("chunked gated_linear_scan",
+                            ops.gated_linear_scan(a, b, impl="chunked"),
+                            ops.gated_linear_scan(a, b), SCAN_TOL[dtype]),
+            "chunked_ms": device_ms(lambda: ops.gated_linear_scan(
+                a, b, impl="chunked"), 5, flush),
+            "kernel_ms": device_ms(lambda: ops.gated_linear_scan(a, b), 20,
+                                   flush)}
+        del a, b
+    prefill = {}
+    for arch, serving in RECURRENT_SERVING.items():
+        S, layers = serving[2], serving[6][0]  # the served prompt
+        cfg = dataclasses.replace(ARCHS[arch], n_layers=layers,
+                                  dtype=torch.float32)
+        model = build_model(cfg)
+        params = model.init(RunCtx(), torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        toks = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        out = {}
+        for impl in ("ref", "chunked"):
+            ctx = RunCtx(scan_impl=impl)
+            run = lambda: model.prefill(params, ctx, {"inputs": toks},
+                                        cache_len=S)
+            run()
+            out[impl] = (run(), [synced_ms(run)[0] for _ in range(3)])
+        (kl, kc), kms = out["ref"]
+        (cl, cc), cms = out["chunked"]
+        rel = rel_err(cl.float(), kl.float())
+        state = max(rel_err(c.float(), k.float())
+                    for c, k in zip(tree_leaves(cc), tree_leaves(kc)))
+        if rel > CONSIST_REL_TOL or state > CONSIST_REL_TOL:
+            raise AssertionError(f"scan_chunked {arch}: logits rel {rel}, "
+                                 f"caches rel {state}")
+        prefill[arch] = {"layers": layers, "dtype": "float32", "prompt": S,
+                         "logits_rel": rel, "caches_rel": state,
+                         "kernel_ms": kms, "chunked_ms": cms}
+        del model, params, out, kl, kc, cl, cc
+        pygc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "scan_chunked", "tol": {"scan": {
+        str(d).split(".")[-1]: t for d, t in SCAN_TOL.items()},
+        "prefill_rel": CONSIST_REL_TOL}, "scans": scans, "prefill": prefill})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3247,6 +3717,7 @@ def main():
     disagg_launches = serve_disagg_phase(served)
     tp_launches = serve_tp_phase(served)
     ft_launches = serve_ft_phase(served)
+    profile_launches = profile_obs_phase(served)
     del served
     pygc.collect()
     torch.cuda.empty_cache()
@@ -3255,6 +3726,11 @@ def main():
     flash_launches = train_phase()
     pygc.collect()  # the training phase's ~48 GiB
     torch.cuda.empty_cache()
+    dp_launches = train_dp_phase()
+    pipe_launches = pipeline_phase()
+    scan_chunked_phase()
+    slice14 = {k: dp_launches[k] + pipe_launches[k] + profile_launches[k]
+               for k in dp_launches}
     scan_launches = {
         "selective_scan": serve_recurrent_phase("falcon-mamba-7b"),
         "gated_linear_scan": serve_recurrent_phase("recurrentgemma-9b"),
@@ -3271,7 +3747,7 @@ def main():
         "replaces": "src/repro/kernels/paged_attention.py:184",
         "launches": launches + disagg_launches["paged_attention"]
         + overlap_launches["paged_attention"] + tp_launches["paged_attention"]
-        + ft_launches["paged_attention"],
+        + ft_launches["paged_attention"] + slice14["paged_attention"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
@@ -3281,7 +3757,7 @@ def main():
         "replaces": f"src/repro/kernels/{where}",
         "launches": gas_launches[name] + disagg_launches.get(name, 0)
         + overlap_launches.get(name, 0) + tp_launches.get(name, 0)
-        + ft_launches.get(name, 0),
+        + ft_launches.get(name, 0) + slice14[name],
         **{key: gas_figures[name]["16MiB"][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's
@@ -3291,7 +3767,7 @@ def main():
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
-        "launches": flash_launches[name],
+        "launches": flash_launches[name] + slice14[name],
         **{key: flash_figures[name][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's

@@ -27,6 +27,21 @@ the side stream has read it; each output, made on the side stream, is
 recorded on the current stream, so its block is not reused by the side
 stream before the work queued after the wait has read it.  The rank-
 stacked copy ``_stacked`` makes is made and freed on the side stream.
+
+Gradients.  A vmap rule sees plain tensors, so PyTorch's autograd (run
+outside ``Context.spmd``: ``loss.backward()`` on a node program's result)
+records what the rule computes.  Where a caller needs the gradient, the
+rule moves the rank-stacked tensor through ``repro_torch::gas_move``, a
+custom op whose ``register_autograd`` holds each move's VJP on the
+software transport ("xla"): the VJP of a shift is the reverse shift, of a
+permutation the inverse permutation (zeros where a rank received
+nothing), of an all-reduce an all-reduce, of an all-gather a
+reduce-scatter and back, and an all-to-all is its own.  The GAScore
+transport is forward-only, as the reference's Pallas path is (it defines
+no VJP): its backward raises.  The VJP runs where autograd runs a
+backward, on the stream of its forward, so a split-phase move's VJP
+runs on the side stream too.  Without a gradient to record the rule
+calls the move directly, as before.
 """
 
 from __future__ import annotations
@@ -96,6 +111,82 @@ def _backend(backend: str) -> str:
     return backend
 
 
+_MOVES = {  # op -> (GAScore kernel, plain version) on the stacked tensor
+    "shift": (lambda xs, a: ops.ring_shift(xs, a[0]),
+              lambda xs, a: ref.ring_shift(xs, a[0])),
+    "permute": (lambda xs, a: ops.perm_put(xs, a),
+                lambda xs, a: ref.perm_put(xs, [None if d < 0 else d
+                                                for d in a])),
+    "all_gather": (lambda xs, a: ops.ring_all_gather(xs),
+                   lambda xs, a: ref.all_gather(xs)),
+    "reduce_scatter": (lambda xs, a: ops.ring_reduce_scatter(xs),
+                       lambda xs, a: ref.reduce_scatter(xs)),
+    "all_reduce": (None, lambda xs, a: ref.all_reduce(xs)),
+    "all_to_all": (None, lambda xs, a: ref.all_to_all(xs)),
+}
+
+
+def _move_plain(xs: torch.Tensor, op: str, args: List[int],
+                backend: str) -> torch.Tensor:
+    kernel, plain = _MOVES[op]
+    return (kernel if backend == "gascore" else plain)(xs, args)
+
+
+@torch.library.custom_op("repro_torch::gas_move", mutates_args=())
+def _gas_move(xs: torch.Tensor, op: str, args: List[int],
+              backend: str) -> torch.Tensor:
+    """One transfer on the rank-stacked tensor ``(n, *local)``, with the
+    VJP registered below (see the module's docstring)."""
+    out = _move_plain(xs, op, args, backend)
+    if out.untyped_storage().data_ptr() == xs.untyped_storage().data_ptr():
+        out = out.clone()  # a view (all_to_all of one row): not an alias
+    return out
+
+
+def _inverse(dst: List[int]) -> List[int]:
+    inv = [-1] * len(dst)
+    for s, d in enumerate(dst):
+        if d >= 0:
+            inv[d] = s
+    return inv
+
+
+_VJPS = {  # op -> (its VJP's op, the VJP's args from the forward's)
+    "shift": lambda n, a: ("shift", [(n - a[0]) % n]),
+    "permute": lambda n, a: ("permute", _inverse(list(a))),
+    "all_reduce": lambda n, a: ("all_reduce", []),
+    "all_gather": lambda n, a: ("reduce_scatter", []),
+    "reduce_scatter": lambda n, a: ("all_gather", []),
+    "all_to_all": lambda n, a: ("all_to_all", []),
+}
+
+
+def _gas_move_setup(ctx, inputs, output):
+    xs, ctx.op, ctx.args, ctx.backend = inputs
+    ctx.n = xs.shape[0]
+
+
+def _gas_move_vjp(ctx, grad):
+    if ctx.backend == "gascore":
+        raise RuntimeError(
+            f"the GAScore transport is forward-only: {ctx.op} on backend "
+            "'gascore' has no VJP (as the reference's Pallas path defines "
+            "none); differentiate through the 'xla' engine"
+        )
+    op, args = _VJPS[ctx.op](ctx.n, ctx.args)
+    return _gas_move(grad, op, args, "xla"), None, None, None
+
+
+_gas_move.register_autograd(_gas_move_vjp, setup_context=_gas_move_setup)
+
+
+def _move(xs: torch.Tensor, op: str, args: List[int], backend: str):
+    """The transfer, through ``gas_move`` where autograd records it."""
+    if torch.is_grad_enabled() and xs.requires_grad:
+        return _gas_move(xs, op, list(args), backend)
+    return _move_plain(xs, op, list(args), backend)
+
+
 @torch.library.custom_op("repro_torch::gas_shift", mutates_args=())
 def shift(x: torch.Tensor, ids: torch.Tensor, k: int, n: int,
           backend: str) -> torch.Tensor:
@@ -106,9 +197,7 @@ def shift(x: torch.Tensor, ids: torch.Tensor, k: int, n: int,
 @shift.register_vmap
 def _shift_vmap(info, in_dims, x, ids, k, n, backend):
     xs = _stacked(x, in_dims[0], n)
-    if _backend(backend) == "gascore":
-        return _across(ops.ring_shift(xs, k), x), 0
-    return _across(ref.ring_shift(xs, k), x), 0
+    return _across(_move(xs, "shift", [k], _backend(backend)), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_permute", mutates_args=())
@@ -122,10 +211,7 @@ def permute(x: torch.Tensor, ids: torch.Tensor, dst: List[int], n: int,
 @permute.register_vmap
 def _permute_vmap(info, in_dims, x, ids, dst, n, backend):
     xs = _stacked(x, in_dims[0], n)
-    if _backend(backend) == "gascore":
-        return _across(ops.perm_put(xs, dst), x), 0
-    return _across(ref.perm_put(xs, [None if d < 0 else d for d in dst]),
-                   x), 0
+    return _across(_move(xs, "permute", dst, _backend(backend)), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_offset_put", mutates_args=())
@@ -160,9 +246,7 @@ def all_gather(x: torch.Tensor, ids: torch.Tensor, n: int,
 @all_gather.register_vmap
 def _all_gather_vmap(info, in_dims, x, ids, n, backend):
     xs = _stacked(x, in_dims[0], n)
-    if _backend(backend) == "gascore":
-        return _across(ops.ring_all_gather(xs), x), 0
-    return _across(ref.all_gather(xs), x), 0
+    return _across(_move(xs, "all_gather", [], _backend(backend)), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_reduce_scatter", mutates_args=())
@@ -178,9 +262,7 @@ def _reduce_scatter_vmap(info, in_dims, x, ids, n, backend):
     if xs.dim() < 2 or xs.shape[1] % n:
         raise ValueError(f"reduce_scatter dim0 {tuple(xs.shape[1:])} not "
                          f"divisible by {n}")
-    if _backend(backend) == "gascore":
-        return _across(ops.ring_reduce_scatter(xs), x), 0
-    return _across(ref.reduce_scatter(xs), x), 0
+    return _across(_move(xs, "reduce_scatter", [], _backend(backend)), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_all_reduce", mutates_args=())
@@ -191,7 +273,8 @@ def all_reduce(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
 
 @all_reduce.register_vmap
 def _all_reduce_vmap(info, in_dims, x, ids, n):
-    return _across(ref.all_reduce(_stacked(x, in_dims[0], n)), x), 0
+    return _across(_move(_stacked(x, in_dims[0], n), "all_reduce", [],
+                         "xla"), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_all_to_all", mutates_args=())
@@ -206,7 +289,7 @@ def _all_to_all_vmap(info, in_dims, x, ids, n):
     if xs.dim() < 2 or xs.shape[1] % n:
         raise ValueError(f"all_to_all dim0 {tuple(xs.shape[1:])} not "
                          f"divisible by {n}")
-    return _across(ref.all_to_all(xs), x), 0
+    return _across(_move(xs, "all_to_all", [], "xla"), x), 0
 
 
 @torch.library.custom_op("repro_torch::gas_bitcast", mutates_args=())

@@ -12,6 +12,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.compat import resolve_device
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gascore as _gc
 from repro_torch.kernels import moe_router as _moe
@@ -33,6 +34,7 @@ __all__ = [
     "ring_reduce_scatter",
     "selective_scan",
     "gated_linear_scan",
+    "profiling_targets",
 ]
 
 
@@ -173,6 +175,12 @@ moe_dispatch = ref.moe_dispatch
 moe_combine = ref.moe_combine
 
 
+def _scan_impl(impl: str) -> str:
+    if impl not in ("ref", "pallas", "chunked"):
+        raise ValueError(f"unknown scan impl {impl!r}")
+    return impl
+
+
 def selective_scan(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -182,11 +190,19 @@ def selective_scan(
     d: torch.Tensor,
     *,
     final_state: bool = False,
+    impl: str = "ref",
+    block_s: int = 128,
 ):
     """The mamba-1 scan: y (B, S, Di) in x's dtype, and with
-    ``final_state`` also h_S (B, Di, N) f32.  On CUDA one kernel launch
-    computes both; on the CPU the plain scan and, for the state, the
-    reference's second scan (``ref.mamba_final_state``)."""
+    ``final_state`` also h_S (B, Di, N) f32.  ``impl`` "ref" and "pallas"
+    dispatch by device: on CUDA one kernel launch computes both, on the
+    CPU the plain scan and, for the state, the reference's second scan
+    (``ref.mamba_final_state``).  "chunked" runs
+    ``ref.selective_scan_chunked`` with chunks of ``block_s`` steps (its
+    carried state is the final one) on either device."""
+    if _scan_impl(impl) == "chunked":
+        return ref.selective_scan_chunked(x, dt, a, b, c, d, chunk=block_s,
+                                          final_state=final_state)
     if x.device.type == "cuda":
         return _ssm.selective_scan(x, dt, a, b, c, d, final_state=final_state)
     if x.device.type == "cpu":
@@ -197,10 +213,62 @@ def selective_scan(
     raise ValueError(f"no selective_scan for device {x.device}")
 
 
-def gated_linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t h_{t-1} + b_t over axis 1, every h_t in b's dtype."""
+def gated_linear_scan(a: torch.Tensor, b: torch.Tensor, *, impl: str = "ref",
+                      block_s: int = 128) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over axis 1, every h_t in b's dtype: the
+    hand kernel on CUDA, the plain scan on the CPU, or with
+    ``impl="chunked"`` ``ref.gated_linear_scan_chunked`` in chunks of
+    ``2 * block_s`` steps."""
+    if _scan_impl(impl) == "chunked":
+        return ref.gated_linear_scan_chunked(a, b, chunk=2 * block_s)
     return _on(b, _rglru.gated_linear_scan, ref.gated_linear_scan,
                "gated_linear_scan")(a, b)
+
+
+def profiling_targets(
+    *,
+    batch: int = 4,
+    heads: int = 4,
+    kv_heads: int = 2,
+    head_dim: int = 64,
+    n_pages: int = 16,
+    page_tokens: int = 8,
+    device=None,
+    seed: int = 0,
+):
+    """Named paged-attention closures over one synthetic decode shape: the
+    targets ``repro_torch.obs.profile.DeviceProfiler.profile_many``
+    interleaves to time the serving hot kernel against its plain version.
+
+    The inputs (from a generator seeded with ``seed``, on ``device``:
+    CUDA unless the caller names another) are made once, so each closure
+    times only the call: q ``(B, Hq, D)`` against ``(P, T, Hkv, D)`` pages
+    through a ``(B, NP)`` table.  Returns ``(name, fn, tags)`` tuples:
+    ``paged_attention_kernel`` (the CUDA kernel, on a CUDA device only)
+    and ``paged_attention_ref`` (the plain version)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((batch, heads, head_dim), generator=gen, device=dev)
+    kv_shape = (n_pages, page_tokens, kv_heads, head_dim)
+    k_pages = torch.randn(kv_shape, generator=gen, device=dev)
+    v_pages = torch.randn(kv_shape, generator=gen, device=dev)
+    per_req = n_pages // batch
+    table = (torch.arange(batch * per_req, dtype=torch.int32, device=dev)
+             .reshape(batch, per_req) % n_pages)
+    lengths = torch.randint(page_tokens, per_req * page_tokens + 1, (batch,),
+                            generator=gen, device=dev, dtype=torch.int32)
+    tags = {
+        "batch": batch, "heads": heads, "kv_heads": kv_heads,
+        "head_dim": head_dim, "n_pages": n_pages,
+        "page_tokens": page_tokens,
+    }
+    targets = []
+    if dev.type == "cuda":
+        targets.append(("paged_attention_kernel", lambda: _pa.paged_attention(
+            q, k_pages, v_pages, table, lengths), {**tags, "impl": "cuda"}))
+    targets.append(("paged_attention_ref", lambda: ref.paged_attention(
+        q, k_pages, v_pages, table, lengths), {**tags, "impl": "ref"}))
+    return targets
 
 
 # --------------------------------------------------------------------------- #

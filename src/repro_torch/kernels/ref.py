@@ -34,6 +34,8 @@ __all__ = [
     "selective_scan",
     "mamba_final_state",
     "gated_linear_scan",
+    "selective_scan_chunked",
+    "gated_linear_scan_chunked",
 ]
 
 NEG_INF = -1e30
@@ -538,3 +540,86 @@ def gated_linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not ys:
         return torch.empty_like(b)
     return torch.stack(ys, 1).to(b.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# chunked associative scans (the reference's scan_impl="chunked")
+# --------------------------------------------------------------------------- #
+def _associative_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan along axis 1 of the pairs (a, b) under
+    ``(al, bl) . (ar, br) = (al * ar, br + ar * bl)``: log2(len) doubling
+    steps, each combining every element with the prefix ``d`` before it
+    (the identity (1, 0) before the start).  The same function as
+    ``lax.associative_scan``, summed in another order."""
+    d = 1
+    while d < a.shape[1]:
+        ap = torch.cat([torch.ones_like(a[:, :d]), a[:, :-d]], dim=1)
+        bp = torch.cat([torch.zeros_like(b[:, :d]), b[:, :-d]], dim=1)
+        a, b = ap * a, b + a * bp
+        d *= 2
+    return a, b
+
+
+def _pad_time(t: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
+    if not pad:
+        return t
+    return torch.nn.functional.pad(t, (0, 0, 0, pad), value=value)
+
+
+def selective_scan_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+    chunk: int = 128,
+    *,
+    final_state: bool = False,
+):
+    """The mamba-1 scan of :func:`selective_scan` in chunks: an
+    associative scan inside each ``chunk`` of steps (the decay factors
+    stay in (0, 1], so the product form is safe), the state carried from
+    chunk to chunk, so the sequential depth is S / chunk.  With
+    ``final_state`` also h_S (B, Di, N) f32, the carried state (padded
+    steps have dt 0: decay 1, drive 0)."""
+    B, S, Di = x.shape
+    chunk = max(1, min(chunk, S))
+    pad = (-S) % chunk
+    xf = _pad_time(x.float(), pad)
+    dtf = _pad_time(dt.float(), pad)
+    bf = _pad_time(b.float(), pad)
+    cf = _pad_time(c.float(), pad)
+    af, df = a.float(), d.float()
+    h = torch.zeros((B, Di, a.shape[1]), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, xf.shape[1], chunk):
+        xt, dtt = xf[:, c0:c0 + chunk], dtf[:, c0:c0 + chunk]
+        bt, ct = bf[:, c0:c0 + chunk], cf[:, c0:c0 + chunk]
+        decay = torch.exp(dtt[..., None] * af[None, None])  # (B, c, Di, N)
+        drive = (dtt * xt)[..., None] * bt[:, :, None, :]
+        A, Bv = _associative_scan(decay, drive)
+        hs = A * h[:, None] + Bv
+        ys.append((hs * ct[:, :, None, :]).sum(-1) + df[None, None] * xt)
+        h = hs[:, -1]
+    y = torch.cat(ys, 1)[:, :S].to(x.dtype)
+    return (y, h) if final_state else y
+
+
+def gated_linear_scan_chunked(a: torch.Tensor, b: torch.Tensor,
+                              chunk: int = 256) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t of :func:`gated_linear_scan` in chunks (see
+    :func:`selective_scan_chunked`); every h_t in b's dtype."""
+    B, S, W = a.shape
+    chunk = max(1, min(chunk, S))
+    pad = (-S) % chunk
+    af = _pad_time(a.float(), pad, 1.0)
+    bf = _pad_time(b.float(), pad)
+    h = torch.zeros((B, W), dtype=torch.float32, device=b.device)
+    ys = []
+    for c0 in range(0, af.shape[1], chunk):
+        A, Bv = _associative_scan(af[:, c0:c0 + chunk], bf[:, c0:c0 + chunk])
+        hs = A * h[:, None] + Bv
+        ys.append(hs)
+        h = hs[:, -1]
+    return torch.cat(ys, 1)[:, :S].to(b.dtype)

@@ -713,9 +713,45 @@ class PagedServer(Server):
         self._advance(live, logits)
         return len(live)
 
-    def _decode_via_tables(self, tables: np.ndarray) -> np.ndarray:
+    def profile_decode(self, profiler, iters: int = 6,
+                       warmup: int = 2) -> Optional[float]:
+        """Offline timing of the paged decode step over the server's
+        *current* page tables (width rounded up to 4-page buckets, as a
+        step's), by ``profiler.profile`` (a ``repro_torch.obs.profile.
+        DeviceProfiler``).  The step's inputs are staged on the device
+        once, so a timed call is the step's device work alone (on the
+        card no host copy waits inside it).  Re-execution is idempotent:
+        the step rewrites the same K/V slots from the same tokens and
+        positions, and its logits are discarded.  Never called on the
+        serving path.  Returns the best microseconds, or None when no row
+        is live."""
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        if not live:
+            return None
+        P = self.store.state.n_pages
+        T = self.layout.page_tokens
+        need = max(int(self.positions[i]) // T + 1 for i in live)
+        need = min(self.layout.n_pages, -(-need // 4) * 4)
+        width = max(self._table_width, need)
+        tables = np.full((self.B, width), P, np.int32)
+        for i in live:
+            tables[i] = self.store.device_table(
+                self.active[i].rid, absent=P)[:width]
+        inputs = self._decode_inputs(tables)
+        return profiler.profile(
+            "paged_decode_step", lambda: self._decode_device(*inputs),
+            iters=iters, warmup=warmup, live=len(live), table_width=width,
+        )
+
+    def _decode_inputs(self, tables: np.ndarray):
+        """The decode step's per-step inputs on the device: the last
+        tokens, the positions and the page tables."""
+        return (self._tensor(self.last_token), self._tensor(self.positions),
+                self._tensor(tables))
+
+    def _decode_device(self, token, positions, tables) -> torch.Tensor:
         """Upload the pool when host-resident, flush queued page patches,
-        run the paged decode; returns host logits."""
+        run the paged decode; returns the device logits."""
         if self._dev_views is None:  # (re-)upload the mutated host mirror
             mem = np.concatenate(
                 [self.store.mem, self.layout.empty_page_row()[None]], axis=0
@@ -724,12 +760,12 @@ class PagedServer(Server):
         if self._pending_rows or self._pending_copies:
             self._apply_pending()
         logits, self._dev_views = self._decode_paged(
-            self.params,
-            self._tensor(self.last_token),
-            self._tensor(self.positions),
-            self._dev_views,
-            self._tensor(tables),
-        )
+            self.params, token, positions, self._dev_views, tables)
+        return logits
+
+    def _decode_via_tables(self, tables: np.ndarray) -> np.ndarray:
+        """One paged decode step through ``tables``; returns host logits."""
+        logits = self._decode_device(*self._decode_inputs(tables))
         self.paged_decode_steps += 1
         return _to_host(logits)
 
@@ -1078,7 +1114,7 @@ class TPPagedServer(PagedServer):
         self.store.mem[:] = full.cpu().numpy()
         self._dev_views = None
 
-    def _decode_via_tables(self, tables: np.ndarray) -> np.ndarray:
+    def _decode_device(self, token, positions, tables) -> torch.Tensor:
         if self._dev_views is None:  # (re-)upload, pre-sharded per rank
             mem = np.concatenate(
                 [self.store.mem, self.layout.empty_page_row()[None]], axis=0
@@ -1087,15 +1123,9 @@ class TPPagedServer(PagedServer):
                                         self._tensor(mem))
         if self._pending_rows or self._pending_copies:
             self._apply_pending()
-        logits = self._decode_tp(
-            self._stacked_params,
-            self._tensor(self.last_token),
-            self._tensor(self.positions),
-            self._dev_views,
-            self._tensor(tables),
-        )
-        self.paged_decode_steps += 1
-        return _to_host(logits[0])
+        logits = self._decode_tp(self._stacked_params, token, positions,
+                                 self._dev_views, tables)
+        return logits[0]
 
 
 class TPPooledDecodeServer(PooledDecodeServer):

@@ -19,6 +19,8 @@ Examples::
 
 import argparse
 
+from repro_torch.parallel.ctx import REMAT_POLICIES
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -34,7 +36,9 @@ def main() -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--remat", default="none")
+    ap.add_argument("--remat", default="none",
+                    choices=REMAT_POLICIES,
+                    help="activation recompute policy (parallel/ctx.py)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args()

@@ -488,11 +488,13 @@ def apply_mamba(
         new_cache = _write_state(cache, {"conv": new_conv, "ssm": hnew})
     elif mode == "prefill":
         y, hfin = ops.selective_scan(
-            xin, dt, a, bmat, cmat, p["d_skip"], final_state=True
+            xin, dt, a, bmat, cmat, p["d_skip"], final_state=True,
+            impl=ctx.scan_impl,
         )
         new_cache = {"conv": new_conv, "ssm": hfin}
     elif mode == "train":
-        y = ops.selective_scan(xin, dt, a, bmat, cmat, p["d_skip"])
+        y = ops.selective_scan(xin, dt, a, bmat, cmat, p["d_skip"],
+                               impl=ctx.scan_impl)
         new_cache = None
     else:
         raise ValueError(mode)
@@ -563,7 +565,7 @@ def apply_rec(
         y = hnew[:, None, :]
         new_cache = _write_state(cache, {"conv": new_conv, "h": hnew})
     elif mode in ("prefill", "train"):
-        y = ops.gated_linear_scan(a, b)
+        y = ops.gated_linear_scan(a, b, impl=ctx.scan_impl)
         new_cache = ({"conv": new_conv, "h": y[:, -1, :].float()}
                      if mode == "prefill" else None)
     else:

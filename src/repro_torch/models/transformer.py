@@ -9,16 +9,21 @@ decode inputs.  Training takes each segment's layers apart once with
 ``torch.unbind``, so the backward stacks each leaf's per-layer gradients
 once (a ``t[li]`` per layer would add a zero tensor of the whole stacked
 leaf for every layer), and recomputes each layer under
-``torch.utils.checkpoint`` when ``ctx.remat == "full"``.
+``torch.utils.checkpoint`` when ``ctx.remat`` is not "none": "full"
+keeps only the layer's input, "dots" and "names" are the reference's two
+checkpoint policies as selective checkpointing
+(``create_selective_checkpoint_contexts``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.compat import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models import layers as L
@@ -26,6 +31,53 @@ from repro_torch.models.common import ArchConfig, Segment, build_layer_program
 from repro_torch.parallel.ctx import RunCtx, shard, use_weight
 
 Params = Dict[str, Any]
+
+
+# --------------------------------------------------------------------------- #
+# checkpoint names (the reference's ``checkpoint_name``)
+# --------------------------------------------------------------------------- #
+SAVED_NAMES = ("attn_out", "mlp_out", "moe_out", "mix_out")
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Identity that marks a sub-block's output: remat "names" saves the
+    outputs of this op and recomputes the rest."""
+    return x.clone()
+
+
+_checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+
+def checkpoint_name(x: torch.Tensor, name: str, ctx: RunCtx,
+                    mode: str) -> torch.Tensor:
+    """``x`` tagged with ``name`` where remat "names" will read the tag
+    (training); ``x`` itself everywhere else."""
+    if mode != "train" or ctx.remat != "names":
+        return x
+    return _checkpoint_name(x, name)
+
+
+# matrix products without batch dims (``x @ W``: 2-D after matmul folds
+# the leading dims); bmm and the attention kernels have batch dims
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``."""
+    return (CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_names(ctx, op, *args, **kwargs):
+    """``save_only_these_names(*SAVED_NAMES)``: every tag block_apply sets
+    is one of them."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.repro_torch.checkpoint_name.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_POLICIES = {"dots": _save_dots, "names": _save_names}
 
 
 # --------------------------------------------------------------------------- #
@@ -74,11 +126,13 @@ def block_apply(
             cache=None if cache is None else cache["attn"],
             cache_len=cache_len, page_table=page_table, tp=tp,
         )
-        x = x + a
+        x = x + checkpoint_name(a, "attn_out", ctx, mode)
         if kind == "moe":
-            x = x + L.apply_moe(p["moe"], cfg, ctx, x)
+            x = x + checkpoint_name(L.apply_moe(p["moe"], cfg, ctx, x),
+                                    "moe_out", ctx, mode)
         else:
-            x = x + L.apply_mlp(p["mlp"], cfg, x, ctx, tp=tp)
+            x = x + checkpoint_name(L.apply_mlp(p["mlp"], cfg, x, ctx, tp=tp),
+                                    "mlp_out", ctx, mode)
         new_cache = {"attn": ac}
     elif kind in ("mamba", "rec"):
         if page_table is not None:
@@ -86,9 +140,10 @@ def block_apply(
         apply = L.apply_mamba if kind == "mamba" else L.apply_rec
         m, mc = apply(p["mix"], cfg, ctx, x, mode=mode,
                       cache=None if cache is None else cache["mix"])
-        x = x + m
+        x = x + checkpoint_name(m, "mix_out", ctx, mode)
         if kind == "rec":
-            x = x + L.apply_mlp(p["mlp"], cfg, x, ctx, tp=tp)
+            x = x + checkpoint_name(L.apply_mlp(p["mlp"], cfg, x, ctx, tp=tp),
+                                    "mlp_out", ctx, mode)
         new_cache = {"mix": mc}
     else:
         raise ValueError(f"block kind {kind!r} is not ported yet")
@@ -114,13 +169,18 @@ def stack_init(
 
 def _maybe_remat(fn: Callable, ctx: RunCtx) -> Callable:
     """``remat="full"``: keep only the layer's input and recompute its
-    forward in the backward (the reference's ``jax.checkpoint``)."""
+    forward in the backward (the reference's ``jax.checkpoint``); "dots"
+    and "names" save what their policy names and recompute the rest."""
     if ctx.remat == "none":
         return fn
+    kw = {}
+    if ctx.remat in _POLICIES:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _POLICIES[ctx.remat])
 
     def remat(*args):
         return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+                          preserve_rng_state=False, **kw)
 
     return remat
 

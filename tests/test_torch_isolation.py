@@ -22,7 +22,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -41,8 +41,13 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     # falcon-mamba and recurrentgemma configs; the router kernel's wrapper
     # and the kimi-k2 and arctic configs; slice 11's cluster, tier, health
     # and heartbeat; slice 12's tensor-parallel groups, parallel/tp.py and
-    # testing/tp_suite.py)
-    assert int(proc.stdout.split()[-1]) >= 61
+    # testing/tp_suite.py; the device-time profiler, the int8 compression,
+    # GPipe, the data-parallel example and the distributed suite)
+    names = proc.stdout.split()
+    assert len(names) >= 76
+    assert {"repro_torch.obs.profile", "repro_torch.optim.compression",
+            "repro_torch.parallel.pipeline", "repro_torch.examples.train_lm",
+            "repro_torch.testing.dist_suite"} <= set(names)
 
 
 def test_ab_reduce_scatter_tool_imports_without_jax_and_needs_a_card():

@@ -1262,3 +1262,139 @@ def test_cuda_kill_mid_handoff_poisons_without_a_host_sync(cuda):
     assert bool(torch.isnan(row).all())
     assert cluster.kvseg.data_ptr() == ptr
     assert [s.mem.data_ptr() for s in cluster.stores] == rows
+
+
+# the transport ops' VJPs and GPipe on the card: the programs
+# of tests/test_torch_dist.py, on the software transport
+def _transport_programs():
+    return {
+        "shift": lambda e, x: e.shift(x, 3),
+        "permute": lambda e, x: e.permute(x, [2, None, 0, 1]),
+        "all_reduce": lambda e, x: e.all_reduce(x),
+        "all_gather": lambda e, x: e.all_gather(x),
+        "reduce_scatter": lambda e, x: e.reduce_scatter(x),
+        "all_to_all": lambda e, x: e.all_to_all(x),
+        "split_phase": lambda e, x: e.shift_nb(x * x, 1).wait()
+        + e.permute_nb(x, [1, 2, 3, 0]).wait(),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(_transport_programs()))
+def test_cuda_transport_vjps_match_cpu(cuda, op):
+    """On the card: a transport op's forward and gradient on "xla" equal
+    the CPU's, the second call under sync debug mode "error" (the VJPs,
+    the split-phase ones on the side stream, wait on no host); on
+    "gascore" the backward is refused."""
+    from repro_torch.core import gasnet
+
+    n, prog = 4, _transport_programs()[op]
+    x0 = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(n * 4, 3)).astype(np.float32))
+
+    def run(x, backend="xla"):
+        ctx = gasnet.Context(n, backend=backend, device=x.device)
+        x = x.clone().requires_grad_()
+        y = ctx.spmd(lambda node, xl: prog(node.engine, xl), x)
+        wts = torch.arange(y.numel(), dtype=y.dtype,
+                           device=y.device).reshape(y.shape)
+        (y * wts).sum().backward()
+        return y.detach(), x.grad
+
+    want = run(x0)
+    xc = x0.to(cuda)
+    run(xc)  # warm-up: constants cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(xc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-6)
+    if op == "permute":
+        prog = lambda e, xl: e.permute(xl, [2, 3, 0, 1])  # noqa: E731
+    with pytest.raises(RuntimeError, match="forward-only"):
+        run(xc, "gascore")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [1, 3])
+def test_cuda_gpipe_backward_through_split_phase_puts(cuda, segments):
+    """GPipe over 4 ranks on "xla": forward and gradients of the second
+    call under sync debug mode "error" (the boundary puts and their VJPs
+    on the side stream), within the reference's tolerances of the
+    sequential chain, three times over with allocations in between (the
+    caching allocator's reuse across streams); the "gascore" forward
+    bitwise the "xla" one, its backward refused."""
+    from repro_torch.core import gasnet
+    from repro_torch.core.gasnet import P
+    from repro_torch.parallel.pipeline import gpipe
+
+    S, M, MB, D = 4, 6, 64, 256
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xm = torch.randn((M, MB, D), generator=g, device=cuda)
+    w0 = torch.randn((S, D, D), generator=g, device=cuda) / D ** 0.5
+
+    def stage(wl, xx):
+        return torch.tanh(xx @ wl[0])
+
+    def pipe(backend, w):
+        ctx = gasnet.Context(S, backend=backend, device=cuda)
+        return ctx.spmd(
+            lambda node, wl, xs: gpipe(stage, wl, xs, engine=node.engine,
+                                       n_stages=S,
+                                       boundary_segments=segments),
+            w, xm, in_specs=(P("node"), P()), out_specs=P())
+
+    def step(backend="xla"):
+        w = w0.clone().requires_grad_()
+        out = pipe(backend, w)
+        (out ** 2).sum().backward()
+        return out.detach(), w.grad
+
+    ws = w0.clone().requires_grad_()
+    ref_out = xm
+    for i in range(S):
+        ref_out = torch.tanh(ref_out @ ws[i])
+    (ref_out ** 2).sum().backward()
+    step()  # warm-up
+    torch.cuda.synchronize()
+    for _ in range(3):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, grad = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        junk = torch.randn((8 << 20,), generator=g, device=cuda)  # reuse
+        torch.testing.assert_close(out, ref_out.detach(), atol=1e-5, rtol=0)
+        torch.testing.assert_close(grad, ws.grad, atol=2e-4, rtol=2e-4)
+        del junk
+    with torch.no_grad():
+        assert torch.equal(pipe("gascore", w0), out)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        step("gascore")
+
+
+@pytest.mark.cuda
+def test_cuda_profiler_clocks(cuda):
+    """``DeviceProfiler`` on the card: a call of a few launches is timed by
+    events behind a sleep kernel; a call of more launches than the launch
+    queue holds cannot wait behind one and is timed by its kernels'
+    durations; both samples say ``measured="device"``."""
+    from repro_torch.obs.profile import DeviceProfiler
+
+    x = torch.zeros((1 << 10,), device=cuda)
+
+    def many():
+        for _ in range(16384):
+            x.add_(1.0)
+
+    prof = DeviceProfiler(device=cuda)
+    small = prof.profile("small", lambda: x.add_(1.0), iters=3, warmup=1)
+    big = prof.profile("big", many, iters=2, warmup=1)
+    recs = {r["name"]: r for r in prof.records}
+    assert recs["small"]["measured"] == recs["big"]["measured"] == "device"
+    assert recs["small"]["clock"] == "events"
+    assert recs["big"]["clock"] == "kernels"
+    assert 0 < small < 1e3 and small * 100 < big

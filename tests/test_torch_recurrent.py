@@ -69,6 +69,67 @@ def test_plain_scan_matches_oracle_and_pallas_kernel(B, S, W, dtype, tol):
     np.testing.assert_allclose(got.float().numpy(), pallas, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_chunked_scan_matches_reference(chunk):
+    """``ref.gated_linear_scan_chunked`` against the reference's chunked
+    scan and its oracle (tests/test_kernels.py's shape, S 90: a ragged
+    last chunk), and its gradients against ``jax.grad`` of the oracle."""
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0.05, 0.99, size=(2, 90, 48)).astype(np.float32)
+    b = rng.normal(size=(2, 90, 48)).astype(np.float32)
+    ta, tb = (torch.from_numpy(v).requires_grad_() for v in (a, b))
+    got = ops.gated_linear_scan(ta, tb, impl="chunked", block_s=chunk // 2)
+    want = jref.gated_linear_scan_chunked(jnp.asarray(a), jnp.asarray(b),
+                                          chunk=chunk)
+    oracle = jref.gated_linear_scan(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(oracle),
+                               atol=3e-5, rtol=3e-5)
+    (got ** 2).sum().backward()
+    ga, gb = jax.grad(lambda x, y: (jref.gated_linear_scan(x, y) ** 2).sum(),
+                      argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ga), atol=5e-4,
+                               rtol=5e-4)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(gb), atol=5e-4,
+                               rtol=5e-4)
+
+
+@pytest.mark.parametrize("arch,cut", [
+    ("falcon-mamba-7b", {"d_inner": 256, "n_layers": 2}),
+    (ARCH, {"n_layers": 2})])
+def test_model_level_scan_migration_is_transparent(arch, cut):
+    """tests/test_system.py's migration test on the port: the same
+    parameters give the same loss with ``scan_impl`` "ref", "pallas" or
+    "chunked" (the CPU runs the plain scan for the first two, so they
+    are held to the reference's "ref"), each within 1e-3 of the
+    reference's loss."""
+    import dataclasses
+
+    jcfg = dataclasses.replace(J_SMOKE[arch], **cut)
+    jm = j_build(jcfg)
+    jparams = jax.jit(lambda k: jm.init(JCtx(mesh=None), k)[0])(
+        jax.random.PRNGKey(0))
+    tm = build_model(dataclasses.replace(SMOKE[arch], **cut))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 64)).astype(
+        np.int32)
+    jb = {"inputs": jnp.asarray(toks), "targets": jnp.asarray(toks),
+          "mask": jnp.ones((2, 64), jnp.float32)}
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
+    losses = {}
+    for impl in ("ref", "pallas", "chunked"):
+        jimpl = "chunked" if impl == "chunked" else "ref"
+        want = float(jm.train_loss(jparams, JCtx(mesh=None, remat="none",
+                                                 scan_impl=jimpl), jb))
+        losses[impl] = float(tm.train_loss(tparams, RunCtx(
+            remat="none", scan_impl=impl), tb))
+        assert abs(losses[impl] - want) < 1e-3, (impl, losses[impl], want)
+    assert abs(losses["chunked"] - losses["ref"]) < 1e-3
+    with pytest.raises(ValueError, match="scan_impl"):
+        RunCtx(scan_impl="assoc")
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     a, b = (torch.from_numpy(v) for v in _scan_inputs(1, 5, 8))
     before = rglru.gated_linear_scan.launches

@@ -7,6 +7,7 @@ and ``launch.serve --full``.  The falcon-mamba-7b model itself is held
 against the reference in ``tests/test_torch_recurrent.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,6 +70,57 @@ def test_final_state_matches_reference(S):
     np.testing.assert_allclose(
         y.numpy(), np.asarray(jref.selective_scan(*map(jnp.asarray, (
             x, dt, a, b, c, d)))), atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 128])
+def test_chunked_scan_matches_reference(chunk):
+    """``ref.selective_scan_chunked`` (the reference's ``scan_impl=
+    "chunked"``) against the reference's chunked scan and its oracle, on
+    tests/test_kernels.py's shape (S 100: a ragged last chunk), and its
+    carried final state against ``_mamba_final_state``."""
+    rng = np.random.default_rng(0)
+    B, S, Di, N = 2, 100, 64, 8
+    x = rng.normal(size=(B, S, Di)).astype(np.float32)
+    dt = rng.uniform(1e-3, 0.3, size=(B, S, Di)).astype(np.float32)
+    a = -rng.uniform(0.5, 8.0, size=(Di, N)).astype(np.float32)
+    b = rng.normal(size=(B, S, N)).astype(np.float32)
+    c = rng.normal(size=(B, S, N)).astype(np.float32)
+    d = rng.normal(size=(Di,)).astype(np.float32)
+    args = (x, dt, a, b, c, d)
+    got, h = ops.selective_scan(*map(torch.from_numpy, args),
+                                final_state=True, impl="chunked",
+                                block_s=chunk)
+    want = np.asarray(jref.selective_scan_chunked(*map(jnp.asarray, args),
+                                                  chunk=chunk))
+    oracle = np.asarray(jref.selective_scan(*map(jnp.asarray, args)))
+    np.testing.assert_allclose(got.numpy(), want, atol=SCAN_TOL, rtol=SCAN_TOL)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=SCAN_TOL,
+                               rtol=SCAN_TOL)
+    hs = np.asarray(jlayers._mamba_final_state(*map(jnp.asarray, args[:4])))
+    np.testing.assert_allclose(h.numpy(), hs, atol=SCAN_TOL, rtol=SCAN_TOL)
+    with pytest.raises(ValueError, match="scan impl"):
+        ops.selective_scan(*map(torch.from_numpy, args), impl="assoc")
+
+
+def test_chunked_scan_gradients_match_reference():
+    """The chunked scan is a drop-in for training: its gradient against
+    ``jax.grad`` of the reference's oracle (tests/test_kernels.py:312)."""
+    rng = np.random.default_rng(1)
+    B, S, Di, N = 1, 64, 32, 4
+    x = rng.normal(size=(B, S, Di)).astype(np.float32)
+    dt = rng.uniform(1e-3, 0.2, size=(B, S, Di)).astype(np.float32)
+    a = -rng.uniform(0.5, 4.0, size=(Di, N)).astype(np.float32)
+    b, c = (rng.normal(size=(B, S, N)).astype(np.float32) for _ in range(2))
+    d = rng.normal(size=(Di,)).astype(np.float32)
+    rest = tuple(map(jnp.asarray, (dt, a, b, c, d)))
+    want = jax.grad(lambda xx: (jref.selective_scan(xx, *rest) ** 2).sum())(
+        jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    y = ref.selective_scan_chunked(tx, *map(torch.from_numpy, (dt, a, b, c,
+                                                               d)), chunk=16)
+    (y ** 2).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want), atol=5e-4,
+                               rtol=5e-4)
 
 
 def test_scan_takes_strided_b_and_c_views():

@@ -57,7 +57,7 @@ def _batch(batch=4, seq=64, seed=5, step=0):
                         seed=seed).batch_at(step)
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots", "names"])
 def test_train_loss_and_grads_match_reference(ref_model, remat):
     jm, jctx, jparams = ref_model
     hb = _batch()
@@ -86,8 +86,11 @@ def test_train_loss_and_grads_match_reference(ref_model, remat):
 
 
 def test_remat_is_validated():
+    # the reference's four policies; anything else raises
+    for remat in ("none", "full", "dots", "names"):
+        assert RunCtx(remat=remat).remat == remat
     with pytest.raises(ValueError, match="remat"):
-        RunCtx(remat="dots")
+        RunCtx(remat="offload")
 
 
 def _opt_tree(rng):
