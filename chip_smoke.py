@@ -11,7 +11,9 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              lengths; the three archs' head shapes; lengths on and past
              the kernel's split boundaries; the served step's lengths),
              timed by ``device_ms`` at the phase's lengths and at the
-             served step (8 x 148 tokens) against its bound.
+             served step (8 x 148 tokens) against its bound; the zoo's
+             groups (granite-34b's 48 q heads on one KV head, llama3-405b's
+             128 / 8) checked the same way and timed beside their bounds.
 3. gascore — each of the five GAScore kernels against its plain version on
              8 ranks of 1 KiB, 1 MiB and 16 MiB (f32, bf16, and int32 bit
              patterns with NaNs in an f32 carrier): copies byte-equal, the
@@ -63,15 +65,17 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              tier, launches per kernel equal to the transfers' schedule;
              a push tick of acts 1 and 2 under ``torch.profiler``.
 6b. serve_tp — tensor-parallel decode groups of 2 ranks on qwen3-4b at
-             full width and depth: ``TPPagedServer`` on "gascore" and
-             "xla,gascore", f32 tokens identical to phase 5's f32
-             ``PagedServer`` but at near ties (F3's rule, counted); a
+             full width: ``TPPagedServer`` on "gascore" and "xla,gascore",
+             f32 on 12 layers (reduced: n_layers 36 -> 12) with tokens
+             identical to an f32 ``PagedServer``'s of that depth but at
+             near ties (F3's rule, counted), bf16 at full depth; a
              cluster of 1 prefill rank and a tp=2 decode group held the
              same way to a tp=1 cluster (f32); bf16 tok/s beside
              ``PagedServer``'s; one paged-attention launch a layer a step
              (the vmap rule folds the ranks into the kernel's batch).
 6c. serve_ft — fault-tolerant elastic serving of qwen3-4b at full width
-             and depth in f32 (its own seeded weights): the fault suite's
+             on 12 layers (reduced: n_layers 36 -> 12) in f32 (its own
+             seeded weights): the fault suite's
              kill-decode mid-handoff (1 prefill "xla", 2 decode and 2
              memory "gascore" ranks, 2 tier replicas, 1 spare), quorum
              restore, elastic join, heartbeat delay and chaos(0), each
@@ -99,7 +103,11 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              ``scaled_dot_product_attention`` (forward, and its autograd
              backward) as the library yardstick; ``cuobjdump`` shows
              HGMMA in the bf16 forward, dK/dV and dQ kernels and none in
-             the SIMT (f32) ones.
+             the SIMT (f32) ones.  The zoo's training shapes (seamless'
+             encoder: B 2, 16 / 16 heads, S 1,024, D 64, non-causal;
+             granite's B 2, 48 / 1, S 2,048, causal; gemma3's B 1, 32 / 16,
+             S 4,096, a causal window of 1,024) held to the plain versions
+             and timed by ``device_ms`` beside their bounds.
 8. train   — qwen3-4b at full width and depth (36 layers, bf16, random
              weights from a seeded generator) through ``Trainer``: batch 2 x
              seq 2048, full remat, AdamW with f32 moments, 6 steps (the
@@ -172,10 +180,43 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              layer; a prefill and a decode step under ``torch.profiler``.
 14. serve_arctic — arctic-480b the same way, 2 ``moe`` layers of 128
              experts with the dense residual FFN.
+15. serve_zoo — the rest of the model zoo in bf16, seeded random weights:
+             granite-34b at full width and depth (88 layers, 63.3 GiB)
+             and llama3-405b at full width on 4 layers (reduced: n_layers
+             126 -> 4) through ``PagedServer`` (slice 1's traffic; 8
+             requests of 32 new tokens for llama3), the first step held
+             against the dense ``Server``, then granite's f32 TieGate pass
+             (paged vs dense) on 2 layers; gemma3-27b at full depth
+             through ``Server`` (8 requests of 1,536 tokens, past the
+             1,024 window; batch 4, cache 2,048) and its f32 consistency
+             on 6 layers; llama-3.2-vision-11b at full depth, prefill with
+             a 4 x 1,601 x 4,096 image and every ``xgate`` 0.5, 32 greedy
+             steps, text-only ``Server``, f32 consistency on 5 layers;
+             seamless-m4t-medium at full depth, prefill with 4 x 1,024
+             frames (the encoder on the flash forward), 32 greedy steps,
+             and in f32 its prefill against ``train_logits``.  tok/s, step
+             ms, peak GiB and each kernel's launches against its layers.
+16. train_zoo — ``Trainer`` at full width, full remat, AdamW, 3 steps:
+             gemma3 on 6 layers (1 x 4,096), granite on 2 (2 x 2,048),
+             seamless at full depth (2 x 1,024), llama-vision on 5 (2 x
+             2,048 with image embeddings); finite losses and grad norms,
+             step 0 near ln(vocab), 2 forwards, 1 dK/dV and 1 dQ a flash-
+             attended layer a step.
+17. moe_ep — one arctic ``moe`` layer at full width (E 128, K 2, D
+             7,168, F 4,864; 26.8 GB of experts), T 1,024, expert-parallel
+             on a (1, 4) grid on "xla" and "gascore": bitwise equal, the
+             per-shard plain composition within bf16 rounding, > 97% of
+             rows within it of the local path at capacity factor 4.0, 2 x
+             3 ``ring_shift`` and 4 router launches a call; ``device_ms``
+             beside local.  Then arctic on 2 layers through
+             ``PagedServer`` with EP on "gascore" (4 requests), launches
+             gated per forward call.
 
-Phases 10-14 run after the training phase has freed its memory, each
-after the one before it has freed its own.
-Then the card's name and power limit, the ``kernels`` line, and as the
+Phases 10-17 run after the training phase has freed its memory, each
+after the one before it has freed its own.  Every ``reduced`` cut is
+printed in its phase's line.
+Then a ``timing`` line (seconds by phase), the card's name and power
+limit, the ``kernels`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and the
 script exits non-zero before that line.  Without CUDA it exits non-zero
 and prints nothing on stdout.
@@ -218,7 +259,7 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import rglru  # noqa: E402
 from repro_torch.kernels import ssm_scan  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
-    PagedServer, Request, Server, TPPagedServer)
+    PagedServer, Request, Server, TPPagedServer, serve_with_context)
 from repro_torch.obs import export as obs_export  # noqa: E402
 from repro_torch.obs import profile as obs_profile  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
@@ -344,7 +385,7 @@ def kernel_inputs(dtype, gen, lengths, hq=HQ, hkv=HKV):
     return q, kp, vp, table, lens
 
 
-def kernel_bound_ms(dtype, lengths):
+def kernel_bound_ms(dtype, lengths, hq=HQ, hkv=HKV):
     """Least time for the same work: the K and V rows of each live
     position read once (the kernel loads none past the length), q, the
     lengths and the live entries of the table read once, the output
@@ -352,9 +393,9 @@ def kernel_bound_ms(dtype, lengths):
     p.v."""
     elem = torch.tensor([], dtype=dtype).element_size()
     live = [min(int(n), NP * T) for n in lengths]
-    nbytes = (sum(live) * HKV * D * 2 * elem + 2 * len(lengths) * HQ * D * elem
+    nbytes = (sum(live) * hkv * D * 2 * elem + 2 * len(lengths) * hq * D * elem
               + sum(-(-n // T) for n in live) * 4 + len(lengths) * 4)
-    flops = 4 * HQ * D * sum(live)
+    flops = 4 * hq * D * sum(live)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -382,6 +423,9 @@ def paged_check(name, q, kp, vp, table, lens, scale=None, relative=False):
 # the MoE archs' head shapes: kimi-k2 64 q / 8 KV heads (a group of 8),
 # arctic 56 / 8 (a group of 7, not a power of two)
 MOE_HEADS = ((64, 8), (56, 8))
+# the zoo's: granite-34b's MQA, 48 q heads on one KV head (a group of
+# 48), and llama3-405b's 128 / 8 (a group of 16)
+ZOO_HEADS = ((48, 1), (128, 8))
 
 
 # the served steady step: BATCH requests at the first profiled position
@@ -422,13 +466,24 @@ def kernel_phase():
             tag = f"Hq{hq} Hkv{hkv} {dname}"
             heads[tag] = paged_check(f"paged_attention {tag}", *kernel_inputs(
                 dtype, gen, lengths, hq, hkv))
-        for hq, hkv in ((HQ, HKV),) + MOE_HEADS:
+        for hq, hkv in ((HQ, HKV),) + MOE_HEADS + ZOO_HEADS:
             for what, lens in (("split edges", split_edge_lengths()),
                                ("served step", SERVED_LENGTHS)):
                 tag = f"Hq{hq} Hkv{hkv} {dname} {what}"
                 heads[tag] = paged_check(f"paged_attention {tag}",
                                          *kernel_inputs(dtype, gen, lens, hq,
                                                         hkv))
+        zoo = {}
+        for hq, hkv in ZOO_HEADS:  # checked, then timed beside the bound
+            zargs = kernel_inputs(dtype, gen, lengths, hq, hkv)
+            zerr = paged_check(f"paged_attention Hq{hq} Hkv{hkv} {dname}",
+                               *zargs)
+            zb, zby = kernel_bound_ms(dtype, lengths, hq, hkv)
+            zms = device_ms(lambda: pa.paged_attention(*zargs), 50, flush)
+            zoo[f"Hq{hq} Hkv{hkv}"] = {
+                "max_abs_err": zerr, "ms": zms, "bound_ms": zb,
+                "bound_by": zby, "bound_share": zb / zms}
+            del zargs
         served = kernel_inputs(dtype, gen, SERVED_LENGTHS)
         served_err = paged_check(f"paged_attention {dtype} served", *served)
         bound_ms, bound_by = kernel_bound_ms(dtype, lengths)
@@ -447,6 +502,7 @@ def kernel_phase():
                 "events_ms": cuda_time_ms(
                     lambda: pa.paged_attention(*served), 50, flush),
                 "bound_ms": kernel_bound_ms(dtype, SERVED_LENGTHS)[0]},
+            "zoo_heads": zoo,
         }
     emit({"phase": "kernel", "name": pa.NAME, "shape": {
         "B": B, "Hq": HQ, "Hkv": HKV, "D": D, "T": T, "NP": NP,
@@ -1012,11 +1068,11 @@ def serve_phase():
         "peak_device_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     profile_phase(model, ctx, params)
-    record["f32"], f32 = f32_pass(cfg)
+    record["f32"], _ = f32_pass(cfg)
     emit(record)
     return {"launches": launches, "model": model, "ctx": ctx,
             "params": params, "dense": dense_out, "paged": paged_out,
-            "record": record, "f32": f32}
+            "record": record}
 
 
 def top2_margin(row):
@@ -1093,9 +1149,9 @@ class TieGate:
 
 
 def f32_pass(cfg):
-    """Paged vs dense decode of the serve phase's requests at full width
-    and depth in f32: greedy tokens must be identical but at near ties
-    (``TieGate``).  The f32 weights (~16 GB) are freed before returning.
+    """Paged vs dense decode of the serve phase's requests at ``cfg``'s
+    width and depth in f32: greedy tokens must be identical but at near
+    ties (``TieGate``).  The f32 weights are freed before returning.
     Returns the figures, and the paged run's tokens and logit rows (a
     ``TieGate`` the tensor-parallel servers are held to)."""
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -1105,7 +1161,7 @@ def f32_pass(cfg):
     dense_gate, paged_gate = TieGate(), TieGate()
     dense = Server(model, ctx, params, BATCH, CACHE_LEN, device="cuda")
     dense.on_step = dense_gate.keep
-    dense_out = ex.serve(dense, requests())
+    dense_out = ex.serve(dense, requests(cfg.vocab))
     del dense
 
     def both(server, live, logits):
@@ -1115,7 +1171,7 @@ def f32_pass(cfg):
     paged = PagedServer(model, ctx, params, BATCH, CACHE_LEN, device="cuda",
                         page_tokens=PAGE_TOKENS)
     paged.on_step = both
-    paged_out = ex.serve(paged, requests())
+    paged_out = ex.serve(paged, requests(cfg.vocab))
     del paged, params, model
     pygc.collect()
     torch.cuda.empty_cache()
@@ -1377,6 +1433,10 @@ def serve_disagg_phase(served):
 # --------------------------------------------------------------------------- #
 TP = 2
 TP_BACKENDS = ("gascore", "xla,gascore")
+# the f32 runs' depth, reduced: n_layers 36 -> 12, so that the whole
+# script stays well inside its time limit on a slow host (the bf16 runs
+# keep the serve phase's full depth)
+TP_F32_LAYERS = 12
 TP_CLUSTER_REQUESTS = N_REQ  # the serve phase's traffic, not cut
 TP_TRANSFERS = ("ring_shift", "perm_put")  # a group all-reduce's kernels
 
@@ -1446,14 +1506,15 @@ def run_tp_cluster(make, reqs, on_step, n_layers):
 
 
 def serve_tp_phase(served):
-    """Tensor-parallel decode groups of 2 ranks on qwen3-4b at full width
-    and depth, every rank on this card.  f32 (a second seeded model, ~16
-    GB, plus its rank-stacked shards): ``TPPagedServer`` on "gascore" and
-    "xla,gascore" on the serve phase's traffic, tokens identical to the
-    serve phase's f32 ``PagedServer`` but at near ties under F3's rule
-    (each printed and counted); then a cluster of 1 prefill rank and a
-    tp=2 decode group, held the same way to a tp=1 cluster (the oracle,
-    run before the counts are set to 0).  bf16 (the serve phase's
+    """Tensor-parallel decode groups of 2 ranks on qwen3-4b at full width,
+    every rank on this card.  f32 on ``TP_F32_LAYERS`` layers (a second
+    seeded model plus its rank-stacked shards): ``TPPagedServer`` on
+    "gascore" and "xla,gascore" on the serve phase's traffic, tokens
+    identical to an f32 ``PagedServer``'s of the same depth (``f32_pass``,
+    run first) but at near ties under F3's rule (each printed and
+    counted); then a cluster of 1 prefill rank and a tp=2 decode group,
+    held the same way to a tp=1 cluster (the oracle, run before the
+    counts are set to 0).  bf16 (the serve phase's
     weights): ``TPPagedServer`` on both backends, tok/s beside
     ``PagedServer``'s of the same run, agreement, launches a step.  One
     paged-attention launch a layer a TP step; the group all-reduces
@@ -1461,11 +1522,14 @@ def serve_tp_phase(served):
     same a step as the server's on "gascore".  The phase's launches are
     the sum of its gated runs'."""
     cfg = served["model"].cfg
-    f32 = served["f32"]
+    cut = dataclasses.replace(cfg, n_layers=TP_F32_LAYERS)
     rec = {"phase": "serve_tp", "arch": cfg.name, "layers": cfg.n_layers,
+           "f32_layers": cut.n_layers,
+           "reduced": {"f32 n_layers": [cfg.n_layers, cut.n_layers]},
            "d_model": cfg.d_model, "tp": TP, "card": card(), "batch": BATCH,
            "cache_len": CACHE_LEN, "page_tokens": PAGE_TOKENS}
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rec["f32_oracle"], f32 = f32_pass(cut)
+    cfg32 = dataclasses.replace(cut, dtype=torch.float32)
     model, ctx = build_model(cfg32), RunCtx()
     params = model.init(ctx, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
@@ -1473,7 +1537,7 @@ def serve_tp_phase(served):
     oracle = TieGate()
     base, base_tokens, _, base_group = run_tp_cluster(
         lambda: tp_cluster(model, ctx, params, 1), reqs(), oracle.keep,
-        cfg.n_layers)
+        cfg32.n_layers)
     if any(base_group.values()):
         raise AssertionError(f"the tp=1 cluster's decode all-reduced: "
                              f"{base_group} a step")
@@ -1501,7 +1565,8 @@ def serve_tp_phase(served):
         runs.extend([built, launches])
         fig = {"wall_s": wall, "decode_steps": srv.paged_decode_steps,
                "launches_per_step": per_step(
-                   backend, launches, srv.paged_decode_steps, cfg.n_layers),
+                   backend, launches, srv.paged_decode_steps,
+                   model.cfg.n_layers),
                "costs": {k: dataclasses.asdict(v)
                          for k, v in srv.costs.items()}}
         del srv
@@ -1519,7 +1584,7 @@ def serve_tp_phase(served):
     # the cluster: a tp=2 decode group against the tp=1 oracle, f32
     stats, tokens, launches, group = run_tp_cluster(
         lambda: tp_cluster(model, ctx, params, TP), reqs(), oracle.compare,
-        cfg.n_layers)
+        cfg32.n_layers)
     runs.append(launches)
     if stats["tp"] != TP or stats["n_decode_groups"] != 1:
         raise AssertionError(f"not one tp={TP} decode group: {stats}")
@@ -1533,7 +1598,7 @@ def serve_tp_phase(served):
         "tok_per_s": stats["tok_per_s"], "tp1_tok_per_s": base["tok_per_s"],
         "ticks": stats["ticks"], "tp1_ticks": base["ticks"],
         "decode_steps": stats["decode_paged_steps"], "launches": launches,
-        "launches_per_step": {**group, "paged_attention": cfg.n_layers}}
+        "launches_per_step": {**group, "paged_attention": cfg32.n_layers}}
     del model, params, oracle
     pygc.collect()
     torch.cuda.empty_cache()
@@ -1576,6 +1641,9 @@ FT_SIZE = fault_suite.Size(
 FT_BACKENDS = dict(prefill_backend="xla", decode_backend="gascore",
                    memory_backend="gascore")
 FT_SEED = 0  # chaos(0)
+# reduced: n_layers 36 -> 12, so that the whole script stays well inside
+# its time limit on a slow host
+FT_LAYERS = 12
 
 
 def sync_free(fn):
@@ -1735,8 +1803,9 @@ def ft_scenarios(model, ctx, params, size, device, counter=all_counts):
 
 
 def serve_ft_phase(served=None):
-    """Fault-tolerant elastic serving of qwen3-4b at full width and depth
-    in f32 (a seeded model of its own, ~16 GB, freed after), every rank on
+    """Fault-tolerant elastic serving of qwen3-4b at full width on
+    ``FT_LAYERS`` layers in f32 (a seeded model of its own, freed after),
+    every rank on
     this card: the fault suite's kill-decode mid-handoff (1 prefill "xla",
     2 decode "gascore", 2 memory "gascore" with 2 replicas, 1 spare),
     quorum restore, elastic join, heartbeat delay and ``chaos(0)``, each
@@ -1745,7 +1814,7 @@ def serve_ft_phase(served=None):
     phase's start; its launches are the sum of its runs'."""
     cfg = (served["model"].cfg if served is not None
            else ARCHS["qwen3-4b"])
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=FT_LAYERS)
     model, ctx = build_model(cfg32), RunCtx()
     params = model.init(ctx, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
@@ -1766,7 +1835,8 @@ def serve_ft_phase(served=None):
     launches = {k: v for k, v in total.items() if k in DISAGG_KERNELS}
     if min(launches.values()) == 0:
         raise AssertionError(f"serve_ft never launched: {launches}")
-    emit({"phase": "serve_ft", "arch": cfg.name, "layers": cfg.n_layers,
+    emit({"phase": "serve_ft", "arch": cfg.name, "layers": cfg32.n_layers,
+          "reduced": {"n_layers": [cfg.n_layers, cfg32.n_layers]},
           "d_model": cfg.d_model, "dtype": "float32", "card": card(),
           "size": dataclasses.asdict(FT_SIZE), "backends": FT_BACKENDS,
           "wall_s": wall, "scenarios": records, "launches": launches})
@@ -2091,6 +2161,22 @@ FLASH_SMALL = [
     # the persistent forward: 320 work tiles of uneven length on 132 SMs
     (4, 16, 4, 640, 128, True, 100, torch.bfloat16),
 ]
+# the zoo's attention shapes in training (bf16): seamless' encoder
+# (non-causal, head dim 64), granite's MQA (a group of 48), gemma3's
+# local layers (a causal window of 1,024 at S 4,096).  At granite's group
+# dK and dV sum 48 Sq terms an element, each with the bf16 kernel's P or
+# dS rounded to 8 bits on the tensor cores: an element small beside its
+# key row's largest may lie a few bf16 ulps of that row from the plain
+# version (0.125 at |dV| < 5.3 in a row reaching 29.8 on an NVIDIA H100
+# 80GB HBM3 at 700 W, tools/flash_gqa_error.py).  So dK and dV at
+# ``FLASH_EXACT`` are held, key row by key row, to the f64 sum of the same
+# inputs (``within_exact``); the other cases elementwise, as the rest.
+FLASH_ZOO = [
+    (2, 16, 16, 1024, 64, False, None, torch.bfloat16),
+    (2, 48, 1, 2048, 128, True, None, torch.bfloat16),
+    (1, 32, 16, 4096, 128, True, 1024, torch.bfloat16),
+]
+FLASH_EXACT = {FLASH_ZOO[1]}
 # |kernel - plain| <= tol * (1 + |plain|) elementwise.  Both sides take f32
 # products from the same inputs: f32 differs by summation order (the
 # forward at the reference's 2e-5, the gradients at its 5e-4); bf16 by the
@@ -2120,6 +2206,32 @@ def within(name, got, want, tol):
     return diff.max().item()
 
 
+def exact_row_ratio(got, plain, exact):
+    """The largest over key rows of the row's max |got - exact| over its
+    bound, 2 x the row's max |plain - exact| + 2**-8 x its max |exact|."""
+    err = (got.double() - exact).abs().amax(-1)
+    bound = (2 * (plain.double() - exact).abs().amax(-1)
+             + 2.0**-8 * exact.abs().amax(-1))
+    return float((err / bound).max())
+
+
+def within_exact(name, got, plain, exact):
+    """Each key row (the last axis) of the kernel's output against the f64
+    sum ``exact``: its largest error at most twice the plain version's
+    largest in that row, plus one bf16 ulp of the row's largest |value|
+    (2**-8 of it).  A row of zeros or garbage fails; a kernel whose
+    rounding is the plain version's passes.  Returns (max |got - plain|,
+    the largest row error over its bound)."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    ratio = exact_row_ratio(got, plain, exact)
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: a key row lies {ratio} x its bound "
+                             f"from the f64 sum (2 x plain's error + 2**-8 "
+                             f"x the row's max)")
+    return float((got.float() - plain.float()).abs().max()), ratio
+
+
 def flash_inputs(case, gen):
     B, Hq, Hkv, S, D, causal, window, dtype = case
     Sq, Sk = S if isinstance(S, tuple) else (S, S)
@@ -2136,7 +2248,9 @@ def flash_inputs(case, gen):
 
 def flash_check(case, gen):
     """Each kernel against its plain version on the same inputs; returns
-    the max |kernel - plain| of out, lse, dk, dv and dq, and the inputs."""
+    the max |kernel - plain| of out, lse, dk and dv, dq, and the inputs.
+    dK and dV of a ``FLASH_EXACT`` case are held to their f64 sums
+    (``within_exact``; the row ratios are returned too)."""
     q, k, v, dout, kw, blocks = flash_inputs(case, gen)
     tol = FLASH_TOL[case[-1]]
     name = f"flash {case}"
@@ -2148,8 +2262,16 @@ def flash_check(case, gen):
     args = (q, k, v, dout, want_lse, delta)
     dk, dv = fab.flash_attention_dkv(*args, **kw, **blocks)
     want_dk, want_dv = ref.flash_attention_dkv(*args, **kw)
-    errs["dk"] = within(f"{name} dk", dk, want_dk, tol["bwd"])
-    errs["dv"] = within(f"{name} dv", dv, want_dv, tol["bwd"])
+    if case in FLASH_EXACT:
+        exact = ref.flash_attention_dkv_f64(*args, **kw)
+        for key, got, plain, f64 in zip(("dk", "dv"), (dk, dv),
+                                        (want_dk, want_dv), exact):
+            errs[key], errs[f"{key}_f64_row_ratio"] = within_exact(
+                f"{name} {key}", got, plain, f64)
+        del exact
+    else:
+        errs["dk"] = within(f"{name} dk", dk, want_dk, tol["bwd"])
+        errs["dv"] = within(f"{name} dv", dv, want_dv, tol["bwd"])
     del want_dk, want_dv
     dq = fab.flash_attention_dq(*args, **kw, **blocks)
     errs["dq"] = within(f"{name} dq", dq, ref.flash_attention_dq(*args, **kw),
@@ -2254,6 +2376,39 @@ def flash_sass():
     return found
 
 
+def flash_zoo(gen, flush):
+    """Each ``FLASH_ZOO`` case against the plain versions, then each
+    kernel's ``device_ms`` beside its bound."""
+    out = {}
+    for case in FLASH_ZOO:
+        errs, (args, kw) = flash_check(case, gen)
+        q, k, v = args[:3]
+        bounds = flash_bounds(case)
+        calls = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(
+                     q, k, v, **kw),
+                 "flash_attention_dkv": lambda: fab.flash_attention_dkv(
+                     *args, **kw),
+                 "flash_attention_dq": lambda: fab.flash_attention_dq(
+                     *args, **kw)}
+        library = {}
+        if kw["window"] is None:  # SDPA has no window: no same function
+            sdpa_fwd, sdpa_bwd = sdpa_calls(q, k, v, args[3], kw["causal"])
+            library = {"flash_attention_fwd": device_ms(sdpa_fwd, 10, flush),
+                       "sdpa_backward": device_ms(sdpa_bwd, 10, flush)}
+            del sdpa_fwd, sdpa_bwd
+        figs = {"library_device_ms": library}
+        for name, fn in calls.items():
+            dev = device_ms(fn, 10, flush)
+            figs[name] = {"device_ms": dev, "bound_ms": bounds[name]["bound_ms"],
+                          "bound_by": bounds[name]["bound_by"],
+                          "bound_share": bounds[name]["bound_ms"] / dev,
+                          "tflops": bounds[name]["flops"] / dev / 1e9}
+        out[str(case[:-1])] = {"max_abs_err": errs, "kernels": figs}
+        del args, q, k, v, calls
+        torch.cuda.empty_cache()
+    return out
+
+
 def flash_phase():
     """Returns the training-shape bf16 figures per kernel."""
     sass = flash_sass()
@@ -2263,6 +2418,7 @@ def flash_phase():
     for case in FLASH_SMALL:
         errs, _ = flash_check(case, gen)
         small[str(case[:-1] + (str(case[-1]).split(".")[-1],))] = errs
+    zoo = flash_zoo(gen, flush)
     figures = {}
     for dtype in (torch.bfloat16, torch.float32):
         case = TRAIN_SHAPE + (dtype,)
@@ -2312,6 +2468,7 @@ def flash_phase():
                                       "D": D, "causal": causal},
           "tol": {str(d).split(".")[-1]: t for d, t in FLASH_TOL.items()},
           "lse_tol": LSE_TOL, "small_cases": small, "train_shape": figures,
+          "zoo_cases": zoo,
           "bf16_backward": backward, "sass": sass,
           "library": "scaled_dot_product_attention(enable_gqa=True): forward; "
                      "its autograd backward (dq, dk, dv in one call) for the "
@@ -2813,8 +2970,8 @@ def router_check(name, logits, k, capacity, renormalize=True):
     """The kernel against the plain version on the same logits: indices,
     slots and keep equal, weights within ``ROUTER_W_TOL``.  Returns the
     max |weight difference|."""
-    got = mr.moe_router(logits, k=k, capacity=capacity,
-                        renormalize=renormalize)
+    got = mr.unpack(*mr.moe_router(logits, k=k, capacity=capacity,
+                                   renormalize=renormalize))
     want = ref.route_topk(logits, k=k, capacity=capacity,
                           renormalize=renormalize)
     torch.cuda.synchronize()
@@ -3695,6 +3852,597 @@ def scan_chunked_phase():
         "prefill_rel": CONSIST_REL_TOL}, "scans": scans, "prefill": prefill})
 
 
+# --------------------------------------------------------------------------- #
+# the rest of the model zoo (slice 15): gemma3-27b, granite-34b,
+# llama3-405b, llama-3.2-vision-11b, seamless-m4t-medium; then expert
+# parallelism over the GAS all-to-all
+# --------------------------------------------------------------------------- #
+ALL_KERNELS = {**{"paged_attention": (pa.paged_attention, None, None)},
+               **GAS_KERNELS, **FLASH_KERNELS,
+               "selective_scan": (ssm_scan.selective_scan, None, None),
+               "gated_linear_scan": (rglru.gated_linear_scan, None, None),
+               "moe_router": (mr.moe_router, None, None)}
+ZOO_PAGED = {  # arch: (layers served, f32 layers of the TieGate pass)
+    "granite-34b": (None, 2),  # full depth: 88 layers, 63.3 GiB of bf16
+    "llama3-405b": (4, None),  # reduced: n_layers 126 -> 4 (810 GB at 126)
+}
+LLAMA3_REQ, LLAMA3_NEW = 8, 32
+GEMMA = dict(requests=8, prompt=1536, new=32, batch=4, cache=2048,
+             f32_layers=6)  # prompts past the 1,024 window; one 5:1 unit
+VISION = dict(batch=4, prompt=128, new=32, cache=512, xgate=0.5,
+              f32_layers=5)
+SEAMLESS = dict(batch=4, frames=1024, prompt=128, new=32, cache=256)
+
+
+def ln_vocab_range(vocab):
+    """A step-0 loss near ln(vocab): random logits spread it up a little."""
+    return math.log(vocab) - 1.0, math.log(vocab) + 2.5
+
+
+def zoo_model(cfg, seed=0):
+    """``cfg``'s model and seeded random parameters on the card, after
+    freeing what the phase before left; with the init's seconds."""
+    pygc.collect()
+    torch.cuda.empty_cache()
+    model, ctx = build_model(cfg), RunCtx()
+    t0 = time.perf_counter()
+    params = model.init(ctx, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    torch.cuda.synchronize()
+    return model, ctx, params, time.perf_counter() - t0
+
+
+def free():
+    pygc.collect()
+    torch.cuda.empty_cache()
+
+
+def first_dense_logits(model, ctx, params, reqs, batch, cache_len):
+    """The dense ``Server``'s first decode step over the first ``batch``
+    requests (the oracle of a paged run's first step), host f32."""
+    dense = Server(model, ctx, params, batch, cache_len, device="cuda")
+    got, decode = [], dense._decode
+
+    def recording(*a):
+        logits, caches = decode(*a)
+        if not got:
+            got.append(logits.float().cpu().numpy())
+        return logits, caches
+
+    dense._decode = recording
+    for r in reqs[:batch]:
+        r.max_new = 2
+        dense.submit(r)
+    dense.run_until_drained()
+    del dense, decode, recording
+    return got[0]
+
+
+def serve_paged_zoo(arch):
+    """One arch of ``global`` blocks through ``PagedServer`` with slice 1's
+    traffic, its first decode step held against the dense ``Server``'s;
+    then (granite) the f32 TieGate pass of paged against dense at full
+    width on a cut depth.  Returns (record, paged-attention launches)."""
+    layers, f32_layers = ZOO_PAGED[arch]
+    cfg = ARCHS[arch] if layers is None else dataclasses.replace(
+        ARCHS[arch], n_layers=layers)
+    n_req, max_new = ((N_REQ, MAX_NEW) if arch == "granite-34b"
+                      else (LLAMA3_REQ, LLAMA3_NEW))
+
+    def reqs():
+        out = requests(cfg.vocab)[:n_req]
+        for r in out:
+            r.max_new = max_new
+        return out
+
+    model, ctx, params, init_s = zoo_model(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    first_d = first_dense_logits(model, ctx, params, reqs(), BATCH, CACHE_LEN)
+    server = RecordingPagedServer(model, ctx, params, BATCH, CACHE_LEN,
+                                  device="cuda", page_tokens=PAGE_TOKENS)
+    for r in reqs():
+        server.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention.launches = 0  # the main path starts here
+    stats = server.run_until_drained()
+    launches = pa.paged_attention.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    outs = {r.rid: r.out for r in server.finished}
+    if sorted(outs) != list(range(n_req)) or any(
+            len(o) != max_new for o in outs.values()):
+        raise AssertionError(f"{arch}: finished {sorted(outs)}")
+    steps = server.paged_decode_steps
+    if launches != cfg.n_layers * steps or steps == 0:
+        raise AssertionError(f"{arch}: paged_attention launched {launches} "
+                             f"times in {steps} steps; want {cfg.n_layers} a "
+                             "step")
+    if not server.all_finite:
+        raise AssertionError(f"{arch}: non-finite logits on the paged path")
+    first_p = server.first_logits
+    if first_p.shape != (BATCH, cfg.vocab) or first_d.shape != first_p.shape:
+        raise AssertionError(f"{arch}: logits {first_p.shape}, {first_d.shape}")
+    diff = float(np.abs(first_p - first_d).max())
+    scale = float(np.abs(first_d).max())
+    if diff > LOGIT_REL_TOL * scale:
+        raise AssertionError(f"{arch} first decode step: paged vs dense "
+                             f"logits differ by {diff} (> {LOGIT_REL_TOL} x "
+                             f"{scale})")
+    step_s = server.step_s
+    record = {
+        "arch": arch, "layers": cfg.n_layers,
+        "layers_published": ARCHS[arch].n_layers, "params": n_params,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "dtype": "bfloat16",
+        "server": "PagedServer", "batch": BATCH, "cache_len": CACHE_LEN,
+        "page_tokens": PAGE_TOKENS, "requests": stats["requests"],
+        "prompt_len": PROMPT_LEN, "max_new": max_new,
+        "decoded_tokens": stats["decoded_tokens"],
+        "tok_per_s": stats["tok_per_s"], "p50_latency_s": stats["p50_latency_s"],
+        "p50_ttft_s": stats["p50_ttft_s"], "wall_s": stats["wall_s"],
+        "decode_steps": steps,
+        "decode_step_ms_median": 1e3 * float(np.median(step_s)),
+        "peak_device_mem_gib": peak_gib, "init_s": init_s,
+        "launches": {"paged_attention": launches},
+        "launches_expected": {"paged_attention":
+                              f"{cfg.n_layers} attention layers x {steps}"},
+        "first_step_logit_max_abs_diff": diff,
+        "first_step_logit_max_abs": scale,
+        "prefix_hits": stats["pool_prefix_hits"],
+    }
+    if layers is not None:
+        record["reduced"] = {"n_layers": [ARCHS[arch].n_layers, layers]}
+    del server, params, model
+    free()
+    if f32_layers:
+        record["f32"], _ = f32_pass(dataclasses.replace(
+            ARCHS[arch], n_layers=f32_layers))
+    return record, launches
+
+
+def serve_dense_zoo(model, params, reqs, batch, cache_len):
+    """``reqs`` through the dense ``Server`` at ``batch`` rows; the run's
+    figures.  Tokens must be finite and in the vocabulary."""
+    cfg = model.cfg
+    server = RecordingServer(model, RunCtx(), params, batch, cache_len,
+                             device="cuda")
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    stats = server.run_until_drained()
+    outs = {r.rid: r.out for r in server.finished}
+    if len(outs) != len(reqs) or any(
+            len(o) != r.max_new for o, r in zip(
+                (outs[r.rid] for r in reqs), reqs)):
+        raise AssertionError(f"{cfg.name}: finished {sorted(outs)}")
+    if not server.all_finite or any(
+            not 0 <= t < cfg.vocab for o in outs.values() for t in o):
+        raise AssertionError(f"{cfg.name}: non-finite logits or tokens out "
+                             "of range")
+    step_s = server.step_s
+    del server
+    return {"server": "Server", "batch": batch, "cache_len": cache_len,
+            "requests": stats["requests"], "prompt_len": len(reqs[0].prompt),
+            "max_new": reqs[0].max_new,
+            "decoded_tokens": stats["decoded_tokens"],
+            "tok_per_s": stats["tok_per_s"],
+            "p50_latency_s": stats["p50_latency_s"],
+            "p50_ttft_s": stats["p50_ttft_s"], "wall_s": stats["wall_s"],
+            "decode_steps": len(step_s),
+            "decode_step_ms_median": 1e3 * float(np.median(step_s)),
+            "peak_device_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def consistency_f32(cfg, n_layers, S):
+    """``consistency`` in f32 at full width on ``n_layers`` layers, held
+    to ``CONSIST_REL_TOL``; the figures."""
+    small = dataclasses.replace(cfg, n_layers=n_layers, dtype=torch.float32)
+    model, ctx, params, _ = zoo_model(small)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    diff, scale, agree = consistency(model, ctx, params, S, CONSIST_STEPS,
+                                     S + CONSIST_STEPS + 4, gen)
+    del params, model
+    free()
+    if diff > CONSIST_REL_TOL * scale:
+        raise AssertionError(
+            f"{cfg.name} f32 x {n_layers} layers: prefill and prefill + "
+            f"decode differ by {diff} (> {CONSIST_REL_TOL} x {scale})")
+    return {"layers": n_layers, "prompt": S, "steps": CONSIST_STEPS,
+            "max_abs_logit_diff": diff, "max_abs_logit": scale,
+            "rel_tol": CONSIST_REL_TOL, "top1_agreement": agree}
+
+
+def greedy(model, ctx, params, toks, steps, cache_len, context):
+    """The prompts ``toks`` (B, S) through ``serve_with_context`` (the
+    port's loop for prefills that take frames or an image), one batch,
+    ``steps`` greedy decode steps; the record: tokens in the vocabulary,
+    prefill seconds, the median step ms and tok/s of the decode steps."""
+    cfg = model.cfg
+    reqs = [Request(rid=i, prompt=row, max_new=steps + 1)
+            for i, row in enumerate(toks.tolist())]
+    stats = serve_with_context(model, ctx, params, reqs, len(reqs),
+                               cache_len, lambda B, S: context)
+    out = [t for r in reqs for t in r.out]
+    if (len(out) != len(reqs) * (steps + 1) or stats["decode_steps"] != steps
+            or not all(0 <= t < cfg.vocab for t in out)):
+        raise AssertionError(f"{cfg.name}: {stats['decode_steps']} steps, "
+                             f"tokens {out[:8]}...")
+    step_s = stats["step_s"]
+    return {"batch": len(reqs), "new_tokens": steps + 1,
+            "prefill_s": stats["prefill_s"][0], "decode_steps": steps,
+            "decode_step_ms_median": 1e3 * float(np.median(step_s)),
+            "tok_per_s": len(reqs) * steps / sum(step_s)}
+
+
+def serve_gemma():
+    cfg = ARCHS["gemma3-27b"]
+    g = GEMMA
+    model, ctx, params, init_s = zoo_model(cfg)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                               size=g["prompt"]).tolist(),
+                    max_new=g["new"]) for i in range(g["requests"])]
+    record = {"arch": cfg.name, "layers": cfg.n_layers,
+              "params": sum(t.numel() for t in tree_leaves(params)),
+              "local_window": cfg.local_window, "dtype": "bfloat16",
+              "init_s": init_s, **serve_dense_zoo(
+                  model, params, reqs, g["batch"], g["cache"]),
+              "launches": {}, "launches_expected": {
+                  "paged_attention": "0: Server (paged decode has no "
+                                     "windows)"}}
+    del params, model
+    free()
+    record["consistency_f32"] = consistency_f32(cfg, g["f32_layers"],
+                                                g["prompt"])
+    return record
+
+
+@torch.no_grad()
+def open_gates(params, value):
+    """Every ``xgate`` leaf of ``params`` set to ``value`` (in place): the
+    init's 0 closes the image path."""
+    for seg in params["dec"]:
+        for block in seg.values():
+            if "xgate" in block:
+                block["xgate"].fill_(value)
+
+
+def serve_vision():
+    cfg = ARCHS["llama-3.2-vision-11b"]
+    v = VISION
+    model, ctx, params, init_s = zoo_model(cfg)
+    open_gates(params, v["xgate"])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (v["batch"], v["prompt"]),
+                         generator=gen, device="cuda").to(torch.int32)
+    xkv = torch.randn((v["batch"], cfg.cross_kv_len, cfg.d_model),
+                      generator=gen, device="cuda").to(cfg.dtype)
+    torch.cuda.reset_peak_memory_stats()
+    with_image = greedy(model, ctx, params, toks, v["new"], v["cache"],
+                        {"xkv": xkv})
+    record = {"arch": cfg.name, "layers": cfg.n_layers,
+              "params": sum(t.numel() for t in tree_leaves(params)),
+              "dtype": "bfloat16", "init_s": init_s, "xgate": v["xgate"],
+              "image": list(xkv.shape), "prompt_len": v["prompt"],
+              "cache_len": v["cache"],
+              "with_image": {**with_image,
+                             "peak_device_mem_gib":
+                             torch.cuda.max_memory_allocated() / 2**30},
+              "launches": {}, "launches_expected": {
+                  "paged_attention": "0: Server and Model.decode_step"}}
+    del xkv
+    record["text_only"] = serve_dense_zoo(model, params,
+                                          requests(cfg.vocab)[:BATCH], BATCH,
+                                          CACHE_LEN)
+    del params, model
+    free()
+    record["consistency_f32"] = consistency_f32(cfg, v["f32_layers"],
+                                                PROMPT_LEN)
+    return record
+
+
+def serve_seamless():
+    """Prefill with frames (the encoder on the flash forward, non-causal at
+    head dim 64), 32 greedy decode steps; then in f32 the prefill's
+    logits against ``train_logits`` at the last position."""
+    cfg = ARCHS["seamless-m4t-medium"]
+    s = SEAMLESS
+    model, ctx, params, init_s = zoo_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (s["batch"], s["prompt"]),
+                         generator=gen, device="cuda").to(torch.int32)
+    frames = torch.randn((s["batch"], s["frames"], cfg.d_model),
+                         generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(FLASH_KERNELS)
+    served = greedy(model, ctx, params, toks, s["new"], s["cache"],
+                    {"frames": frames})
+    launches = counts(FLASH_KERNELS)
+    want = {"flash_attention_fwd": cfg.n_enc_layers,
+            "flash_attention_dkv": 0, "flash_attention_dq": 0}
+    if launches != want:
+        raise AssertionError(f"seamless prefill: flash launches {launches}, "
+                             f"want {want} (one forward an encoder layer)")
+    record = {"arch": cfg.name, "layers": cfg.n_layers,
+              "enc_layers": cfg.n_enc_layers,
+              "params": sum(t.numel() for t in tree_leaves(params)),
+              "dtype": "bfloat16", "init_s": init_s,
+              "frames": list(frames.shape), "prompt_len": s["prompt"],
+              "cache_len": s["cache"],
+              **served,
+              "peak_device_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "launches": dict(launches), "launches_expected": {
+                  "flash_attention_fwd": f"{cfg.n_enc_layers} encoder layers "
+                                         "x 1 prefill"}}
+    del params, model
+    free()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model, ctx, params, _ = zoo_model(cfg32)
+    batch = {"inputs": toks, "frames": frames}
+    reset_counts(FLASH_KERNELS)
+    pre, _ = model.prefill(params, ctx, batch, s["cache"])
+    with torch.no_grad():
+        full = model.train_logits(params, ctx, batch)[:, -1]
+    launches32 = counts(FLASH_KERNELS)
+    diff = float((pre.float() - full.float()).abs().max())
+    scale = float(full.float().abs().max())
+    if not (torch.isfinite(pre).all() and diff <= CONSIST_REL_TOL * scale):
+        raise AssertionError(f"seamless f32: prefill vs train_logits at the "
+                             f"last position {diff} (> {CONSIST_REL_TOL} x "
+                             f"{scale})")
+    record["f32_prefill_vs_train_logits"] = {
+        "max_abs_logit_diff": diff, "max_abs_logit": scale,
+        "rel_tol": CONSIST_REL_TOL, "flash_launches": launches32}
+    for k, n in launches32.items():
+        launches[k] += n
+    del params, model, pre, full
+    free()
+    return record, launches
+
+
+def serve_zoo_phase():
+    """The five archs' serving paths.  Returns the launches per kernel."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in ALL_KERNELS}
+    out = {}
+    for arch in ZOO_PAGED:
+        out[arch], n = serve_paged_zoo(arch)
+        total["paged_attention"] += n
+    out["gemma3-27b"] = serve_gemma()
+    out["llama-3.2-vision-11b"] = serve_vision()
+    out["seamless-m4t-medium"], flash = serve_seamless()
+    for k, n in flash.items():
+        total[k] += n
+    emit({"phase": "serve_zoo", "archs": out, "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+TRAIN_ZOO = [  # arch, layers (None: full depth), batch, seq, with xkv
+    ("gemma3-27b", 6, 1, 4096),
+    ("granite-34b", 2, 2, 2048),
+    ("seamless-m4t-medium", None, 2, 1024),
+    ("llama-3.2-vision-11b", 5, 2, 2048),
+]
+TRAIN_ZOO_STEPS = 3
+
+
+def flash_layers(cfg):
+    """Self-attentions on the flash kernels in training: every decoder
+    block (a ``cross``/``xdec`` block's self sub-block; its cross
+    sub-block is plain torch, as the reference's jnp) and every encoder
+    layer."""
+    return cfg.n_layers + cfg.n_enc_layers
+
+
+def train_zoo_phase():
+    """``Trainer`` at full width, full remat, AdamW, 3 steps an arch.
+    Returns the flash kernels' launches."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in FLASH_KERNELS}
+    out = {}
+    for arch, layers, B, S in TRAIN_ZOO:
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = ARCHS[arch] if layers is None else dataclasses.replace(
+            ARCHS[arch], n_layers=layers)
+        model, ctx = build_model(cfg), RunCtx(remat="full")
+        opt = adamw.AdamWConfig(lr=TRAIN_LR, weight_decay=0.0)
+        trainer = Trainer(model, ctx, opt, TrainerConfig(
+            steps=TRAIN_ZOO_STEPS, ga_steps=1, log_every=1, ckpt_every=0))
+        params, opt_state = trainer.init(
+            torch.Generator(device="cuda").manual_seed(0))
+        if cfg.cross_kv_len:
+            open_gates(params, VISION["xgate"])
+        loader = Loader(SyntheticLM(cfg, B, S, seed=0), device="cuda")
+        try:
+            reset_counts(FLASH_KERNELS)  # the main path starts here
+            params, opt_state, history = trainer.run(params, opt_state, loader)
+            launches = counts(FLASH_KERNELS)
+        finally:
+            loader.close()
+        n = flash_layers(cfg)
+        want = {k: v * TRAIN_ZOO_STEPS for k, v in train_launches(n).items()}
+        if launches != want:
+            raise AssertionError(f"train {arch}: launches {launches}, want "
+                                 f"{want}")
+        losses = [h["loss"] for h in history]
+        norms = [h["grad_norm"] for h in history]
+        lo, hi = ln_vocab_range(cfg.vocab)
+        if len(history) != TRAIN_ZOO_STEPS or not all(
+                math.isfinite(x) for x in losses + norms) or not (
+                lo <= losses[0] <= hi):
+            raise AssertionError(f"train {arch}: losses {losses}, grad norms "
+                                 f"{norms}, step 0 outside {(lo, hi)}")
+        step_ms = [1e3 * h["step_time_s"] for h in history]
+        out[arch] = {
+            "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+            "layers_published": ARCHS[arch].n_layers, "batch": B, "seq": S,
+            "xkv": [B, cfg.cross_kv_len, cfg.d_model] if cfg.cross_kv_len
+            else None,
+            "params": sum(t.numel() for t in tree_leaves(params)),
+            "losses": losses, "grad_norms": norms, "step0_range": [lo, hi],
+            "step_ms": step_ms, "step_ms_last": step_ms[-1],
+            "tok_per_s": B * S / (step_ms[-1] / 1e3),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches,
+            "launches_per_step": train_launches(n),
+            "flash_attended_layers": n}
+        if layers is not None:
+            out[arch]["reduced"] = {"n_layers": [ARCHS[arch].n_layers, layers]}
+        for k, v in launches.items():
+            total[k] += v
+        del params, opt_state, trainer, model
+    free()
+    emit({"phase": "train_zoo", "archs": out, "remat": "full",
+          "steps": TRAIN_ZOO_STEPS, "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+EP_GRID = (1, 4)
+EP_T = 1024
+EP_CF = 4.0
+EP_ROW_TOL = 2e-2  # bf16: |a - b| <= tol * (1 + |b|) over a row
+
+
+def ep_composition(p, cfg, x2d, grid):
+    """The reference's ``_moe_ep`` body token shard by token shard with
+    the plain router, dispatch and combine (``kernels/ref.py``) and every
+    expert's products on the shard's buffer: what EP computes, its
+    all-to-all only moving rows."""
+    dp, tp = grid
+    T, _ = x2d.shape
+    shards = dp * tp if T % (dp * tp) == 0 else dp
+    T_l = T // shards
+    C_l = max(4, int(math.ceil(T_l * cfg.top_k * cfg.capacity_factor
+                               / cfg.n_experts)))
+    outs = []
+    for i in range(shards):
+        x_l = x2d[i * T_l:(i + 1) * T_l]
+        e, s, w, keep = ref.route_topk(x_l.float() @ p["router"],
+                                       k=cfg.top_k, capacity=C_l)
+        buf = ref.moe_dispatch(x_l, e, s, keep, n_experts=cfg.n_experts,
+                               capacity=C_l)
+        hid = torch.nn.functional.silu(torch.bmm(buf, p["wg"])) * torch.bmm(
+            buf, p["wi"])
+        outs.append(ref.moe_combine(torch.bmm(hid, p["wo"]), e, s, w, keep))
+    return torch.cat(outs)
+
+
+def rows_within(got, want, tol):
+    """Share of rows with every |got - want| <= tol (1 + |want|)."""
+    ok = ((got.float() - want.float()).abs()
+          <= tol * (1 + want.float().abs())).all(-1)
+    return float(ok.float().mean())
+
+
+def moe_ep_phase():
+    """One arctic ``moe`` layer at full width on a (1, 4) grid, EP on
+    "xla" and "gascore" against each other, the per-shard plain
+    composition and the local path; then arctic on 2 layers through
+    ``PagedServer`` with EP on "gascore".  Returns the launches."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ARCHS["arctic-480b"], n_layers=MOE_LAYERS)
+    model, _, params, init_s = zoo_model(cfg)
+    p = params["dec"][0]["b0_moe"]["moe"]
+    layer = {k: p[k][0] for k in ("router", "wi", "wg", "wo")}  # views
+    cf = dataclasses.replace(cfg, capacity_factor=EP_CF)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = (torch.randn((EP_T, cfg.d_model), generator=gen, device="cuda")
+         * 0.5).to(cfg.dtype)
+    runs, total = {}, {name: 0 for name in ALL_KERNELS}
+    for backend in ("xla", "gascore"):
+        ctx = RunCtx(moe_mode="ep_shardmap", ep_grid=EP_GRID,
+                     moe_backend=backend)
+        reset_counts(ALL_KERNELS)  # the main path starts here
+        y = moe_layers._moe_ep(layer, cf, ctx, x)
+        torch.cuda.synchronize()
+        launches = counts(ALL_KERNELS)
+        want = {"moe_router": EP_GRID[0] * EP_GRID[1],
+                "ring_shift": 2 * (EP_GRID[1] - 1) if backend == "gascore"
+                else 0}
+        got = {k: launches[k] for k in want}
+        if got != want or sum(launches.values()) != sum(want.values()):
+            raise AssertionError(f"moe_ep {backend}: launches {launches}, "
+                                 f"want {want}")
+        for k, n in launches.items():
+            total[k] += n
+        runs[backend] = {"y": y, "launches": got,
+                         "device_ms": device_ms(lambda: moe_layers._moe_ep(
+                             layer, cf, ctx, x), 5)}
+    if not torch.equal(runs["xla"]["y"], runs["gascore"]["y"]):
+        raise AssertionError("moe_ep: the engines differ")
+    y = runs["gascore"]["y"]
+    if not torch.isfinite(y.float()).all():
+        raise AssertionError("moe_ep: non-finite output")
+    comp = ep_composition(layer, cf, x, EP_GRID)
+    comp_err = within("moe_ep vs per-shard composition", y, comp, EP_ROW_TOL)
+    cap = moe_layers.moe_capacity(cf, EP_T)
+    local = moe_layers._moe_local(layer, cf, RunCtx(), x, cap)
+    share = rows_within(y, local, EP_ROW_TOL)
+    if share <= 0.97:
+        raise AssertionError(f"moe_ep: {share:.2%} of rows within tolerance "
+                             "of local")
+    local_ms = device_ms(lambda: moe_layers._moe_local(
+        layer, cf, RunCtx(), x, cap), 5)
+    record = {"layer": {"E": cfg.n_experts, "K": cfg.top_k, "D": cfg.d_model,
+                        "F": cfg.d_ff, "T": EP_T, "capacity_factor": EP_CF,
+                        "expert_gb": 3 * cfg.n_experts * cfg.d_model
+                        * cfg.d_ff * 2 / 1e9},
+              "grid": list(EP_GRID), "engines_bitwise_equal": True,
+              "composition_max_abs_err": comp_err,
+              "rows_within_tol_of_local": share, "row_tol": EP_ROW_TOL,
+              "device_ms": {b: r["device_ms"] for b, r in runs.items()},
+              "local_device_ms": local_ms,
+              "launches": {b: r["launches"] for b, r in runs.items()},
+              "init_s": init_s}
+    del runs, y, comp, local, layer, p
+    # the served path: 2 layers, PagedServer, EP on "gascore"
+    ctx = RunCtx(ep_grid=EP_GRID, moe_backend="gascore")
+    server = RecordingPagedServer(model, ctx, params, 4, CACHE_LEN,
+                                  device="cuda", page_tokens=PAGE_TOKENS)
+    prefills, prefill_one = [0], server._prefill_one
+
+    def counted_prefill(*a):
+        prefills[0] += 1
+        return prefill_one(*a)
+
+    server._prefill_one = counted_prefill
+    for r in requests(cfg.vocab)[:4]:
+        r.max_new = 16
+        server.submit(r)
+    reset_counts(ALL_KERNELS)  # the main path starts here
+    stats = server.run_until_drained()
+    launches = counts(ALL_KERNELS)
+    outs = {r.rid: r.out for r in server.finished}
+    steps = server.paged_decode_steps
+    calls = prefills[0] + steps
+    n_moe = cfg.layer_kinds().count("moe")
+    want = {"moe_router": n_moe * EP_GRID[1] * calls,
+            "ring_shift": n_moe * 2 * (EP_GRID[1] - 1) * calls,
+            "paged_attention": cfg.n_layers * steps}
+    if ({k: launches[k] for k in want} != want or len(outs) != 4
+            or not server.all_finite or any(
+                not 0 <= t < cfg.vocab for o in outs.values() for t in o)):
+        raise AssertionError(f"moe_ep served: launches {launches}, want "
+                             f"{want}; finished {sorted(outs)}")
+    for k, n in launches.items():
+        total[k] += n
+    record["served"] = {
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "reduced": {"n_layers": [ARCHS["arctic-480b"].n_layers, MOE_LAYERS]},
+        "server": "PagedServer", "engine": "gascore", "batch": 4,
+        "requests": stats["requests"], "decoded_tokens": stats["decoded_tokens"],
+        "tok_per_s": stats["tok_per_s"], "prefills": prefills[0],
+        "decode_steps": steps,
+        "decode_step_ms_median": 1e3 * float(np.median(server.step_s)),
+        "launches": {k: launches[k] for k in want}}
+    del server, prefill_one, counted_prefill, params, model
+    free()
+    emit({"phase": "moe_ep", **record, "launches_total": total,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3708,36 +4456,56 @@ def main():
     emit({"phase": "build", "kernels": sources, "seconds": seconds,
           "arch": "sm_90a", "nvcc_flags": list(build.NVCC_FLAGS)})
 
-    kernel = kernel_phase()
-    gas_figures = gascore_kernel_phase()
-    gas_launches = gas_phase()
-    overlap_launches = overlap_phase()
-    served = serve_phase()
+    seconds_by_phase = []
+
+    def timed(fn, *args):
+        """``fn(*args)``, its wall seconds kept for the ``timing`` line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds_by_phase.append(
+            [" ".join([fn.__name__] + [a for a in args if isinstance(a, str)]),
+             time.perf_counter() - t0])
+        return out
+
+    kernel = timed(kernel_phase)
+    gas_figures = timed(gascore_kernel_phase)
+    gas_launches = timed(gas_phase)
+    overlap_launches = timed(overlap_phase)
+    served = timed(serve_phase)
     launches = served["launches"]
-    disagg_launches = serve_disagg_phase(served)
-    tp_launches = serve_tp_phase(served)
-    ft_launches = serve_ft_phase(served)
-    profile_launches = profile_obs_phase(served)
+    disagg_launches = timed(serve_disagg_phase, served)
+    tp_launches = timed(serve_tp_phase, served)
+    ft_launches = timed(serve_ft_phase, served)
+    profile_launches = timed(profile_obs_phase, served)
     del served
     pygc.collect()
     torch.cuda.empty_cache()
-    flash_figures = flash_phase()
-    scan_figures = scan_phase()
-    flash_launches = train_phase()
+    flash_figures = timed(flash_phase)
+    scan_figures = timed(scan_phase)
+    flash_launches = timed(train_phase)
     pygc.collect()  # the training phase's ~48 GiB
     torch.cuda.empty_cache()
-    dp_launches = train_dp_phase()
-    pipe_launches = pipeline_phase()
-    scan_chunked_phase()
+    dp_launches = timed(train_dp_phase)
+    pipe_launches = timed(pipeline_phase)
+    timed(scan_chunked_phase)
     slice14 = {k: dp_launches[k] + pipe_launches[k] + profile_launches[k]
                for k in dp_launches}
     scan_launches = {
-        "selective_scan": serve_recurrent_phase("falcon-mamba-7b"),
-        "gated_linear_scan": serve_recurrent_phase("recurrentgemma-9b"),
+        "selective_scan": timed(serve_recurrent_phase, "falcon-mamba-7b"),
+        "gated_linear_scan": timed(serve_recurrent_phase,
+                                   "recurrentgemma-9b"),
     }
-    router_figures = router_phase()
-    router_launches = (serve_moe_phase("kimi-k2-1t-a32b")
-                       + serve_moe_phase("arctic-480b"))
+    router_figures = timed(router_phase)
+    router_launches = (timed(serve_moe_phase, "kimi-k2-1t-a32b")
+                       + timed(serve_moe_phase, "arctic-480b"))
+    zoo_serve = timed(serve_zoo_phase)
+    zoo_train = timed(train_zoo_phase)
+    zoo_ep = timed(moe_ep_phase)
+    slice15 = {k: zoo_serve[k] + zoo_train.get(k, 0) + zoo_ep[k]
+               for k in zoo_serve}
+    router_launches += slice15["moe_router"]
+    emit({"phase": "timing", "build_s": seconds,
+          "seconds_by_phase": seconds_by_phase})
 
     print(card(), flush=True)
     k = kernel["bfloat16"]
@@ -3747,7 +4515,8 @@ def main():
         "replaces": "src/repro/kernels/paged_attention.py:184",
         "launches": launches + disagg_launches["paged_attention"]
         + overlap_launches["paged_attention"] + tp_launches["paged_attention"]
-        + ft_launches["paged_attention"] + slice14["paged_attention"],
+        + ft_launches["paged_attention"] + slice14["paged_attention"]
+        + slice15["paged_attention"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
@@ -3757,7 +4526,7 @@ def main():
         "replaces": f"src/repro/kernels/{where}",
         "launches": gas_launches[name] + disagg_launches.get(name, 0)
         + overlap_launches.get(name, 0) + tp_launches.get(name, 0)
-        + ft_launches.get(name, 0) + slice14[name],
+        + ft_launches.get(name, 0) + slice14[name] + slice15[name],
         **{key: gas_figures[name]["16MiB"][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's
@@ -3767,7 +4536,7 @@ def main():
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
-        "launches": flash_launches[name] + slice14[name],
+        "launches": flash_launches[name] + slice14[name] + slice15[name],
         **{key: flash_figures[name][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's
@@ -3777,7 +4546,7 @@ def main():
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
-        "launches": scan_launches[name],
+        "launches": scan_launches[name] + slice15[name],
         **{key: scan_figures[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},

@@ -109,14 +109,15 @@ def card(index: int) -> Tuple[int, int]:
 
 
 def launch(logits: torch.Tensor, k: int, capacity: int, renormalize: bool,
-           how: Plan) -> Tuple[torch.Tensor, ...]:
-    """One launch of the kernel by the plan ``how``; the four outputs.
+           how: Plan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel by the plan ``how``; ``(words, keep)``.
 
-    Two allocations: expert_idx, slot and weight are the first three
-    (T, k) planes of one int32 buffer, whose further planes hold the grid
-    plan's scratch of per-CTA counts, and keep is a bool tensor of its
-    own.  Fewer host operations than one buffer carved into four views
-    or four allocations (PERF.md section 6)."""
+    Two allocations: expert_idx, slot and weight's bits are the three
+    (T, k) planes of ``words`` (3, T, k) int32, the first planes of one
+    buffer whose further planes hold the grid plan's scratch of per-CTA
+    counts, and keep is a bool tensor of its own.  Fewer host operations
+    than one buffer carved into four views or four allocations (PERF.md
+    section 6)."""
     T, E = logits.shape
     extra = _cdiv(how.ctas * E, T * k) if how.mode == GRID else 0
     words = torch.empty((3 + extra, T, k), dtype=torch.int32,
@@ -128,16 +129,23 @@ def launch(logits: torch.Tensor, k: int, capacity: int, renormalize: bool,
         torch._C._cuda_getCurrentRawStream(logits.device.index))
     if err != 0:
         raise RuntimeError(f"moe_router launch failed: CUDA error {err}")
-    eidx, slot, weight = words.unbind(0)[:3]
-    return eidx, slot, weight.view(torch.float32), keep
+    return words[:3], keep
+
+
+def unpack(words: torch.Tensor, keep: torch.Tensor):
+    """expert_idx, slot, weight (f32) and keep, as ``ref.route_topk``
+    returns them, from :func:`moe_router`'s ``(words, keep)``."""
+    eidx, slot, bits = words.unbind(0)
+    return eidx, slot, bits.view(torch.float32), keep
 
 
 def moe_router(
     logits: torch.Tensor, *, k: int, capacity: int, renormalize: bool = True
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; returns expert_idx (T, K) int32, slot (T, K)
-    int32, weight (T, K) f32 and keep (T, K) bool, as ``ref.route_topk``.
-    logits is a contiguous (T, E) f32 tensor."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel; returns ``(words, keep)``: expert_idx (T, K)
+    int32, slot (T, K) int32 and weight (T, K) f32 as the int32 planes of
+    words (3, T, K), and keep (T, K) bool (:func:`unpack` gives the four
+    of ``ref.route_topk``).  logits is a contiguous (T, E) f32 tensor."""
     if logits.device.type != "cuda":
         raise ValueError(
             f"the CUDA kernel needs CUDA tensors, got {logits.device}"
@@ -162,9 +170,7 @@ def moe_router(
         raise ValueError(f"T * k = {T * k} choices: fewer than 2**31")
     if T == 0:
         dev = logits.device
-        return (torch.empty((0, k), dtype=torch.int32, device=dev),
-                torch.empty((0, k), dtype=torch.int32, device=dev),
-                torch.empty((0, k), dtype=torch.float32, device=dev),
+        return (torch.empty((3, 0, k), dtype=torch.int32, device=dev),
                 torch.empty((0, k), dtype=torch.bool, device=dev))
     out = launch(logits, k, int(capacity), int(bool(renormalize)),
                  plan(T, *card(logits.device.index)))

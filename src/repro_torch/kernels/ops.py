@@ -8,7 +8,7 @@ the plain PyTorch version in ``repro_torch.kernels.ref``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -159,14 +159,59 @@ def paged_attention(
                                scale)
 
 
+@torch.library.custom_op("repro_torch::moe_router", mutates_args=())
+def _moe_router_op(
+    logits: torch.Tensor, k: int, capacity: int, renormalize: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's ``(words, keep)``, words (3, T, K) int32 the planes
+    expert_idx, slot and weight's f32 bits (a custom op's outputs may not
+    alias one another, so the kernel's one buffer stays whole)."""
+    return _moe.moe_router(logits, k=k, capacity=capacity,
+                           renormalize=renormalize)
+
+
+@_moe_router_op.register_vmap
+def _moe_router_vmap(info, in_dims, logits, k, capacity, renormalize):
+    """The router over a vmapped rank axis (expert parallelism): ONE
+    launch a rank.  Each rank routes its own tokens with its own
+    ``capacity``: folded into one call, the ranks' tokens would share
+    every expert's slots."""
+    xs = _rank_major(logits, in_dims[0], info.batch_size)
+    outs = [_moe_router_op(x.contiguous(), k, capacity, renormalize)
+            for x in xs.unbind(0)]
+    return ((torch.stack([w for w, _ in outs]),
+             torch.stack([keep for _, keep in outs])), (0, 0))
+
+
+@torch.library.custom_op("repro_torch::f32_from_bits", mutates_args=())
+def _f32_from_bits(x: torch.Tensor) -> torch.Tensor:
+    """int32 words as the f32 they hold (a copy): ``Tensor.view(dtype)``
+    has no vmap batching rule in every PyTorch release."""
+    return x.view(torch.float32).clone()
+
+
+@_f32_from_bits.register_vmap
+def _f32_from_bits_vmap(info, in_dims, x):
+    return x.view(torch.float32).clone(), in_dims[0]
+
+
 def moe_router(
     logits: torch.Tensor, *, k: int, capacity: int, renormalize: bool = True
 ):
     """Top-k routing with capacity slots in token order: expert_idx,
-    slot, weight and keep, each (T, K), from (T, E) f32 logits."""
-    return _on(logits, _moe.moe_router, ref.route_topk, "moe_router")(
-        logits, k=k, capacity=capacity, renormalize=renormalize
-    )
+    slot, weight and keep, each (T, K), from (T, E) f32 logits.  On the
+    CPU the plain version (differentiable in the weights, as the
+    reference's); on CUDA the kernel, through a custom op whose vmap rule
+    launches it once a rank of an expert-parallel group."""
+    if logits.device.type == "cpu":
+        return ref.route_topk(logits, k=k, capacity=capacity,
+                              renormalize=renormalize)
+    if logits.device.type != "cuda":
+        raise ValueError(f"no moe_router for device {logits.device}")
+    words, keep = _moe_router_op(logits, k, capacity, renormalize)
+    if torch._C._functorch.is_batchedtensor(words):
+        return words[0], words[1], _f32_from_bits(words[2]), keep
+    return _moe.unpack(words, keep)
 
 
 # dispatch/combine are the plain scatter and gather on both devices, as

@@ -246,6 +246,33 @@ def flash_attention_dkv(
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_dkv_f64(q, k, v, dout, lse, delta, *, causal=True,
+                            window=None, scale=None):
+    """``(dk, dv)`` as :func:`flash_attention_dkv` computes them, but
+    summed in f64 and left in f64, one q head at a time: the exact sums
+    that a bf16 kernel and the f32 plain version are both held to where
+    each element sums many terms (a long GQA group)."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    if scale is None:
+        scale = 1.0 / (D**0.5)
+    group = Hq // Hkv
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
+    dk = torch.zeros((B, Hkv, Sk, D), dtype=torch.float64, device=q.device)
+    dv = torch.zeros_like(dk)
+    for b in range(B):
+        for h in range(Hq):
+            qs, kh = q[b, h].double() * scale, k[b, h // group].double()
+            do = dout[b, h].double()
+            p = torch.where(mask, torch.exp(qs @ kh.T - lse[b, h].double()
+                                            [:, None]), 0.0)
+            ds = p * (do @ v[b, h // group].double().T
+                      - delta[b, h].double()[:, None])
+            dv[b, h // group] += p.T @ do
+            dk[b, h // group] += ds.T @ qs
+    return dk, dv
+
+
 def flash_attention_dq(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -31,9 +31,12 @@ batch; per-row positions let rows be at different generation depths.
   ranks live on the one device, their shards stacked.
 
 Run: ``python -m repro_torch.launch.serve --role decode --paged``
-(``--arch kimi-k2-1t-a32b`` or ``--arch arctic-480b`` for the MoE archs),
-or ``--arch falcon-mamba-7b`` / ``--arch recurrentgemma-9b`` without
-``--paged`` (their blocks cannot be paged; ``--paged`` raises);
+(``--arch`` any of the ten archs: kimi-k2-1t-a32b, arctic-480b,
+granite-34b and llama3-405b page too; falcon-mamba-7b,
+recurrentgemma-9b, gemma3-27b and llama-3.2-vision-11b without
+``--paged``, as their blocks cannot be paged and ``--paged`` raises;
+seamless-m4t-medium, an encoder-decoder, runs ``Model.prefill`` with
+seeded frames and greedy ``Model.decode_step``s instead of a server);
 ``--role both [--paged] [--n-memory 1]`` runs the disaggregated cluster;
 ``--tp 2`` serves the paged decode over a tensor-parallel group (with
 ``--role decode --paged``, or decode groups of the cluster)
@@ -54,10 +57,11 @@ from repro_torch.compat import resolve_device, tree_leaves, tree_map
 from repro_torch.obs import trace as obs_trace
 
 
-# block kinds whose caches have no token axis to page (recurrent states)
-# or a ring the paged path cannot address (sliding windows); ``global``,
-# ``dense`` and ``moe`` blocks page their attention KV
-UNPAGED_KINDS = frozenset({"local", "mamba", "rec"})
+# block kinds whose caches have no token axis to page (recurrent states),
+# a ring the paged path cannot address (sliding windows) or a
+# cross-attention sub-block (the reference's paged decode raises on it);
+# ``global``, ``dense`` and ``moe`` blocks page their attention KV
+UNPAGED_KINDS = frozenset({"local", "mamba", "rec", "cross", "xdec"})
 
 
 def _paged_decode_views_fn(model, ctx, layout, device):
@@ -140,6 +144,12 @@ class Server:
 
     def __init__(self, model, ctx, params, batch_size: int, cache_len: int,
                  eos_id: int = -1, device: Any = None):
+        if model.cfg.n_enc_layers:  # the reference fails at the first prefill
+            raise ValueError(
+                f"{model.cfg.name} is an encoder-decoder: a request needs its "
+                "encoder frames, which the server's token-only prefill does "
+                "not carry; run Model.prefill with batch['frames'] and "
+                "Model.decode_step")
         self.device = resolve_device(device)
         for leaf in tree_leaves(params):
             if leaf.device.type != self.device.type:
@@ -1200,11 +1210,63 @@ class TPPooledDecodeServer(PooledDecodeServer):
 CARD_BYTES = 80e9  # device memory of the one H100 the port serves on
 
 
+def serve_with_context(model, ctx, params, reqs: List[Request], batch: int,
+                       cache_len: int,
+                       context: Callable[[int, int], Dict[str, torch.Tensor]]
+                       ) -> Dict[str, Any]:
+    """Requests whose prefill takes more than tokens, ``batch`` at a time
+    (equal prompt lengths): ``Model.prefill`` with ``context(B, S)``'s
+    entries beside the tokens (``frames`` for an encoder-decoder, ``xkv``
+    for cross-attention to an image), then greedy ``Model.decode_step``s
+    until each row has ``max_new`` tokens.  Fills each request's ``out``
+    and raises on non-finite logits.  Returns the counts and the seconds
+    of each prefill and each decode step, each ending with its tokens
+    read to the host."""
+    device = next(iter(tree_leaves(params))).device
+    prefill_s, step_s = [], []
+    t0 = time.perf_counter()
+    for i in range(0, len(reqs), batch):
+        group = reqs[i:i + batch]
+        toks = torch.tensor([r.prompt for r in group], dtype=torch.int32,
+                            device=device)
+        B, S = toks.shape
+        extra = context(B, S)
+        pos = torch.full((B,), S, dtype=torch.int32, device=device)
+        n_new = max(r.max_new for r in group)
+        t = time.perf_counter()
+        logits, caches = model.prefill(params, ctx, {"inputs": toks, **extra},
+                                       cache_len=cache_len)
+        for step in range(n_new):
+            if not bool(torch.isfinite(logits).all()):
+                raise FloatingPointError(
+                    f"{model.cfg.name}: non-finite logits at step {step}")
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            for r, v in zip(group, _to_host(tok).tolist()):
+                if len(r.out) < r.max_new:
+                    r.out.append(int(v))
+            (step_s if step else prefill_s).append(time.perf_counter() - t)
+            if step + 1 < n_new:
+                t = time.perf_counter()
+                logits, caches = model.decode_step(params, ctx, tok[:, None],
+                                                   pos, caches)
+                pos = pos + 1
+        del caches, extra
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in reqs)
+    return {"requests": len(reqs), "tokens": n_tok,
+            "decode_steps": len(step_s), "wall_s": wall,
+            "tok_per_s": n_tok / wall if wall else 0.0,
+            "prefill_s": prefill_s, "step_s": step_s}
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-4b",
-                    help="qwen3-4b, falcon-mamba-7b, recurrentgemma-9b, "
-                         "kimi-k2-1t-a32b or arctic-480b")
+                    help="any arch of configs/registry.py (qwen3-4b, "
+                         "llama3-405b, granite-34b, gemma3-27b, "
+                         "arctic-480b, kimi-k2-1t-a32b, falcon-mamba-7b, "
+                         "recurrentgemma-9b, llama-3.2-vision-11b, "
+                         "seamless-m4t-medium)")
     ap.add_argument("--role", choices=("prefill", "decode", "memory", "both"),
                     default="decode",
                     help="both = disaggregated cluster (prefill pool + "
@@ -1269,8 +1331,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                 f"--full {args.arch}: its published depth of {cfg.n_layers} "
                 f"layers needs {need / 1e9:,.0f} GB of "
                 f"{str(cfg.dtype).split('.')[-1]} weights, more than one "
-                f"{CARD_BYTES / 1e9:.0f} GB card holds; chip_smoke.py serves "
-                f"it at full width on 2 layers (serve_moe_phase)")
+                f"{CARD_BYTES / 1e9:.0f} GB card holds")
     device = resolve_device(args.device)
     model = build_model(cfg)
     ctx = RunCtx()
@@ -1303,7 +1364,16 @@ def main(argv: Optional[List[str]] = None) -> None:
         )
         for rid in range(args.requests)
     ]
-    if args.role == "decode":
+    if args.role == "decode" and cfg.n_enc_layers:
+        if args.paged or args.tp > 1:
+            ap.error(f"{args.arch} is an encoder-decoder: no paged or TP "
+                     "server takes its frames")
+        frames = torch.Generator(device=device).manual_seed(0)
+        stats = serve_with_context(
+            model, ctx, params, reqs, args.batch, args.cache_len,
+            lambda B, S: {"frames": torch.randn(  # a frame a prompt token
+                (B, S, cfg.d_model), generator=frames, device=device)})
+    elif args.role == "decode":
         if args.tp > 1:
             server = TPPagedServer(model, ctx, params, args.batch,
                                    args.cache_len, tp=args.tp,

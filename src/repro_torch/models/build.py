@@ -28,20 +28,48 @@ class Model:
 
     cfg: ArchConfig
     dec_segments: List[Segment]
+    enc_segments: Optional[List[Segment]] = None
 
     # ------------------------------------------------------------------ #
     def init(self, ctx: RunCtx, generator: torch.Generator,
              device: Any = None) -> Dict:
         """Random parameters drawn from ``generator``, which must live on
-        ``device`` (CUDA unless the caller asks for another device)."""
+        ``device`` (CUDA unless the caller asks for another device).  An
+        encoder-decoder arch has an ``"enc"`` stack beside ``"dec"``."""
         dev = resolve_device(device)
         if generator.device.type != dev.type:
             raise ValueError(
                 f"generator on {generator.device}, parameters on {dev}"
             )
-        io = T.lm_io_init(self.cfg, ctx, generator)
-        _, dec = T.stack_init(self.cfg.layer_kinds(), self.cfg, ctx, generator)
-        return {"io": io, "dec": dec}
+        cfg = self.cfg
+        params = {"io": T.lm_io_init(cfg, ctx, generator)}
+        _, params["dec"] = T.stack_init(cfg.layer_kinds(), cfg, ctx, generator)
+        if cfg.n_enc_layers:
+            _, params["enc"] = T.stack_init(["enc"] * cfg.n_enc_layers, cfg,
+                                            ctx, generator)
+        return params
+
+    # ------------------------------------------------------------------ #
+    def _encode(self, params, ctx: RunCtx, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder stack (bidirectional, mode "train") over the frame
+        embeddings, then the decoder's final norm, as the reference."""
+        B, S, _ = frames.shape
+        pos = torch.arange(S, dtype=torch.int32, device=frames.device)
+        x, _ = T.stack_apply(
+            self.enc_segments, params["enc"], self.cfg, ctx,
+            frames.to(self.cfg.dtype), mode="train",
+            positions=pos[None].expand(B, S),
+        )
+        return T.final_hidden(params["io"], self.cfg, x)
+
+    def _xkv(self, params, ctx: RunCtx, batch: Dict) -> Optional[torch.Tensor]:
+        """What the cross-attention reads: the encoded ``frames`` of an
+        encoder-decoder, else the given ``xkv`` embeddings, else None."""
+        if self.cfg.n_enc_layers:
+            return self._encode(params, ctx, batch["frames"])
+        if "xkv" in batch:
+            return batch["xkv"].to(self.cfg.dtype)
+        return None
 
     # ------------------------------------------------------------------ #
     def train_hidden(self, params, ctx: RunCtx, batch: Dict) -> torch.Tensor:
@@ -55,7 +83,7 @@ class Model:
         x = T.embed(params["io"], cfg, ctx, tokens)
         x, _ = T.stack_apply(
             self.dec_segments, params["dec"], cfg, ctx, x,
-            mode="train", positions=pos,
+            mode="train", positions=pos, xkv=self._xkv(params, ctx, batch),
         )
         return x
 
@@ -84,6 +112,7 @@ class Model:
         x, caches = T.stack_apply(
             self.dec_segments, params["dec"], cfg, ctx, x,
             mode="prefill", cache_len=cache_len, positions=pos,
+            xkv=self._xkv(params, ctx, batch),
         )
         logits = T.logits_fn(params["io"], cfg, ctx, x[:, -1:, :])[:, 0]
         return logits, caches
@@ -97,7 +126,9 @@ class Model:
         positions: torch.Tensor,  # (B,) int32 — index of the new token
         caches: Any,
     ) -> Tuple[torch.Tensor, Any]:
-        """One token for every row; ``caches`` are written in place."""
+        """One token for every row; ``caches`` are written in place.  No
+        ``xkv``, as in the reference: a ``cross``/``xdec`` block's cross
+        sub-block decodes down the self path over its prefill cache."""
         cfg = self.cfg
         pos = positions[:, None]
         x = T.embed(params["io"], cfg, ctx, token)
@@ -154,21 +185,34 @@ class Model:
         every attention cache to ``cache_len`` slots (a ``local`` block
         to its ring of ``min(local_window, cache_len)``; ``dense`` and
         ``moe`` blocks keep the ``global`` attention leaves); the
-        recurrent blocks keep their conv window and state."""
+        recurrent blocks keep their conv window and state.  A ``cross``
+        block's layout is a text-only prefill's (the servers pass only
+        ``{"inputs"}``): both attention sub-blocks at ``cache_len``.  An
+        encoder-decoder's prefill needs its ``frames``: it raises."""
         del prompt_len
         cfg = self.cfg
         f32 = torch.float32
+        if cfg.n_enc_layers:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: its prefill needs "
+                "batch['frames'], so it has no text-only cache layout")
+
+        def attn(W: int, lead) -> Dict[str, Any]:
+            tail = (cfg.n_kv_heads, cfg.resolved_head_dim)
+            return {
+                "k": TensorSpec(lead + (W,) + tail, cfg.dtype),
+                "pos": TensorSpec(lead + (W,), torch.int32),
+                "v": TensorSpec(lead + (W,) + tail, cfg.dtype),
+            }
 
         def block(kind: str, lead) -> Dict[str, Any]:
             if kind in ("global", "local", "dense", "moe"):
                 W = (min(cfg.local_window, cache_len) if kind == "local"
                      else cache_len)
-                tail = (cfg.n_kv_heads, cfg.resolved_head_dim)
-                return {"attn": {
-                    "k": TensorSpec(lead + (W,) + tail, cfg.dtype),
-                    "pos": TensorSpec(lead + (W,), torch.int32),
-                    "v": TensorSpec(lead + (W,) + tail, cfg.dtype),
-                }}
+                return {"attn": attn(W, lead)}
+            if kind == "cross":
+                return {"attn": attn(cache_len, lead),
+                        "xattn": attn(cache_len, lead)}
             conv = (cfg.conv_width - 1,)
             if kind == "mamba":
                 Di = cfg.resolved_d_inner
@@ -182,7 +226,7 @@ class Model:
                     "conv": TensorSpec(lead + conv + (W,), cfg.dtype),
                     "h": TensorSpec(lead + (W,), f32),
                 }}
-            raise ValueError(f"block kind {kind!r} is not ported yet")
+            raise ValueError(f"no cache layout for {kind!r} blocks")
 
         return [
             {f"b{i}_{kind}": block(kind, (seg.count, batch))
@@ -192,7 +236,10 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    return Model(cfg=cfg, dec_segments=build_layer_program(cfg.layer_kinds()))
+    enc = (build_layer_program(["enc"] * cfg.n_enc_layers)
+           if cfg.n_enc_layers else None)
+    return Model(cfg=cfg, dec_segments=build_layer_program(cfg.layer_kinds()),
+                 enc_segments=enc)
 
 
 def _to_torch(x: Any, device) -> torch.Tensor:

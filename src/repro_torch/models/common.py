@@ -6,12 +6,17 @@ maximal runs of identical repeating units.  The reference scans each
 segment over stacked layer parameters; the port loops over the stacked
 leading axis, with the same parameter layout.
 
-The port runs the ``global`` and ``local`` kinds (GQA self-attention,
-full or sliding-window, + gated MLP), ``dense`` (``global`` with the
-dense FFN width, for MoE models' leading layers), ``moe`` (GQA
-self-attention + the mixture-of-experts FFN), ``mamba`` (the mamba-1
-selective SSM mixer) and ``rec`` (the RG-LRU mixer + MLP); the other
-kinds are validated here and fail where a block is built.
+Block kinds:
+
+- ``global``  — GQA self-attention (full causal) + MLP
+- ``local``   — GQA self-attention (sliding window) + MLP
+- ``moe``     — GQA self-attention + mixture-of-experts FFN
+- ``dense``   — like ``global`` (used for MoE models' leading dense layers)
+- ``mamba``   — mamba1 selective-SSM mixer (no MLP)
+- ``rec``     — RG-LRU recurrent mixer + MLP (griffin/recurrentgemma)
+- ``cross``   — GQA self-attention + gated cross-attention + MLP (VLM)
+- ``enc``     — bidirectional self-attention + MLP (encoder stacks)
+- ``xdec``    — causal self-attention + encoder cross-attention + MLP
 """
 
 from __future__ import annotations
@@ -54,6 +59,9 @@ class ArchConfig:
     local_window: int = 1024
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    act: str = "silu"  # silu | gelu
+    mlp_gated: bool = True  # SwiGLU-style; False = classic 2-matrix FFN
     # --- MoE ---
     n_experts: int = 0
     top_k: int = 0
@@ -69,6 +77,9 @@ class ArchConfig:
     dt_rank: int = 0  # 0 -> d_model // 16
     # --- hybrid (RG-LRU) ---
     lru_width: int = 0  # 0 -> d_model
+    # --- VLM / enc-dec frontends (stubs provide the embeddings) ---
+    cross_kv_len: int = 0  # vision tokens / encoder length for cross blocks
+    n_enc_layers: int = 0  # encoder stack depth (seamless)
     # --- numerics ---
     dtype: torch.dtype = torch.bfloat16
     sub_quadratic: bool = False  # eligible for long_500k decode
@@ -98,6 +109,10 @@ class ArchConfig:
     def resolved_d_ff_dense(self) -> int:
         return self.d_ff_dense or self.d_ff
 
+    @property
+    def attention_free(self) -> bool:
+        return all(k == "mamba" for k in self.pattern)
+
     def layer_kinds(self) -> List[str]:
         """Per-layer kinds for the decoder stack (length n_layers): the
         leading ``dense`` layers, then the pattern repeated."""
@@ -107,9 +122,9 @@ class ArchConfig:
         return kinds[: self.n_layers]
 
     def param_counts(self) -> Tuple[int, int]:
-        """(total_params, active_params) of the decoder's matrices, the
-        embedding included once: the reference's ``param_counts``
-        (norms and biases left out)."""
+        """(total_params, active_params) of the decoder's and the
+        encoder's matrices, the embedding included once: the reference's
+        ``param_counts`` (norms, biases and gates left out)."""
         D, F, V = self.d_model, self.d_ff, self.vocab
         H, KH, Dh = self.n_heads, self.n_kv_heads, self.resolved_head_dim
         total = V * D * (1 if self.tie_embeddings else 2)
@@ -117,7 +132,7 @@ class ArchConfig:
         attn = D * H * Dh + 2 * D * KH * Dh + H * Dh * D
 
         def mlp(f: int) -> int:
-            return 3 * D * f  # gated: wi, wg, wo
+            return (3 if self.mlp_gated else 2) * D * f  # wi, [wg,] wo
 
         for kind in self.layer_kinds():
             if kind in ("global", "local", "dense", "enc"):
@@ -144,7 +159,8 @@ class ArchConfig:
             elif kind in ("cross", "xdec"):
                 p = 2 * attn + mlp(F)
                 total, active = total + p, active + p
-        return total, active
+        enc = self.n_enc_layers * (attn + mlp(F))
+        return total + enc, active + enc
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,13 @@
 """Model layers of the port (params as plain dicts of tensors).
 
-Counterpart of ``repro.models.layers``, the subset qwen3-4b,
-falcon-mamba-7b, recurrentgemma-9b, kimi-k2-1t-a32b and arctic-480b
-run: RMS norm, RoPE, causal GQA self-attention (full or sliding-window)
-with its prefill, dense-decode and paged-decode branches, the gated SiLU
-MLP, the mixture-of-experts FFN on one device, the depthwise causal conv,
-the mamba-1 mixer and the RG-LRU mixer.  Parameter trees have the
-reference's keys and shapes, so a tree crosses from JAX by value
+Counterpart of ``repro.models.layers``: RMS norm and layernorm, RoPE,
+GQA self-attention (causal, sliding-window or bidirectional) with its
+prefill, dense-decode and paged-decode branches, cross-attention onto
+encoder or image embeddings, the gated or plain MLP (SiLU or GELU), the
+mixture-of-experts FFN on one device or expert-parallel over the ranks
+of a GAS engine, the depthwise causal conv, the mamba-1 mixer and the
+RG-LRU mixer.  Parameter trees have the reference's keys and shapes, so
+a tree crosses from JAX by value
 (``repro_torch.models.build.params_from_jax``).
 
 Decode updates caches IN PLACE (the reference returns new arrays): the
@@ -35,16 +36,30 @@ NEG_INF = -1e30
 # --------------------------------------------------------------------------- #
 # initializers
 # --------------------------------------------------------------------------- #
-def _normal(gen: torch.Generator, shape, dtype, scale: float) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * scale).to(dtype)
+def _normal(gen: torch.Generator, shape, dtype, scale: float,
+            n_lead: int = 0) -> torch.Tensor:
+    """Normal draws times ``scale`` in ``dtype``.  A leaf stacked on
+    ``n_lead`` leading axes is drawn one trailing block at a time, so
+    the f32 draw of a stacked leaf (granite-34b's ``(88, 6144, 24576)``
+    ``wi``, kimi-k2's experts) never lies on the device whole."""
+    shape = tuple(shape)
+    if n_lead == 0:
+        x = torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        return (x * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for m in out.view((-1,) + shape[n_lead:]):
+        m.copy_(_normal(gen, shape[n_lead:], dtype, scale))
+    return out
 
 
 def linear_init(gen, in_dim: int, out_dims, dtype, scale=None, lead=()):
-    """``lead`` prepends stacked-layer axes (the reference's vmapped init)."""
+    """``lead`` prepends stacked-layer axes (the reference's vmapped init),
+    drawn one layer at a time."""
     out = out_dims if isinstance(out_dims, tuple) else (out_dims,)
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    return _normal(gen, tuple(lead) + (in_dim,) + out, dtype, scale)
+    return _normal(gen, tuple(lead) + (in_dim,) + out, dtype, scale,
+                   n_lead=len(lead))
 
 
 def norm_init(d: int, device, lead=()) -> Params:
@@ -52,12 +67,30 @@ def norm_init(d: int, device, lead=()) -> Params:
                                 device=device)}
 
 
-def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm in f32, back to x's dtype."""
+def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm, or layernorm without a bias (the population variance),
+    in f32, back to x's dtype."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * p["scale"]
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"]
+    elif kind == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+    else:
+        raise ValueError(f"unknown norm {kind!r}")
     return out.to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def _act(name: str):
+    return {"silu": F.silu, "gelu": _gelu}[name]
 
 
 # --------------------------------------------------------------------------- #
@@ -121,12 +154,14 @@ def _gqa_scores_softmax_v(q, k, v, mask, scale):
     return o.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
-def _chunked_attention(q, k, v, qpos, kpos, *, scale, chunk, window=None):
-    """Blockwise-over-queries causal attention (O(S·chunk) memory).
+def _chunked_attention(q, k, v, qpos, kpos, *, scale, chunk, window=None,
+                       causal=True):
+    """Blockwise-over-queries attention (O(S·chunk) memory).
 
     qpos: (B, Sq) absolute query positions; kpos: (B, Sk) key positions
-    (-1 = empty cache slot).  ``window``: a query sees only the keys less
-    than ``window`` positions behind it.
+    (-1 = empty cache slot).  ``causal``: a query sees no later key.
+    ``window``: a query sees only the keys less than ``window`` positions
+    behind it (and, when not causal, ahead of it).
     """
     B, Sq, H, Dh = q.shape
     chunk = min(chunk, Sq)
@@ -139,9 +174,12 @@ def _chunked_attention(q, k, v, qpos, kpos, *, scale, chunk, window=None):
         qs = q[:, c0 : c0 + chunk]
         qp = qpos[:, c0 : c0 + chunk]
         mask = kpos[:, None, :] >= 0
-        mask = mask & (qp[:, :, None] >= kpos[:, None, :])
+        if causal:
+            mask = mask & (qp[:, :, None] >= kpos[:, None, :])
         if window is not None:
             mask = mask & ((qp[:, :, None] - kpos[:, None, :]) < window)
+            if not causal:
+                mask = mask & ((kpos[:, None, :] - qp[:, :, None]) < window)
         mask = mask & (qp[:, :, None] >= 0)
         outs.append(_gqa_scores_softmax_v(qs, k, v, mask, scale))
     return torch.cat(outs, dim=1)[:, :Sq]
@@ -154,17 +192,20 @@ def apply_attention(
     x: torch.Tensor,
     *,
     positions: torch.Tensor,
+    causal: bool = True,
     window: Optional[int] = None,
     mode: str = "prefill",
     cache: Optional[Params] = None,
     cache_len: int = 0,
+    xkv: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,
     tp=None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Causal self-attention sub-block (pre-norm, residual added by caller).
-    ``window`` (the ``local`` kind) limits each query to the keys less
-    than ``window`` positions behind it; its cache is a ring of
-    ``min(window, cache_len)`` slots.
+    """Self- or cross-attention sub-block (pre-norm, residual added by
+    caller).  ``window`` (the ``local`` kind) limits each query to the
+    keys less than ``window`` positions behind it; its cache is a ring of
+    ``min(window, cache_len)`` slots.  ``causal=False`` (the ``enc``
+    kind) lets every query see every key.
 
     Modes:
       train    — full sequence, no cache; attention is
@@ -172,6 +213,14 @@ def apply_attention(
                  and dQ kernels on the card), differentiable.
       prefill  — full sequence; returns a cache of capacity ``cache_len``.
       decode   — x is (B, 1, D); updates ``cache`` in place.
+
+    Cross-attention (``xkv`` given, (B, S_enc, D)): keys and values are
+    ``xkv``'s projections, k-normed but not roped, attended without a
+    mask (plain torch, as the reference's ``jnp``); prefill caches them
+    ``{k, v, pos}`` at the encoder's length and decode reads that cache.
+    ``Model.decode_step`` gives no ``xkv``, as the reference's does, so
+    a ``cross``/``xdec`` block decodes its cross sub-block down the self
+    path over that cache.
 
     Paged decode (``page_table`` given, decode mode only): ``cache`` holds
     the layer's slice of the KV *page pool* — ``k``/``v`` shaped
@@ -189,15 +238,40 @@ def apply_attention(
     dh = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(dh)
     B, S, D = x.shape
-    h = apply_norm(p["norm"], x)
+    h = apply_norm(p["norm"], x, cfg.norm)
     wq = use_weight(p["wq"], ctx)
     wk = use_weight(p["wk"], ctx)
     wv = use_weight(p["wv"], ctx)
     wo = use_weight(p["wo"], ctx)
     q = torch.einsum("bsd,dhk->bshk", h, wq)
-    # qk-norm comes before rope, on q and k alike
+    # qk-norm (always RMS) comes before rope, on q and k alike
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q)
+
+    if xkv is not None:
+        if cache is not None and mode == "decode":
+            k, v, kpos = cache["k"], cache["v"], cache["pos"]
+        else:
+            k = torch.einsum("bsd,dhk->bshk", xkv, wk)
+            v = torch.einsum("bsd,dhk->bshk", xkv, wv)
+            if cfg.qk_norm:
+                k = apply_norm(p["k_norm"], k)
+            Sk = k.shape[1]
+            kpos = torch.arange(Sk, dtype=torch.int32, device=k.device)
+            kpos = kpos[None].expand(B, Sk).contiguous()
+        if mode == "decode":
+            mask = (kpos >= 0)[:, None, :].expand(B, S, kpos.shape[1])
+            out = _gqa_scores_softmax_v(q, k, v, mask, scale)
+        else:
+            out = _chunked_attention(q, k, v, positions, kpos, scale=scale,
+                                     chunk=ctx.attn_chunk, causal=False)
+        new_cache = ({"k": k, "v": v, "pos": kpos} if mode == "prefill"
+                     else cache)
+        o = torch.einsum("bshk,hkd->bsd", out, wo.reshape(-1, dh, D))
+        if tp is not None:
+            o = tp.maybe_psum(o)
+        return o.to(x.dtype), new_cache
+
     k = torch.einsum("bsd,dhk->bshk", h, wk)
     v = torch.einsum("bsd,dhk->bshk", h, wv)
     if cfg.qk_norm:
@@ -209,7 +283,7 @@ def apply_attention(
         # (B, H, S, Dh), made contiguous for the kernels
         out = ops.attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=True, window=window,
+            v.transpose(1, 2).contiguous(), causal=causal, window=window,
             scale=scale,
         ).transpose(1, 2)
         new_cache = None
@@ -229,7 +303,7 @@ def apply_attention(
         pc[b_idx, idx] = positions[:, sl].to(torch.int32)
         out = _chunked_attention(
             q, k, v, positions, positions, scale=scale, chunk=ctx.attn_chunk,
-            window=window,
+            window=window, causal=causal,
         )
         new_cache = {"k": kc, "v": vc, "pos": pc}
     elif mode == "decode" and page_table is not None:
@@ -284,24 +358,30 @@ def apply_attention(
 def mlp_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=(),
              d_ff: Optional[int] = None) -> Params:
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
-    return {
+    params = {
         "norm": norm_init(D, gen.device, lead),
         "wi": linear_init(gen, D, (Fd,), cfg.dtype, lead=lead),
         "wo": linear_init(gen, Fd, (D,), cfg.dtype, lead=lead),
-        "wg": linear_init(gen, D, (Fd,), cfg.dtype, lead=lead),
     }
+    if cfg.mlp_gated:
+        params["wg"] = linear_init(gen, D, (Fd,), cfg.dtype, lead=lead)
+    return params
 
 
 def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor,
               ctx: RunCtx, tp=None) -> torch.Tensor:
-    """Gated SiLU MLP (pre-norm, residual added by caller).  Under ``tp``
-    the columns of ``wi``/``wg`` and the rows of ``wo`` are this rank's
-    and the partial output is summed over the group."""
-    h = apply_norm(p["norm"], x)
+    """The MLP (pre-norm, residual added by caller): ``act(h wg) * (h
+    wi)`` when gated, else ``act(h wi)``, then ``wo``.  Under ``tp`` the
+    columns of ``wi``/``wg`` and the rows of ``wo`` are this rank's and
+    the partial output is summed over the group."""
+    h = apply_norm(p["norm"], x, cfg.norm)
+    act = _act(cfg.act)
     wi = use_weight(p["wi"], ctx)
     wo = use_weight(p["wo"], ctx)
-    wg = use_weight(p["wg"], ctx)
-    z = F.silu(h @ wg) * (h @ wi)
+    if cfg.mlp_gated:
+        z = act(h @ use_weight(p["wg"], ctx)) * (h @ wi)
+    else:
+        z = act(h @ wi)
     y = z @ wo
     if tp is not None:
         y = tp.maybe_psum(y)
@@ -311,28 +391,19 @@ def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # MoE
 # --------------------------------------------------------------------------- #
-def _normal_per_matrix(gen, shape, dtype, scale: float) -> torch.Tensor:
-    """``_normal`` drawn one trailing matrix at a time, so that the f32
-    draw of a stacked expert tensor (kimi-k2's three are 5.6 G elements
-    each) never lies on the device whole."""
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
-    for m in out.view((-1,) + tuple(shape[-2:])):
-        m.copy_(_normal(gen, tuple(shape[-2:]), dtype, scale))
-    return out
-
-
 def moe_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     lead = tuple(lead)
+    n = len(lead) + 1  # one expert matrix at a time
     params = {
         "norm": norm_init(D, gen.device, lead),
         "router": linear_init(gen, D, (E,), torch.float32, lead=lead),
-        "wi": _normal_per_matrix(gen, lead + (E, D, Fd), cfg.dtype,
-                                 1.0 / math.sqrt(D)),
-        "wg": _normal_per_matrix(gen, lead + (E, D, Fd), cfg.dtype,
-                                 1.0 / math.sqrt(D)),
-        "wo": _normal_per_matrix(gen, lead + (E, Fd, D), cfg.dtype,
-                                 1.0 / math.sqrt(Fd)),
+        "wi": _normal(gen, lead + (E, D, Fd), cfg.dtype, 1.0 / math.sqrt(D),
+                      n_lead=n),
+        "wg": _normal(gen, lead + (E, D, Fd), cfg.dtype, 1.0 / math.sqrt(D),
+                      n_lead=n),
+        "wo": _normal(gen, lead + (E, Fd, D), cfg.dtype,
+                      1.0 / math.sqrt(Fd), n_lead=n),
     }
     if cfg.n_shared_experts:
         params["shared"] = mlp_init(cfg, ctx, gen, lead,
@@ -360,21 +431,103 @@ def _moe_local(p: Params, cfg: ArchConfig, ctx: RunCtx, x2d: torch.Tensor,
     e, s, w, keep = ops.moe_router(logits, k=cfg.top_k, capacity=capacity)
     buf = ops.moe_dispatch(x2d, e, s, keep, n_experts=cfg.n_experts,
                            capacity=capacity)
-    hidden = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
+    hidden = _act(cfg.act)(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
     out_buf = torch.bmm(hidden, p["wo"])
     return ops.moe_combine(out_buf, e, s, w, keep).to(x2d.dtype)
+
+
+def _moe_ep(p: Params, cfg: ArchConfig, ctx: RunCtx,
+            x2d: torch.Tensor) -> torch.Tensor:
+    """Expert-parallel MoE: Active-Message-style dispatch and an
+    all-to-all over the model ranks of ``ctx.ep_grid`` (data, model).
+
+    Tokens are sharded over data x model when they divide, else over data
+    alone (every model rank then routes the same tokens); experts over
+    model, each rank's ``(E/model, D, F)`` a view of the stacked weights.
+    Inside one ``Context.spmd`` over the model ranks (engine
+    ``ctx.moe_backend``; on "gascore" the all-to-all rides the
+    ``ring_shift`` kernel), each rank routes each of its data shards'
+    tokens into per-expert capacity buffers of ``C_l`` slots (the router
+    kernel once a rank and shard on the card), one all-to-all carries
+    every shard's buffers to the experts' home ranks, the experts compute
+    there and the rows travel back the same way to be combined.  The
+    data shards are independent groups (the reference's shard_map over
+    the data axis); here they share the exchange's launches."""
+    from repro_torch.core import gasnet
+    from repro_torch.core.addrspace import P
+
+    dp, tp = ctx.ep_grid
+    E, K = cfg.n_experts, cfg.top_k
+    T, D = x2d.shape
+    if E % tp or T % dp:
+        raise ValueError(f"EP over {ctx.ep_grid}: {E} experts, {T} tokens")
+    E_l = E // tp
+    by_model = T % (dp * tp) == 0
+    T_l = T // (dp * tp if by_model else dp)
+    C_l = max(4, int(math.ceil(T_l * K * cfg.capacity_factor / E)))
+    act = _act(cfg.act)
+
+    def body(node, xs, router_w, wi, wg, wo):
+        # xs: (dp, T_l, D), this rank's tokens of every data shard
+        eng = node.engine
+        routes = [ops.moe_router(x.float() @ router_w, k=K, capacity=C_l)
+                  for x in xs.unbind(0)]
+        buf = torch.stack([
+            ops.moe_dispatch(x, e, s, keep, n_experts=E, capacity=C_l)
+            for x, (e, s, _, keep) in zip(xs.unbind(0), routes)])
+        # home-major (tp, dp, E_l, C_l, D): each home's rows in one block
+        send = buf.reshape(dp, tp, E_l, C_l, D).transpose(0, 1)
+        recv = eng.all_to_all(send.reshape(tp * dp * E_l * C_l, D))
+        rows = recv.reshape(tp * dp, E_l, C_l, D).transpose(0, 1)
+        rows = rows.reshape(E_l, tp * dp * C_l, D)
+        hid = act(torch.bmm(rows, wg)) * torch.bmm(rows, wi)
+        out_rows = torch.bmm(hid, wo)
+        back = out_rows.reshape(E_l, tp * dp, C_l, D).transpose(0, 1)
+        back = eng.all_to_all(back.reshape(tp * dp * E_l * C_l, D))
+        back = back.reshape(tp, dp, E_l, C_l, D).transpose(0, 1)
+        back = back.reshape(dp, E, C_l, D)
+        return torch.stack([
+            ops.moe_combine(back[d], e, s, w, keep)
+            for d, (e, s, w, keep) in enumerate(routes)]).to(xs.dtype)
+
+    ectx = gasnet.Context(tp, node_axis="model", backend=ctx.moe_backend,
+                          device=x2d.device)
+    spec = P("model")
+    if by_model:  # token (d, r, t) at ((d tp + r) T_l + t), the reference's
+        xs = x2d.reshape(dp, tp, T_l, D).transpose(0, 1).reshape(
+            tp * dp, T_l, D)
+        y = ectx.spmd(body, xs, p["router"], p["wi"], p["wg"], p["wo"],
+                      in_specs=(spec, P(), spec, spec, spec), out_specs=spec)
+        return y.reshape(tp, dp, T_l, D).transpose(0, 1).reshape(T, D)
+    y = ectx.spmd(body, x2d.reshape(dp, T_l, D), p["router"], p["wi"],
+                  p["wg"], p["wo"], in_specs=(P(), P(), spec, spec, spec),
+                  out_specs=P())
+    return y.reshape(T, D)
+
+
+def use_ep(cfg: ArchConfig, ctx: RunCtx, n_tokens: int) -> bool:
+    """The reference's choice of MoE path: "ep_shardmap" always; "auto"
+    when the grid has model ranks, they divide the experts and the data
+    ranks divide the tokens."""
+    dp, tp = ctx.ep_grid
+    return ctx.moe_mode == "ep_shardmap" or (
+        ctx.moe_mode == "auto" and tp > 1 and cfg.n_experts % tp == 0
+        and n_tokens % dp == 0)
 
 
 def apply_moe(p: Params, cfg: ArchConfig, ctx: RunCtx,
               x: torch.Tensor) -> torch.Tensor:
     """The MoE FFN of a ``moe`` block (pre-norm, residual added by the
-    caller), plus the shared expert (kimi) or the dense residual FFN
-    (arctic), each with its own norm.  Local mode only: the reference's
-    expert-parallel ``_moe_ep`` needs a mesh."""
+    caller), expert-parallel or local by :func:`use_ep`, plus the shared
+    expert (kimi) or the dense residual FFN (arctic), each with its own
+    norm."""
     B, S, D = x.shape
-    h = apply_norm(p["norm"], x)
-    y = _moe_local(p, cfg, ctx, h.reshape(B * S, D),
-                   moe_capacity(cfg, B * S)).reshape(B, S, D)
+    h = apply_norm(p["norm"], x, cfg.norm)
+    if use_ep(cfg, ctx, B * S):
+        y = _moe_ep(p, cfg, ctx, h.reshape(B * S, D)).reshape(B, S, D)
+    else:
+        y = _moe_local(p, cfg, ctx, h.reshape(B * S, D),
+                       moe_capacity(cfg, B * S)).reshape(B, S, D)
     if "shared" in p:
         y = y + apply_mlp(p["shared"], cfg, x, ctx)
     if "dense_res" in p:
@@ -433,7 +586,8 @@ def mamba_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
         "norm": norm_init(D, dev, lead),
         "in_x": linear_init(gen, D, (Di,), cfg.dtype, lead=lead),
         "in_gate": linear_init(gen, D, (Di,), cfg.dtype, lead=lead),
-        "conv_w": _normal(gen, lead + (Wc, Di), cfg.dtype, 1.0 / math.sqrt(Wc)),
+        "conv_w": _normal(gen, lead + (Wc, Di), cfg.dtype, 1.0 / math.sqrt(Wc),
+                          n_lead=len(lead)),
         "conv_b": torch.zeros(lead + (Di,), dtype=cfg.dtype, device=dev),
         "x_proj": linear_init(gen, Di, (R + 2 * N,), cfg.dtype, lead=lead),
         "dt_proj": linear_init(gen, R, (Di,), cfg.dtype, lead=lead),
@@ -460,7 +614,7 @@ def apply_mamba(
     prefill caches); decode is the one-step closed form in plain torch,
     writing the conv window and the SSM state in place."""
     N, R = cfg.ssm_state, cfg.resolved_dt_rank
-    h = apply_norm(p["norm"], x)
+    h = apply_norm(p["norm"], x, cfg.norm)
     xin = h @ use_weight(p["in_x"], ctx)  # (B, S, Di)
     gate = h @ use_weight(p["in_gate"], ctx)
     w_out = use_weight(p["out_proj"], ctx)
@@ -519,7 +673,8 @@ def rec_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
         "norm": norm_init(D, dev, lead),
         "in_x": linear_init(gen, D, (W,), cfg.dtype, lead=lead),
         "in_gate": linear_init(gen, D, (W,), cfg.dtype, lead=lead),
-        "conv_w": _normal(gen, lead + (Wc, W), cfg.dtype, 1.0 / math.sqrt(Wc)),
+        "conv_w": _normal(gen, lead + (Wc, W), cfg.dtype, 1.0 / math.sqrt(Wc),
+                          n_lead=len(lead)),
         "conv_b": torch.zeros(lead + (W,), dtype=cfg.dtype, device=dev),
         "w_rgate": linear_init(gen, W, (W,), cfg.dtype, lead=lead),
         "w_igate": linear_init(gen, W, (W,), cfg.dtype, lead=lead),
@@ -543,12 +698,11 @@ def apply_rec(
     gated_linear_scan``: the CUDA kernel on the card); decode is the
     one-step update in plain torch, writing the conv window and the state
     in place."""
-    h = apply_norm(p["norm"], x)
+    h = apply_norm(p["norm"], x, cfg.norm)
     w_rg = use_weight(p["w_rgate"], ctx)
     w_ig = use_weight(p["w_igate"], ctx)
     xb = h @ use_weight(p["in_x"], ctx)  # (B, S, W)
-    # jax.nn.gelu's default is the tanh approximation
-    gb = F.gelu((h @ use_weight(p["in_gate"], ctx)).float(), approximate="tanh")
+    gb = _gelu((h @ use_weight(p["in_gate"], ctx)).float())
 
     conv_state = cache["conv"] if cache is not None else None
     xb, new_conv = causal_conv(xb, p["conv_w"], p["conv_b"], conv_state)

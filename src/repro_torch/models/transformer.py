@@ -84,7 +84,7 @@ _POLICIES = {"dots": _save_dots, "names": _save_names}
 # blocks
 # --------------------------------------------------------------------------- #
 def block_init(kind: str, cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
-    if kind in ("global", "local", "dense"):
+    if kind in ("global", "local", "dense", "enc"):
         d_ff = cfg.resolved_d_ff_dense if kind == "dense" else cfg.d_ff
         return {
             "attn": L.attention_init(cfg, ctx, gen, lead),
@@ -102,7 +102,17 @@ def block_init(kind: str, cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
             "mix": L.rec_init(cfg, ctx, gen, lead),
             "mlp": L.mlp_init(cfg, ctx, gen, lead=lead),
         }
-    raise ValueError(f"block kind {kind!r} is not ported yet")
+    if kind in ("cross", "xdec"):
+        params = {
+            "attn": L.attention_init(cfg, ctx, gen, lead),
+            "xattn": L.attention_init(cfg, ctx, gen, lead),
+            "mlp": L.mlp_init(cfg, ctx, gen, lead=lead),
+        }
+        if kind == "cross":  # tanh(0): the image path starts closed
+            params["xgate"] = torch.zeros(tuple(lead), dtype=torch.float32,
+                                          device=gen.device)
+        return params
+    raise ValueError(kind)
 
 
 def block_apply(
@@ -116,15 +126,22 @@ def block_apply(
     cache: Optional[Params],
     cache_len: int,
     positions: torch.Tensor,
+    xkv: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,
     tp=None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    if kind in ("global", "local", "dense", "moe"):
+    """One block.  ``enc`` is a ``global`` block without the causal
+    mask; ``cross`` (gated by ``tanh(xgate)``) and ``xdec`` add a
+    cross-attention onto ``xkv`` between the self-attention and the MLP,
+    their sub-blocks untagged as in the reference."""
+    get = (lambda k: None) if cache is None else cache.get
+    if kind in ("global", "local", "dense", "enc", "moe"):
         a, ac = L.apply_attention(
             p["attn"], cfg, ctx, x, positions=positions,
+            causal=kind != "enc",
             window=cfg.local_window if kind == "local" else None, mode=mode,
-            cache=None if cache is None else cache["attn"],
-            cache_len=cache_len, page_table=page_table, tp=tp,
+            cache=get("attn"), cache_len=cache_len, page_table=page_table,
+            tp=tp,
         )
         x = x + checkpoint_name(a, "attn_out", ctx, mode)
         if kind == "moe":
@@ -138,15 +155,31 @@ def block_apply(
         if page_table is not None:
             raise ValueError(f"paged decode unsupported for {kind!r} blocks")
         apply = L.apply_mamba if kind == "mamba" else L.apply_rec
-        m, mc = apply(p["mix"], cfg, ctx, x, mode=mode,
-                      cache=None if cache is None else cache["mix"])
+        m, mc = apply(p["mix"], cfg, ctx, x, mode=mode, cache=get("mix"))
         x = x + checkpoint_name(m, "mix_out", ctx, mode)
         if kind == "rec":
             x = x + checkpoint_name(L.apply_mlp(p["mlp"], cfg, x, ctx, tp=tp),
                                     "mlp_out", ctx, mode)
         new_cache = {"mix": mc}
+    elif kind in ("cross", "xdec"):
+        if page_table is not None:
+            raise ValueError(f"paged decode unsupported for {kind!r} blocks")
+        a, ac = L.apply_attention(
+            p["attn"], cfg, ctx, x, positions=positions, mode=mode,
+            cache=get("attn"), cache_len=cache_len, tp=tp,
+        )
+        x = x + a
+        c, cc = L.apply_attention(
+            p["xattn"], cfg, ctx, x, positions=positions, mode=mode,
+            cache=get("xattn"), cache_len=cache_len, xkv=xkv, tp=tp,
+        )
+        if kind == "cross":
+            c = torch.tanh(p["xgate"]).to(c.dtype) * c
+        x = x + c
+        x = x + L.apply_mlp(p["mlp"], cfg, x, ctx, tp=tp)
+        new_cache = {"attn": ac, "xattn": cc}
     else:
-        raise ValueError(f"block kind {kind!r} is not ported yet")
+        raise ValueError(kind)
     x = shard(x, ctx)
     return x, new_cache
 
@@ -203,28 +236,32 @@ def stack_apply(
     caches: Optional[List[Any]] = None,
     cache_len: int = 0,
     positions: torch.Tensor,
+    xkv: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,
     tp=None,
 ) -> Tuple[torch.Tensor, List[Any]]:
-    """``train`` returns ``(x, None)``, differentiable in ``x`` and the
-    parameters; ``prefill`` builds and returns stacked caches; ``decode``
-    writes the given stacked caches in place (through per-layer views) and
-    returns them.  ``tp`` (a ``TPGroup``) runs every block on this rank's
-    shard, its sub-blocks' partial sums crossing the group."""
+    """``train`` returns ``(x, None)``, differentiable in ``x``, ``xkv``
+    and the parameters; ``prefill`` builds and returns stacked caches;
+    ``decode`` writes the given stacked caches in place (through
+    per-layer views) and returns them.  ``xkv`` (encoder or image
+    embeddings) feeds the ``cross``/``xdec`` blocks' cross-attention.
+    ``tp`` (a ``TPGroup``) runs every block on this rank's shard, its
+    sub-blocks' partial sums crossing the group."""
     if mode == "train":
         for seg, sp in zip(segments, seg_params):
 
-            def unit_body(xc, lp, seg=seg):
+            def unit_body(xc, lp, xkv_, seg=seg):
                 for i, kind in enumerate(seg.unit):
                     xc, _ = block_apply(
                         kind, lp[f"b{i}_{kind}"], cfg, ctx, xc, mode=mode,
                         cache=None, cache_len=0, positions=positions,
+                        xkv=xkv_,
                     )
                 return xc
 
             body = _maybe_remat(unit_body, ctx)
             for lp in _unbind_layers(sp, seg.count):
-                x = body(x, lp)
+                x = body(x, lp, xkv)
         return x, None
     if mode not in ("prefill", "decode"):
         raise ValueError(mode)
@@ -241,7 +278,7 @@ def stack_apply(
                 x, ncs[key] = block_apply(
                     kind, lp[key], cfg, ctx, x, mode=mode,
                     cache=None if lc is None else lc[key],
-                    cache_len=cache_len, positions=positions,
+                    cache_len=cache_len, positions=positions, xkv=xkv,
                     page_table=page_table, tp=tp,
                 )
             per_layer.append(ncs)
@@ -283,7 +320,7 @@ def _proj_logits(io: Params, cfg: ArchConfig, h: torch.Tensor,
 
 
 def final_hidden(io: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    return L.apply_norm(io["norm_f"], h)
+    return L.apply_norm(io["norm_f"], h, cfg.norm)
 
 
 def logits_fn(io: Params, cfg: ArchConfig, ctx: RunCtx,

@@ -148,6 +148,25 @@ def test_plain_backward_matches_autograd_of_plain_attention():
         torch.testing.assert_close(a, b, atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 24)])
+def test_f64_dkv_sums_match_the_plain_version(causal, window):
+    """ref.flash_attention_dkv_f64 (the exact sums the card's long-group
+    dK/dV checks hold both sides to) computes what the f32 plain version
+    does, left in f64: a group of 4, causal or a two-sided window."""
+    arrays = _qkv(2, 8, 2, 64, 64, 32, seed=5)
+    q, k, v = (torch.from_numpy(x) for x in arrays)
+    dout = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, 8, 64, 32)).astype(np.float32))
+    kw = dict(causal=causal, window=window)
+    out, lse = ref.flash_attention_fwd(q, k, v, **kw)
+    delta = (dout * out).sum(-1)
+    got = ref.flash_attention_dkv_f64(q, k, v, dout, lse, delta, **kw)
+    want = ref.flash_attention_dkv(q, k, v, dout, lse, delta, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, b.double(), atol=1e-5, rtol=1e-5)
+
+
 # (B, Hq, Hkv, (Sq, Sk), D, causal, window): a GQA group of 2 and Sk 96,
 # which leaves a ragged last tile of the bf16 dQ kernel's 64 kv rows
 DQ_BF16_CASES = [

@@ -770,7 +770,7 @@ def test_cuda_moe_router_at_this_cards_plan_edges(cuda, E, K):
         got = mr.moe_router(logits, k=K, capacity=cap)
         torch.cuda.synchronize()
         assert mr.moe_router.launches == before + 1
-        _router_matches(got, logits, K, cap)
+        _router_matches(mr.unpack(*got), logits, K, cap)
 
 
 @pytest.mark.cuda
@@ -793,7 +793,7 @@ def test_cuda_moe_router_on_two_streams_at_once(cuda):
                 outs.append(mr.moe_router(x, k=8, capacity=cap))
         torch.cuda.synchronize()
         for got, x in zip(outs, xs):
-            _router_matches(got, x, 8, cap)
+            _router_matches(mr.unpack(*got), x, 8, cap)
 
 
 @pytest.mark.cuda
@@ -813,8 +813,8 @@ def test_cuda_moe_router_keeps_no_state_between_calls(cuda, T):
     torch.cuda.synchronize()
     for g, w in zip(first, second):
         assert torch.equal(g, w)
-    _router_matches(first, a, 8, cap)
-    _router_matches(third, b, 8, cap)
+    _router_matches(mr.unpack(*first), a, 8, cap)
+    _router_matches(mr.unpack(*third), b, 8, cap)
 
 
 @pytest.mark.cuda
@@ -1398,3 +1398,147 @@ def test_cuda_profiler_clocks(cuda):
     assert recs["small"]["clock"] == "events"
     assert recs["big"]["clock"] == "kernels"
     assert 0 < small < 1e3 and small * 100 < big
+
+
+# --------------------------------------------------------------------------- #
+# the rest of the model zoo's shapes; expert parallelism
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(48, 1), (128, 8)], ids=["G48", "G16"])
+@pytest.mark.parametrize(
+    "dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+)
+def test_cuda_paged_attention_at_the_zoos_groups(cuda, heads, dtype, atol):
+    """granite-34b's MQA (48 q heads on one KV head) and llama3-405b's 128
+    / 8 heads: lengths on and either side of the split boundaries and a
+    full table, one launch, against the plain version."""
+    lengths = [1, 63, 64, 65, 128, 148, 511, 512]
+    args = _paged_inputs(cuda, dtype, *heads, lengths)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    want = ref.paged_attention(*args)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=atol)
+
+
+# seamless' encoder (non-causal, head dim 64), granite's group of 48,
+# gemma3's causal window of 1,024 at S 4,096
+FLASH_ZOO_CASES = [
+    (2, 16, 16, 1024, 64, False, None, torch.bfloat16),
+    (1, 48, 1, 2048, 128, True, None, torch.bfloat16),
+    (1, 32, 16, 4096, 128, True, 1024, torch.bfloat16),
+    (1, 16, 16, 512, 64, False, None, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_ZOO_CASES,
+                         ids=[str(c) for c in FLASH_ZOO_CASES])
+def test_cuda_flash_kernels_at_the_zoos_shapes(cuda, case):
+    """The forward, dK/dV and dQ kernels against their plain versions at
+    the zoo's training shapes, one launch each.  At granite's group of 48
+    dK and dV sum 48 S terms an element, each with the bf16 kernel's P or
+    dS rounded to 8 bits, so an element small beside its key row's largest
+    may lie a few of that row's bf16 ulps from the plain version: there
+    each key row is held to the f64 sum of the same inputs, its largest
+    error at most twice the plain version's plus 2**-8 of the row's
+    largest |value| (tools/flash_gqa_error.py).  The rest as in
+    ``test_cuda_flash_kernels_match_plain``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    q, dout = (torch.randn((B, Hq, S, D), generator=g, device=cuda).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    before = (fa.flash_attention_fwd.launches, fab.flash_attention_dkv.launches,
+              fab.flash_attention_dq.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = ref.flash_attention_fwd(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=fwd_tol,
+                               rtol=fwd_tol)
+    torch.testing.assert_close(lse, want_lse, atol=2e-4, rtol=2e-4)
+    delta = (dout.float() * want_out.float()).sum(-1)
+    args = (q, k, v, dout, want_lse, delta)
+    dk, dv = fab.flash_attention_dkv(*args, **kw)
+    dq = fab.flash_attention_dq(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fab.flash_attention_dkv.launches,
+            fab.flash_attention_dq.launches) == tuple(b + 1 for b in before)
+    plain = ref.flash_attention_dkv(*args, **kw)
+    exact = (ref.flash_attention_dkv_f64(*args, **kw) if Hq // Hkv == 48
+             else None)
+    for i, (got, want) in enumerate(zip((dk, dv), plain)):
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        if exact is None:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=bwd_tol, rtol=bwd_tol)
+            continue
+        err = (got.double() - exact[i]).abs().amax(-1)
+        bound = (2 * (want.double() - exact[i]).abs().amax(-1)
+                 + 2.0**-8 * exact[i].abs().amax(-1))
+        assert bool((err <= bound).all()), float((err / bound).max())
+    torch.testing.assert_close(dq.float(),
+                               ref.flash_attention_dq(*args, **kw).float(),
+                               atol=bwd_tol, rtol=bwd_tol)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_router_under_the_rank_vmap(cuda):
+    """``ops.moe_router`` under ``torch.func.vmap`` over 4 ranks: one
+    launch a rank, each rank's routes those of the plain router on its
+    own tokens with the same capacity."""
+    from repro_torch.kernels import moe_router as mr
+
+    x = torch.from_numpy(_router_logits(4 * 96, 128, False, 5)).to(cuda)
+    x = x.reshape(4, 96, 128)
+    before = mr.moe_router.launches
+    got = torch.func.vmap(lambda lg: ops.moe_router(lg, k=2, capacity=4))(x)
+    torch.cuda.synchronize()
+    assert mr.moe_router.launches == before + 4
+    for r in range(4):
+        _router_matches(tuple(t[r] for t in got), x[r], 2, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,T", [((1, 4), 64), ((2, 4), 128), ((2, 4), 66)])
+def test_cuda_moe_ep_engines_agree_and_match_plain(cuda, grid, T):
+    """Expert-parallel MoE (arctic SMOKE, capacity factor 4.0) on the card:
+    "gascore" bitwise equal to "xla", 2 all-to-alls of n - 1
+    ``ring_shift`` launches each, the router once a rank and token shard
+    (once a data shard where the model ranks share their tokens: the
+    op is not batched then); and within f32 rounding of the same on the
+    CPU (the plain versions)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import SMOKE
+    from repro_torch.kernels import gascore as gc
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.models import layers
+    from repro_torch.parallel.ctx import RunCtx
+
+    cfg = dataclasses.replace(SMOKE["arctic-480b"], capacity_factor=4.0)
+    p = layers.moe_init(cfg, RunCtx(), torch.Generator().manual_seed(1))
+    keys = ("router", "wi", "wg", "wo")
+    x = torch.randn((T, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    outs = {}
+    for backend in ("xla", "gascore"):
+        ctx = RunCtx(moe_mode="ep_shardmap", ep_grid=grid, moe_backend=backend)
+        shifts, routes = gc.ring_shift.launches, mr.moe_router.launches
+        outs[backend] = layers._moe_ep({k: p[k].to(cuda) for k in keys}, cfg,
+                                       ctx, x.to(cuda))
+        torch.cuda.synchronize()
+        want_shifts = 2 * (grid[1] - 1) if backend == "gascore" else 0
+        assert gc.ring_shift.launches - shifts == want_shifts
+        shards = grid[0] * (grid[1] if T % (grid[0] * grid[1]) == 0 else 1)
+        assert mr.moe_router.launches - routes == shards
+    assert torch.equal(outs["xla"], outs["gascore"])
+    cpu = layers._moe_ep({k: p[k] for k in keys}, cfg,
+                         RunCtx(moe_mode="ep_shardmap", ep_grid=grid), x)
+    torch.testing.assert_close(outs["xla"].cpu(), cpu, atol=1e-5, rtol=1e-5)

@@ -141,7 +141,7 @@ def test_serve_full_refuses_moe_depth_before_allocating(arch, layers,
     err = capsys.readouterr().err
     need = ARCHS[arch].param_counts()[0] * 2 / 1e9
     assert f"{layers} layers" in err and f"{need:,.0f} GB" in err
-    assert "2 layers" in err and need > serve.CARD_BYTES / 1e9
+    assert "80 GB card" in err and need > serve.CARD_BYTES / 1e9
     assert ARCHS[arch].param_counts() == J_ARCHS[arch].param_counts()
 
 

@@ -11,8 +11,9 @@ ignores):
     python3 tools/ab_router.py before=build/ab/before after=.
 
 Each tree is driven through its own wrapper
-(``repro_torch.kernels.moe_router.moe_router``, whose signature has not
-changed since the port began), with its kernel built from its own source
+(``repro_torch.kernels.moe_router.moe_router``, whose arguments have not
+changed since the port began; its outputs are the four of
+``ref.route_topk`` in older trees, ``(words, keep)`` in newer ones), with its kernel built from its own source
 into its own ``build/``; all the trees' builds start at once.  The trees
 are timed in turns, one process per turn, in the order given and then in
 reverse (before, after, after, before), each turn at ``chip_smoke.py``'s
@@ -213,6 +214,8 @@ def mismatches(cs, x, K, cap):
     import torch
 
     got = cs.mr.moe_router(x, k=K, capacity=cap)
+    if len(got) == 2:  # (words, keep): a wrapper of one packed form
+        got = cs.mr.unpack(*got)
     want = cs.ref.route_topk(x, k=K, capacity=cap)
     torch.cuda.synchronize()
     return {"differ": sum(int((got[i] != want[i]).sum()) for i in (0, 1, 3)),
@@ -308,7 +311,7 @@ def sweep():
             want = cs.ref.route_topk(x, k=K, capacity=cap)
             rows = {}
             for how in candidates(mr, T, sms, max_cluster):
-                got = mr.launch(x, K, cap, 1, how)
+                got = mr.unpack(*mr.launch(x, K, cap, 1, how))
                 torch.cuda.synchronize()
                 for i in (0, 1, 3):
                     if not torch.equal(got[i], want[i]):
