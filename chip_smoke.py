@@ -49,6 +49,26 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              weights, freed after): greedy tokens paged and dense must be
              identical but at near ties (dense top-2 margin below the
              step's max |logit difference|), each printed and counted.
+5a. gas_suites — the GAS layer's last pieces (after phase 5, whose
+             weights (d) serves): (a) the one-device twins of the
+             reference's GAS suite (8 ranks) and GAScore suite (4 ranks,
+             the five kernels at the reference's shapes held to their
+             oracles) on the card, each to its PASS line; (b) the Jacobi
+             rod of ``examples/stencil_halo.py`` (8 nodes, 400 steps of two
+             one-sided halo puts) on the three backends: within 1e-4 of
+             the dense rod, byte-equal to each other, launches per kernel
+             against its schedule; (c) ``hierarchical_all_reduce`` on
+             "gascore", 2 pods x 4 ranks, 16 MiB f32 per rank (inner rings
+             on ``perm_put``, the outer ring on ``ring_shift``) beside the
+             flat ring all-reduce of the 8 on the same data, both within
+             the rounding bound of the f64 sum, by ``device_ms``, with the
+             bytes each puts between the pods (from the schedule; on one
+             card every put is an on-chip copy); (d) ``PagedServer(
+             paged_decode=False)`` on phase 5's traffic: tokens held to the
+             dense ``Server``'s by F3's rule, every live row equal to its
+             gather through the page table at two steps, the pool full
+             after the drain, no paged-attention launch; step ms, tok/s
+             and peak GiB beside ``PagedServer``'s.
 6. profile — three steady decode steps of a separate paged run under
              ``torch.profiler``: kernels, device busy time and share.
 6a. serve_disagg — the disaggregated cluster on phase 5's weights, all
@@ -222,8 +242,10 @@ script exits non-zero before that line.  Without CUDA it exits non-zero
 and prints nothing on stdout.
 """
 
+import contextlib
 import dataclasses
 import gc as pygc  # "gc" names the GAScore kernels below
+import io
 import json
 import math
 import re
@@ -243,9 +265,10 @@ import torch  # noqa: E402
 from repro_torch.compat import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.core import collectives, gasnet, sched  # noqa: E402
-from repro_torch.core.engine import make_engine  # noqa: E402
+from repro_torch.core.engine import make_engine, pod_engines  # noqa: E402
 from repro_torch.core.gasnet import P  # noqa: E402
 from repro_torch.examples import heterogeneous_pipeline, quickstart  # noqa: E402
+from repro_torch.examples import stencil_halo  # noqa: E402
 from repro_torch.examples import serve_requests as ex  # noqa: E402
 from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.data.synthetic import Loader, SyntheticLM  # noqa: E402
@@ -272,6 +295,7 @@ from repro_torch.parallel import pipeline  # noqa: E402
 from repro_torch.parallel.ctx import RunCtx  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.testing import fault_suite  # noqa: E402
+from repro_torch.testing import gas_suite, gascore_suite  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -889,6 +913,231 @@ def gas_phase():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# the GAS layer's last pieces: the suite twins, the stencil, the
+# hierarchical all-reduce; PagedServer's dense-row path
+# --------------------------------------------------------------------------- #
+SUITES = ((gas_suite, "GAS_SUITE_PASS"), (gascore_suite, "GASCORE_SUITE_PASS"))
+HIER_PODS = 2  # the 8 ranks as 2 pods of 4
+HIER_ITERS = 10
+F32_EPS = 2.0**-24  # f32's unit roundoff
+ROW_CANON_STEPS = (1, MAX_NEW - 1)  # decode steps whose pool is gathered
+
+
+def hier_launches(backend, n=N_RANKS, pods=HIER_PODS, rows=FULL_ROWS):
+    """Kernel launches of one ``hierarchical_all_reduce`` of ``rows`` rows
+    per rank: a backend with a "gascore" member moves the inner rings
+    (RS, AG: n/pods - 1 hops each) along a permutation inside the pods
+    (``perm_put``) and the outer ring (RS + AG over the pods, or the
+    shift-accumulate ring when the shard does not tile) as a uniform
+    shift of the ranks by a pod's size (``ring_shift``)."""
+    if "gascore" not in backend:
+        return {}
+    m = n // pods
+    shard = rows // m
+    outer = 2 * (pods - 1) if shard and shard % pods == 0 else pods - 1
+    out = {"perm_put": 0, "ring_shift": outer}
+    out["perm_put" if pods > 1 else "ring_shift"] += 2 * (m - 1)
+    return out
+
+
+def hier_outer_bytes(nbytes, n=N_RANKS, pods=HIER_PODS):
+    """Bytes that cross between pods: the hierarchical outer ring (2 (p-1)
+    hops of 1/(m p) of a rank's bytes, every rank), and the flat ring of n
+    ranks laid pod by pod (2 (n-1) hops of 1/n, on the p edges between
+    pods)."""
+    m = n // pods
+    return {"hierarchical": n * 2 * (pods - 1) * nbytes // (m * pods),
+            "flat_ring": pods * 2 * (n - 1) * nbytes // n}
+
+
+def hier_check(backend="gascore", device="cuda", n=N_RANKS, pods=HIER_PODS,
+               rows=FULL_ROWS, cols=FULL_COLS, iters=HIER_ITERS):
+    """The hierarchical all-reduce of (rows, cols) f32 per rank beside the
+    flat ring all-reduce on the same data: each within the rounding bound
+    of n - 1 additions of the f64 sum, equal on every rank, launches per
+    kernel against the schedule; their ``device_ms``."""
+    ctx = gasnet.Context(n, backend=backend, device=device)
+    gen = torch.Generator(device=ctx.device).manual_seed(3)
+    x = torch.randn((n, rows, cols), generator=gen, device=ctx.device)
+
+    def hier(node, v):
+        inner, outer = pod_engines(node.engine, pods)
+        return collectives.hierarchical_all_reduce(inner, outer,
+                                                   node.local(v))[None]
+
+    def flat(node, v):
+        return collectives.ring_all_reduce(node.engine, node.local(v))[None]
+
+    exact = x.double().sum(0)
+    # recursive summation of n terms: within (n - 1) u sum |x| of the sum
+    bound = 1.01 * (n - 1) * F32_EPS * x.double().abs().sum(0)
+    rec = {}
+    for name, prog, want in (
+            ("hierarchical", hier, hier_launches(backend, n, pods, rows)),
+            ("flat_ring", flat, {"ring_shift": 2 * (n - 1)}
+             if "gascore" in backend else {})):
+        before = counts()
+        out = ctx.spmd(prog, x)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in counts().items() if v > before[k]}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{name} all-reduce: launches {got}, schedule "
+                                 f"says {want}")
+        err = (out.double() - exact).abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{name} all-reduce: beyond the rounding "
+                                 f"bound by {float((err - bound).max())}")
+        for r in range(1, n):
+            _byte_equal(f"{name} all-reduce rank {r}", out[r], out[0])
+        del out
+        checked = counts()  # the timing loop's launches are not the path's
+        rec[name] = {"launches": got, "max_abs_err": float(err.max()),
+                     "max_bound": float(bound.max()),
+                     "device_ms": device_ms(lambda: ctx.spmd(prog, x), iters)}
+        for kernel, (w, _, _) in GAS_KERNELS.items():
+            w.launches = checked[kernel]
+    nbytes = rows * cols * 4
+    return {"backend": backend, "pods": pods, "ranks_per_pod": n // pods,
+            "bytes_per_rank": nbytes,
+            "outer_bytes": hier_outer_bytes(nbytes, n, pods), **rec}
+
+
+def row_canonical(server, live):
+    """Each live row's cache equals, byte for byte, its gather through
+    the page table."""
+    for i in live:
+        rid = server.active[i].rid
+        row = tree_map(lambda x: x[:, i:i + 1], server.caches)
+        for a, b in zip(tree_leaves(row), tree_leaves(server.store.gather(rid))):
+            if a.dtype != b.dtype:
+                raise AssertionError(f"row {i}: gather gives {b.dtype}, the "
+                                     f"cache holds {a.dtype}")
+            _byte_equal(f"pool gather of rid {rid}", a, b.to(a.device))
+    return len(live)
+
+
+def dense_row_run(served):
+    """``PagedServer(paged_decode=False)`` on the serve phase's weights and
+    traffic: tokens held to the dense ``Server``'s rows by F3's rule, the
+    pool gathered against the rows at ``ROW_CANON_STEPS`` and full after
+    the drain, no paged-attention launch; the decode and the page
+    write-back timed apart (each ends in a device sync)."""
+    server = PagedServer(served["model"], served["ctx"], served["params"],
+                         BATCH, CACHE_LEN, device="cuda",
+                         page_tokens=PAGE_TOKENS, paged_decode=False)
+    gate = served["dense_gate"].fork()
+    decode, post = server._decode, server._post_decode
+    decode_s, post_s, canon = [], [], []
+
+    def timed_decode(*a):
+        t0 = time.perf_counter()
+        out = decode(*a)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_post(live, written):
+        t0 = time.perf_counter()
+        post(live, written)
+        post_s.append(time.perf_counter() - t0)
+
+    def on_step(srv, live, logits):
+        gate.compare(srv, live, logits)
+        if len(decode_s) in ROW_CANON_STEPS:
+            canon.append(row_canonical(srv, live))
+
+    server._decode, server._post_decode = timed_decode, timed_post
+    server.on_step = on_step
+    paged_before = pa.paged_attention.launches
+    torch.cuda.reset_peak_memory_stats()
+    for r in requests(served["model"].cfg.vocab):
+        server.submit(r)
+    stats = server.run_until_drained()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if pa.paged_attention.launches != paged_before:
+        raise AssertionError("the row path launched paged attention")
+    out = {r.rid: r.out for r in server.finished}
+    verdict = gate.verdict("row path vs dense", served["dense"], out)
+    if len(canon) != len(ROW_CANON_STEPS):
+        raise AssertionError(f"pool gathered at {len(canon)} steps")
+    if stats["pool_n_free"] != stats["pool_n_pages"] or server.store.tables:
+        raise AssertionError(f"pool not drained: {stats}")
+    pool_lib.check_pool(server.store.state, tables=[])
+    paged = served["record"]
+    step_ms = 1e3 * (float(np.median(decode_s)) + float(np.median(post_s)))
+    cfg = served["model"].cfg
+    return {"layers": cfg.n_layers, "dtype": str(cfg.dtype).split(".")[-1],
+            "decode_steps": len(decode_s),
+            "step_ms_median": step_ms,
+            "decode_ms_median": 1e3 * float(np.median(decode_s)),
+            "writeback_ms_median": 1e3 * float(np.median(post_s)),
+            "tok_per_s": stats["tok_per_s"], "wall_s": stats["wall_s"],
+            "peak_device_mem_gib": peak,
+            "rows_gathered_equal": sum(canon), "pool_free_after":
+            stats["pool_n_free"], "pool_pages": stats["pool_n_pages"],
+            **verdict,
+            "paged_server": {"step_ms_median": paged["decode_step_ms_median"],
+                             "tok_per_s": paged["tok_per_s"],
+                             "peak_device_mem_gib":
+                             paged["peak_device_mem_gib"]}}
+
+
+def gas_suites_phase(served):
+    """(a) the two suite twins on the card, (b) the stencil on three
+    backends, (c) the hierarchical all-reduce at full size, (d) the
+    dense-row path; returns the launches per GAScore kernel over (a)-(c)
+    (counts set to 0 just before)."""
+    reset_counts()
+    rec = {"phase": "gas_suites"}
+    for suite, token in SUITES:  # (a)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            suite.main(device="cuda")
+        torch.cuda.synchronize()
+        lines = buf.getvalue().splitlines()
+        if not lines or lines[-1] != token:
+            raise AssertionError(f"{suite.__name__} ended {lines[-1:]}")
+        rec[suite.__name__.rsplit(".", 1)[-1]] = {
+            "s": time.perf_counter() - t0,
+            "sections_ok": sum(" OK" in line for line in lines)}
+    rec["suite_launches"] = counts()
+    stencil, first = {}, None
+    for backend in GAS_BACKENDS:  # (b)
+        before = counts()
+        t0 = time.perf_counter()
+        res = stencil_halo.run(backend, "cuda", verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in counts().items()}
+        want = dict.fromkeys(GAS_KERNELS, 0)
+        want.update(stencil_halo.launches(backend))
+        if got != want:
+            raise AssertionError(f"stencil on {backend}: launches {got}, "
+                                 f"schedule says {want}")
+        if first is None:
+            first = res
+        for key in ("seg", "heat"):
+            _byte_equal(f"stencil {key} on {backend}", res[key], first[key])
+        stencil[backend] = {"s": wall, "launches": got}
+    rod = first["seg"][:, 1:-1].reshape(-1).cpu().numpy()
+    rec["stencil"] = {"steps": stencil_halo.STEPS, "max": float(rod.max()),
+                      "total_heat": float(rod.sum()), "backends": stencil,
+                      "byte_equal": True}
+    rec["hierarchical"] = hier_check()  # (c)
+    launches = counts()
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"gas_suites never launched {missing}")
+    rec["dense_row"] = dense_row_run(served)  # (d)
+    if counts() != launches:
+        raise AssertionError("the row path launched a GAScore kernel")
+    rec["launches"] = launches
+    emit(rec)
+    return launches
+
+
 def requests(vocab=151936):
     rng = np.random.default_rng(0)
     shared = rng.integers(0, vocab, size=SHARED).tolist()
@@ -989,6 +1238,8 @@ def serve_phase():
     init_s = time.perf_counter() - t0
 
     dense = Server(model, ctx, params, BATCH, CACHE_LEN, device="cuda")
+    dense_gate = TieGate()  # the oracle rows the row path is held to
+    dense.on_step = dense_gate.keep
     dense_logits = []
     decode = dense._decode
 
@@ -1072,7 +1323,7 @@ def serve_phase():
     emit(record)
     return {"launches": launches, "model": model, "ctx": ctx,
             "params": params, "dense": dense_out, "paged": paged_out,
-            "record": record}
+            "dense_gate": dense_gate, "record": record}
 
 
 def top2_margin(row):
@@ -4473,6 +4724,7 @@ def main():
     overlap_launches = timed(overlap_phase)
     served = timed(serve_phase)
     launches = served["launches"]
+    suites_launches = timed(gas_suites_phase, served)
     disagg_launches = timed(serve_disagg_phase, served)
     tp_launches = timed(serve_tp_phase, served)
     ft_launches = timed(serve_ft_phase, served)
@@ -4526,7 +4778,8 @@ def main():
         "replaces": f"src/repro/kernels/{where}",
         "launches": gas_launches[name] + disagg_launches.get(name, 0)
         + overlap_launches.get(name, 0) + tp_launches.get(name, 0)
-        + ft_launches.get(name, 0) + slice14[name] + slice15[name],
+        + ft_launches.get(name, 0) + slice14[name] + slice15[name]
+        + suites_launches[name],
         **{key: gas_figures[name]["16MiB"][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's

@@ -27,16 +27,17 @@ simulator); rank-dependent slices go through ``core.indexing``.
   bit-identical to the monolithic rings.
 - :func:`recursive_doubling_all_reduce`, :func:`tree_broadcast`: the
   latency-optimal tier.
-
-``hierarchical_all_reduce`` (two node axes, pods x nodes) is not ported:
-``Context.spmd`` lifts programs over one rank axis.
+- :func:`hierarchical_all_reduce`: RS inside each pod, AR across pods, AG
+  inside each pod.  ``Context.spmd`` lifts programs over one rank axis,
+  so the reference's two mesh axes are two group engines over it
+  (``engine.pod_engines``).
 """
 
 from __future__ import annotations
 
 import math
 from collections import deque
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -52,6 +53,7 @@ __all__ = [
     "segmented_ring_all_reduce",
     "recursive_doubling_all_reduce",
     "tree_broadcast",
+    "hierarchical_all_reduce",
     "broadcast",
     "exchange",
     "ring_all_to_all",
@@ -376,3 +378,23 @@ def tree_broadcast(
         is_recv = (rel >= span) & (rel < 2 * span)
         out = torch.where(is_recv, recv, out)
     return out
+
+
+def hierarchical_all_reduce(
+    inner: CommEngine,
+    outer: CommEngine,
+    x: torch.Tensor,
+    all_reduce_outer: Optional[
+        Callable[[CommEngine, torch.Tensor], torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Pod-aware all-reduce: RS(inner) -> AR(outer) -> AG(inner).
+
+    ``inner`` enumerates nodes inside a pod (cheap on-chip-network links),
+    ``outer`` enumerates pods (expensive OCCC links); on the port both are
+    group engines over the one rank axis (``engine.pod_engines``).  Only
+    1/n_inner of the data crosses the outer axis.
+    """
+    ar = all_reduce_outer or ring_all_reduce
+    shard = ring_reduce_scatter(inner, x)
+    shard = ar(outer, shard)
+    return ring_all_gather(inner, shard)

@@ -44,6 +44,8 @@ __all__ = [
     "XlaEngine",
     "GascoreEngine",
     "EngineMap",
+    "GroupEngine",
+    "pod_engines",
     "make_engine",
     "parse_backend_spec",
     "side_stream",
@@ -554,6 +556,121 @@ class EngineMap(CommEngine):
         return collectives.ring_all_reduce(self, x)
 
     # all_to_all: inherited split-phase exchange over shift_nb.
+
+
+class GroupEngine(CommEngine):
+    """One collective's view of a base engine whose ranks are cut into
+    equal groups: the reference's second mesh axis on the port's one
+    rank axis.
+
+    ``groups`` partitions the base ranks; ``groups[g][i]`` is the base
+    rank at index ``i`` of group ``g``.  ``my_id`` is a rank's index in
+    its group and ``n_nodes`` the group size, so the ring algorithms of
+    ``collectives`` run unchanged, every group its own ring.  A move is
+    ONE move of the base engine over all ranks along a static bijection
+    that stays inside each group: a uniform shift of the base ranks goes
+    to ``base.shift`` (``ring_shift`` on "gascore"), any other pattern to
+    ``base.permute`` (``perm_put``).  An :class:`EngineMap` base keeps its
+    per-edge selection.  The engine's collectives are the put rings; the
+    fused GAScore collectives span every rank and are not used."""
+
+    def __init__(self, base: CommEngine, groups: Sequence[Sequence[int]],
+                 axis: Optional[str] = None):
+        groups = tuple(tuple(int(r) for r in g) for g in groups)
+        n = base.n_nodes
+        m = len(groups[0]) if groups else 0
+        if (not m or any(len(g) != m for g in groups)
+                or sorted(r for g in groups for r in g) != list(range(n))):
+            raise ValueError(
+                f"groups {groups} are not a partition of {n} ranks into "
+                "equal groups")
+        super().__init__(axis or base.axis, m, base.ids)
+        self.base = base
+        self.groups = groups
+        self.name = base.name
+        self.can_permute_partial = base.can_permute_partial
+        self._index = [0] * n
+        self._group = [0] * n
+        for g, members in enumerate(groups):
+            for i, r in enumerate(members):
+                self._index[r], self._group[r] = i, g
+
+    def my_id(self) -> torch.Tensor:
+        ids = self.base.my_id()
+        return device_const(self._index, torch.int32, ids.device)[ids.long()]
+
+    def barrier(self, token: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The base axis's barrier (one over all ranks orders the group)."""
+        return self.base.barrier(token)
+
+    def _lift(self, dst: Sequence[Optional[int]]) -> List[Optional[int]]:
+        """Group-local destinations as base-rank destinations."""
+        return [
+            None if dst[self._index[r]] is None
+            else self.groups[self._group[r]][int(dst[self._index[r]])]
+            for r in range(self.base.n_nodes)
+        ]
+
+    def _uniform(self, k: int) -> Tuple[List[Optional[int]], Optional[int]]:
+        """The base destinations of a shift by ``k`` in every group, and
+        the base shift they amount to (None when they are not one)."""
+        glob = self._lift([(i + k) % self.n_nodes for i in range(self.n_nodes)])
+        n = self.base.n_nodes
+        s = glob[0]
+        return glob, s if all(d == (r + s) % n for r, d in enumerate(glob)) else None
+
+    def shift(self, x: torch.Tensor, k: int = 1) -> torch.Tensor:
+        if k % self.n_nodes == 0:
+            return x
+        glob, s = self._uniform(k)
+        return self.base.shift(x, s) if s is not None else self.base.permute(x, glob)
+
+    def permute(self, x: torch.Tensor, dst: Sequence[int]) -> torch.Tensor:
+        return self.base.permute(x, self._lift(dst))
+
+    def shift_nb(self, x: torch.Tensor, k: int = 1) -> Pending:
+        if k % self.n_nodes == 0:
+            return Pending(x, op=f"shift(k={k})")
+        glob, s = self._uniform(k)
+        if s is not None:
+            return self.base.shift_nb(x, s)
+        return self.base.permute_nb(x, glob)
+
+    def permute_nb(self, x: torch.Tensor, dst: Sequence[int]) -> Pending:
+        return self.base.permute_nb(x, self._lift(dst))
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.core import collectives
+
+        return collectives.ring_all_gather(self, x)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.core import collectives
+
+        return collectives.ring_reduce_scatter(self, x)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.core import collectives
+
+        return collectives.ring_all_reduce(self, x)
+
+    # all_to_all: inherited split-phase exchange over shift_nb.
+
+
+def pod_engines(base: CommEngine, n_pods: int) -> Tuple[GroupEngine, GroupEngine]:
+    """``(inner, outer)`` group engines of a ``(n_pods, n_inner)`` grid laid
+    over the base ranks pod-major (rank ``p * n_inner + i``), as the
+    reference's ``(pod, data)`` mesh lays out its devices: ``inner``
+    enumerates the ranks of a pod, ``outer`` the pods a rank's index
+    meets in."""
+    n = base.n_nodes
+    if n_pods < 1 or n % n_pods:
+        raise ValueError(f"{n_pods} pods do not tile {n} ranks")
+    m = n // n_pods
+    inner = GroupEngine(base, [range(p * m, (p + 1) * m)
+                               for p in range(n_pods)], axis="data")
+    outer = GroupEngine(base, [range(i, n, m) for i in range(m)], axis="pod")
+    return inner, outer
 
 
 def _make_single_engine(

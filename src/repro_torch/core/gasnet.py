@@ -367,7 +367,10 @@ class Node:
         if pred is None:
             flags = torch.ones((m,), dtype=torch.int32, device=dev)
         else:
-            flags = torch.as_tensor(pred, device=dev)
+            # a per-payload list may mix Python bools and (batched) tensors
+            flags = (torch.stack([_bool(p, dev) for p in pred])
+                     if isinstance(pred, (list, tuple))
+                     else torch.as_tensor(pred, device=dev))
             if flags.dim() == 0:
                 flags = flags.expand((m,))
             flags = flags.to(torch.int32).reshape(-1)

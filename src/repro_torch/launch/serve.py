@@ -14,7 +14,9 @@ batch; per-row positions let rows be at different generation depths.
   (``repro_torch.serving.pool``): pages allocated lazily per request,
   prompt prefixes shared by page table, SLO-aware preemption with swap
   to a host memory tier or recompute.  Its decode step runs THROUGH the
-  page table, with attention on the hand-written CUDA kernel on the card.
+  page table, with attention on the hand-written CUDA kernel on the card
+  (``paged_decode=False``: on dense rows read back through the table,
+  the written page going back into the pool every step).
   It serves the archs of ``global``, ``dense`` and ``moe`` blocks
   (qwen3-4b, kimi-k2-1t-a32b, arctic-480b); every ``moe`` layer of every
   forward, in either server, routes its tokens on the hand-written
@@ -290,6 +292,11 @@ class Server:
         if tokens:
             self.replaying[slot] = list(tokens)
 
+    # -- paged-pool hooks (no-ops for the dense server) ----------------- #
+    def _post_decode(self, live: List[int], written: Dict[int, int]) -> None:
+        """Called after one decode step, before retirement: ``written``
+        maps each live row to the cache position the step wrote."""
+
     def _release(self, req: Request) -> None:
         """Called when a request leaves its decode row."""
 
@@ -346,7 +353,9 @@ class Server:
             self._tensor(self.positions),
             self.caches,
         )
-        self._advance(live, _to_host(logits))
+        logits = _to_host(logits)
+        self._post_decode(live, {i: int(self.positions[i]) for i in live})
+        self._advance(live, logits)
         return len(live)
 
     def _pending(self) -> bool:
@@ -389,6 +398,16 @@ class PagedServer(Server):
     :class:`~repro_torch.serving.tier.MemoryTier`, restored bit-exactly) or
     recompute (pages dropped; resume replays the generated tokens).
 
+    ``paged_decode=False`` is the reference's row path instead: admission
+    takes a full table of pages, the decode row is read back THROUGH the
+    page table into a dense cache row, the dense decode step runs on the
+    rows, and the page holding each step's written position goes back
+    into the pool (:meth:`_post_decode`), so the pool stays canonical.
+    ``tier_slots`` sizes the host memory tier (default: the pool, or a
+    full table for every row if that is more); ``sched_costs`` is the
+    :class:`~repro_torch.core.sched.EngineCost` table the scheduler
+    prices swaps with (default: its software-node constants).
+
     Token parity with :class:`Server` — pressured or not — is the
     correctness bar.
     """
@@ -396,6 +415,8 @@ class PagedServer(Server):
     def __init__(self, model, ctx, params, batch_size: int, cache_len: int,
                  eos_id: int = -1, device: Any = None, page_tokens: int = 8,
                  n_pool_pages: Optional[int] = None,
+                 paged_decode: bool = True, tier_slots: Optional[int] = None,
+                 sched_costs: Optional[Dict[str, Any]] = None,
                  decode_step_us: float = 2000.0, prefill_us: float = 4000.0,
                  health: Optional[Any] = None):
         unpaged = sorted(set(model.cfg.layer_kinds()) & UNPAGED_KINDS)
@@ -417,12 +438,14 @@ class PagedServer(Server):
         if n_pool_pages is None:
             n_pool_pages = (batch_size + 1) * self.layout.n_pages
         self.store = PagedKVStore(self.layout, n_pool_pages)
-        tier_slots = max(n_pool_pages, batch_size * self.layout.n_pages)
+        self.paged_decode = paged_decode
+        if tier_slots is None:
+            tier_slots = max(n_pool_pages, batch_size * self.layout.n_pages)
         self.tier = MemoryTier(
             1, tier_slots, self.layout.page_elems, host_backed=True
         )
         self.scheduler = AdmissionScheduler(
-            page_bytes=self.layout.page_bytes,
+            page_bytes=self.layout.page_bytes, costs=sched_costs,
             decode_step_us=decode_step_us, prefill_us=prefill_us,
         )
         # live SLO monitor (``obs.health.HealthMonitor``): tracked per
@@ -630,6 +653,8 @@ class PagedServer(Server):
         return True
 
     def _admit(self) -> None:
+        if not self.paged_decode:
+            return self._admit_dense()
         for rid in self.scheduler.admission_order():
             slot = self._free_slot()
             if slot is None:
@@ -663,10 +688,33 @@ class PagedServer(Server):
             self._bind_row(req, slot, len(req.prompt), req.out[0])
             self.scheduler.on_admitted(rid, time.monotonic())
 
+    def _admit_dense(self) -> None:
+        """The row path (``paged_decode=False``): full-table admission,
+        decode on dense rows read back through the page table."""
+        while self.queue:
+            if self._free_slot() is None:
+                return
+            # conservative gate: admission may need a full table of pages
+            if self.store.n_free < self.layout.n_pages:
+                return
+            req = self.queue.pop(0)
+            tok, pages = self._prefill_pages(req)
+            self.store.admit(req.rid, req.prompt, pages)
+            # the decode row is read back THROUGH the page table, so the
+            # pool (not the prefill output) is the source of truth; the
+            # host rows go to the server's device in the cache dtype
+            row = tree_map(lambda x: x.to(self.device),
+                           self.store.gather(req.rid))
+            self.admit_prefilled(req, row, first_token=tok,
+                                 position=len(req.prompt))
+            self.scheduler.on_admitted(req.rid, time.monotonic())
+
     # ------------------------------------------------------------------ #
     # the end-to-end paged decode step
     # ------------------------------------------------------------------ #
     def _step(self) -> int:
+        if not self.paged_decode:
+            return super()._step()
         self._admit()
         live = [i for i, r in enumerate(self.active) if r is not None]
         if not live:
@@ -734,9 +782,9 @@ class PagedServer(Server):
         the step rewrites the same K/V slots from the same tokens and
         positions, and its logits are discarded.  Never called on the
         serving path.  Returns the best microseconds, or None when no row
-        is live."""
+        is live or the server decodes on dense rows."""
         live = [i for i, r in enumerate(self.active) if r is not None]
-        if not live:
+        if not live or not self.paged_decode:
             return None
         P = self.store.state.n_pages
         T = self.layout.page_tokens
@@ -790,6 +838,26 @@ class PagedServer(Server):
                           for r in self.active if r is not None},
             )
         return n
+
+    def _post_decode(self, live: List[int], written: Dict[int, int]) -> None:
+        """Row path (``paged_decode=False``) writeback: the page holding
+        the position this step wrote goes back into the pool (copy-on-
+        write split if still shared), keeping the pool canonical; only
+        that page is flattened, and the pages of all live rows reach the
+        host in one copy.  The paged path writes on the device and never
+        comes through here."""
+        if self.paged_decode:
+            return
+        T = self.layout.page_tokens
+        rows = torch.stack([
+            self.layout.flatten_page(
+                tree_map(lambda x: x[:, i:i + 1], self.caches),
+                written[i] // T)
+            for i in live
+        ]).cpu().numpy()
+        for i, page_row in zip(live, rows):
+            self.store.write_token_page(self.active[i].rid, written[i],
+                                        page_row)
 
     def _release(self, req: Request) -> None:
         self.store.release(req.rid)
@@ -1084,6 +1152,9 @@ class TPPagedServer(PagedServer):
     def __init__(self, model, ctx, params, batch_size: int, cache_len: int,
                  tp: int = 2, tp_backend: str = "xla",
                  sched_cost_table: Optional[Dict[str, Any]] = None, **kw):
+        if not kw.get("paged_decode", True):
+            raise ValueError("a tensor-parallel group decodes through the "
+                             "page table only (paged_decode=True)")
         super().__init__(model, ctx, params, batch_size, cache_len, **kw)
         from repro_torch.parallel import tp as tp_lib
 

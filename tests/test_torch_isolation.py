@@ -42,12 +42,15 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     # and the kimi-k2 and arctic configs; slice 11's cluster, tier, health
     # and heartbeat; slice 12's tensor-parallel groups, parallel/tp.py and
     # testing/tp_suite.py; the device-time profiler, the int8 compression,
-    # GPipe, the data-parallel example and the distributed suite)
+    # GPipe, the data-parallel example and the distributed suite; slice
+    # 16's suite twins and stencil example)
     names = proc.stdout.split()
-    assert len(names) >= 76
+    assert len(names) >= 79
     assert {"repro_torch.obs.profile", "repro_torch.optim.compression",
             "repro_torch.parallel.pipeline", "repro_torch.examples.train_lm",
-            "repro_torch.testing.dist_suite"} <= set(names)
+            "repro_torch.testing.dist_suite", "repro_torch.testing.gas_suite",
+            "repro_torch.testing.gascore_suite",
+            "repro_torch.examples.stencil_halo"} <= set(names)
 
 
 def test_ab_reduce_scatter_tool_imports_without_jax_and_needs_a_card():

@@ -1542,3 +1542,20 @@ def test_cuda_moe_ep_engines_agree_and_match_plain(cuda, grid, T):
     cpu = layers._moe_ep({k: p[k] for k in keys}, cfg,
                          RunCtx(moe_mode="ep_shardmap", ep_grid=grid), x)
     torch.testing.assert_close(outs["xla"].cpu(), cpu, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_gascore_suite(cuda, capsys):
+    """The GAScore suite twin on the card: the five kernels at the
+    reference's shapes held to their oracles (copies byte for byte), then
+    the engine parity over "xla", "gascore" and "xla,gascore"; every
+    kernel launched."""
+    from repro_torch.kernels import gascore as gc
+    from repro_torch.testing import gascore_suite
+
+    kernels = (gc.ring_shift, gc.perm_put, gc.offset_put, gc.ring_all_gather,
+               gc.ring_reduce_scatter)
+    before = [k.launches for k in kernels]
+    gascore_suite.main(device=cuda)
+    assert capsys.readouterr().out.splitlines()[-1] == "GASCORE_SUITE_PASS"
+    assert all(k.launches > b for k, b in zip(kernels, before))
