@@ -232,7 +232,28 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              ``PagedServer`` with EP on "gascore" (4 requests), launches
              gated per forward call.
 
-Phases 10-17 run after the training phase has freed its memory, each
+18. dryrun — the analysis tools (``launch/dryrun.py``, ``hlostats.py``,
+             ``roofline.py``) against real steps: qwen3-4b at full width
+             and depth (36 layers, bf16, weights random from seed 0) on the
+             ``h100`` mesh, one step of each kind: train 2 x 4,096 (full
+             remat, AdamW; reduced: global_batch 256 -> 2), prefill 1 x
+             16,384 (reduced: global_batch 32 -> 1, seq_len 32,768 ->
+             16,384: 36 s a run at 32,768), decode batch 8 at a 32,768
+             cache (reduced: global_batch 128 -> 8).  Each is
+             dry-run on ``meta`` and run on the card under the op-stream
+             counter: flops, bytes, collective bytes, ops and kernel calls
+             equal; the dry run's argument bytes equal to the bytes the
+             step holds (parameters, AdamW state, batch, cache); each
+             kernel launched as often as counted (the flash forward, dK/dV
+             and dQ in training; qwen3-4b's prefill and decode run plain
+             attention, as the reference's do).  Step ms (events around one
+             call), the profiled busy ms (train and decode), peak
+             allocated bytes beside the
+             argument bytes, the roofline terms, the dominant one and
+             ``roofline_fraction``, and the useful-flops time over the
+             measured step, beside the card's name and power limit.
+
+Phases 10-18 run after the training phase has freed its memory, each
 after the one before it has freed its own.  Every ``reduced`` cut is
 printed in its phase's line.
 Then a ``timing`` line (seconds by phase), the card's name and power
@@ -263,7 +284,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.compat import tree_leaves, tree_map  # noqa: E402
-from repro_torch.configs.registry import ARCHS  # noqa: E402
+from repro_torch.configs.registry import ARCHS, ShapeConfig  # noqa: E402
 from repro_torch.core import collectives, gasnet, sched  # noqa: E402
 from repro_torch.core.engine import make_engine, pod_engines  # noqa: E402
 from repro_torch.core.gasnet import P  # noqa: E402
@@ -272,7 +293,7 @@ from repro_torch.examples import stencil_halo  # noqa: E402
 from repro_torch.examples import serve_requests as ex  # noqa: E402
 from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.data.synthetic import Loader, SyntheticLM  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import build, cost, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import gascore as gc  # noqa: E402
@@ -281,6 +302,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import rglru  # noqa: E402
 from repro_torch.kernels import ssm_scan  # noqa: E402
+from repro_torch.launch import dryrun, hlostats, roofline  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     PagedServer, Request, Server, TPPagedServer, serve_with_context)
 from repro_torch.obs import export as obs_export  # noqa: E402
@@ -297,9 +319,10 @@ from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.testing import fault_suite  # noqa: E402
 from repro_torch.testing import gas_suite, gascore_suite  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W), and the
+# kernels' work formulas: kernels/cost.py, which the dry run reads too
+HBM_BYTES_PER_S = cost.HBM_BYTES_PER_S
+PEAK_FLOPS = cost.PEAK_FLOPS
 
 # the serving path's paged-attention shape (qwen3-4b, batch 8, 512 cache)
 B, HQ, HKV, D, T, NP = 8, 32, 8, 128, 16, 32
@@ -410,19 +433,14 @@ def kernel_inputs(dtype, gen, lengths, hq=HQ, hkv=HKV):
 
 
 def kernel_bound_ms(dtype, lengths, hq=HQ, hkv=HKV):
-    """Least time for the same work: the K and V rows of each live
-    position read once (the kernel loads none past the length), q, the
-    lengths and the live entries of the table read once, the output
-    written once; 4 flops per (q head, live position, dim) for q.k and
-    p.v."""
-    elem = torch.tensor([], dtype=dtype).element_size()
+    """Least time for the same work (``cost.paged_attention_work``: the
+    live positions' K and V rows, q, the lengths and the live table
+    entries read once, the output written once; 4 flops per (q head,
+    live position, dim))."""
     live = [min(int(n), NP * T) for n in lengths]
-    nbytes = (sum(live) * hkv * D * 2 * elem + 2 * len(lengths) * hq * D * elem
-              + sum(-(-n // T) for n in live) * 4 + len(lengths) * 4)
-    flops = 4 * hq * D * sum(live)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    b = cost.bound(*cost.paged_attention_work(live, hq, hkv, D, T, dtype),
+                   dtype)
+    return b["bound_ms"], b["bound_by"]
 
 
 def paged_check(name, q, kp, vp, table, lens, scale=None, relative=False):
@@ -601,23 +619,24 @@ def gas_cases(x):
         out[dst] = x
         return out
 
+    moved = lambda name: cost.gascore_bytes(name, n, row)  # noqa: E731
     cases = {
         "ring_shift": (lambda: gc.ring_shift(x, k), lambda: ref.ring_shift(x, k),
-                       lambda: torch.roll(x, k, 0), 2 * n * row),
+                       lambda: torch.roll(x, k, 0), moved("ring_shift")),
         "perm_put": (lambda: gc.perm_put(x, PERM), lambda: ref.perm_put(x, PERM),
-                     lib_perm, 2 * n * row),
+                     lib_perm, moved("perm_put")),
         "offset_put": (lambda: gc.offset_put(seg, x, same, 1),
                        lambda: ref.offset_put(seg, x, same, 1), lib_offset,
-                       2 * n * row),
+                       moved("offset_put")),
         "ring_all_gather": (lambda: gc.ring_all_gather(x),
                             lambda: ref.all_gather(x),
                             lambda: x.reshape(1, -1).expand(n, -1).contiguous(),
-                            n * row + n * n * row),
+                            moved("ring_all_gather")),
     }
     if x.dtype in (torch.float32, torch.bfloat16) and e % n == 0:
         cases["ring_reduce_scatter"] = (
             lambda: gc.ring_reduce_scatter(x), lambda: ref.reduce_scatter(x),
-            lambda: x.sum(0).view(n, e // n), n * row + row)
+            lambda: x.sum(0).view(n, e // n), moved("ring_reduce_scatter"))
     host_offsets = lambda: gc.offset_put(seg, x, same_host, 1)  # noqa: E731
     return cases, (seg, offs), host_offsets
 
@@ -2534,26 +2553,14 @@ def flash_check(case, gen):
 def flash_bounds(case):
     """Least time per kernel: the larger of its bytes (each input read
     once, each output written once) over 3.35 TB/s and its flops over the
-    dtype's peak.  Flops count the (q, k) pairs the mask leaves visible:
-    2 * D per pair per product, 2 products in the forward (q.k, p.v), 4 in
-    dK/dV (q.k, dO.v, p^T.dO, dS^T.q), 3 in dQ (q.k, dO.v, dS.k)."""
+    dtype's peak (``cost.flash_work``: the (q, k) pairs the mask leaves
+    visible, 2 * D flops per pair per product; 2 products in the forward,
+    4 in dK/dV, 3 in dQ)."""
     B, Hq, Hkv, S, D, causal, window, dtype = case
-    elem = torch.tensor([], dtype=dtype).element_size()
-    pairs = int(ref.attention_mask(S, S, causal, window, "cpu").sum())
-    qb, kb, rows = B * Hq * S * D * elem, B * Hkv * S * D * elem, B * Hq * S * 4
-    work = {  # name: (bytes, products)
-        "flash_attention_fwd": (2 * qb + 2 * kb + rows, 2),
-        "flash_attention_dkv": (2 * qb + 4 * kb + 2 * rows, 4),
-        "flash_attention_dq": (3 * qb + 2 * kb + 2 * rows, 3),
-    }
-    out = {}
-    for name, (nbytes, products) in work.items():
-        flops = products * 2 * D * pairs * B * Hq
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-        out[name] = {"bound_ms": 1e3 * max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "flops": flops, "bytes": nbytes}
-    return out
+    work = cost.flash_work(B, Hq, Hkv, S, S, D, causal, window, dtype)
+    return {name: {**cost.bound(nbytes, flops, dtype), "flops": flops,
+                   "bytes": nbytes}
+            for name, (nbytes, flops) in work.items()}
 
 
 def sdpa_calls(q, k, v, dout, causal):
@@ -2898,23 +2905,10 @@ def lru_inputs(case, dtype, gen):
 def scan_bounds(name, case, dtype):
     """Least time: bytes (each input read once, each output written once)
     over 3.35 TB/s, or f32 operations over 67 TFLOP/s (the arithmetic is
-    f32 on both dtypes; an exponential counts as one operation)."""
-    elem = torch.tensor([], dtype=dtype).element_size()
-    if name == "selective_scan":
-        B, S, Di, N = case
-        nbytes = (B * S * Di * (2 * elem + 4) + 2 * B * S * N * elem
-                  + Di * N * 4 + Di * 4 + B * Di * N * 4)
-        # per (b, t, channel, state): dt*A, exp, decay*h, dx*B, +, C*h +;
-        # per (b, t, channel): dt*x, D*x, +
-        flops = B * S * Di * (7 * N + 3)
-    else:
-        B, S, W = case
-        nbytes = 3 * B * S * W * elem
-        flops = 2 * B * S * W
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+    f32 on both dtypes; ``cost.scan_work``)."""
+    nbytes, flops = cost.scan_work(name, case, dtype)
+    return {**cost.bound(nbytes, flops, torch.float32), "bytes": nbytes,
+            "flops": flops}
 
 
 def sm_clock_mhz():
@@ -3293,14 +3287,11 @@ def router_logits(T, E, gen, ties=False):
 
 def router_bounds(T, E, K):
     """Least time: the logits read once and 13 bytes written per choice
-    over 3.35 TB/s, or the f32 operations (per logit: subtract, exp, add,
-    divide, and a compare in each of K rounds) over 67 TFLOP/s."""
-    nbytes = 4 * T * E + 13 * T * K
-    flops = T * E * (4 + K)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+    over 3.35 TB/s, or the f32 operations over 67 TFLOP/s
+    (``cost.router_work``)."""
+    nbytes, flops = cost.router_work(T, E, K)
+    return {**cost.bound(nbytes, flops, torch.float32), "bytes": nbytes,
+            "flops": flops}
 
 
 def router_phase():
@@ -4694,6 +4685,160 @@ def moe_ep_phase():
     return total
 
 
+# --------------------------------------------------------------------------- #
+# the analysis tools against real qwen3-4b steps (launch/dryrun.py)
+# --------------------------------------------------------------------------- #
+DRYRUN_ARCH = "qwen3-4b"
+# the registry's cell, the shape run here, what was cut, and whether a
+# third run is profiled.  The prefill's attention is plain f32 torch over
+# the whole score matrix: 36.0 s a run at 32,768 on an NVIDIA H100 80GB
+# HBM3 at 700 W, so it runs at 16,384, timed by events only (its device
+# is busy through the call)
+DRYRUN_STEPS = [
+    ("train_4k", ShapeConfig("train_4k", "train", 4096, 2),
+     "global_batch 256->2", True),
+    ("prefill_32k", ShapeConfig("prefill_32k", "prefill", 16384, 1),
+     "global_batch 32->1, seq_len 32768->16384", False),
+    ("decode_32k", ShapeConfig("decode_32k", "decode", 32768, 8),
+     "global_batch 128->8", True),
+]
+
+
+def dryrun_args(model, ctx, shape, opt_cfg, params, gen):
+    """The step's arguments on the card, laid out as
+    ``dryrun.step_structs`` lays them out: the training batch from the
+    synthetic stream, a prefill's random tokens, and a decode step at the
+    last slot of a cache whose every slot holds a position (the step
+    reads the whole cache)."""
+    B, S, dev = shape.global_batch, shape.seq_len, torch.device("cuda")
+    V = model.cfg.vocab
+    if shape.kind == "train":
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+            model.cfg, B, S, seed=0).batch_at(0).items()}
+        return params, adamw.init_state(params, opt_cfg), batch
+    if shape.kind == "prefill":
+        return params, {"inputs": torch.randint(
+            0, V, (B, S), generator=gen, device=dev, dtype=torch.int32)}
+    caches = tree_map(
+        lambda st: torch.zeros(st.shape, dtype=st.dtype, device=dev),
+        model.cache_structs(shape, ctx))
+    for seg in caches:
+        for block in seg.values():
+            pos = block["attn"]["pos"]  # (L, B, W)
+            pos.copy_(torch.arange(pos.shape[-1], dtype=pos.dtype,
+                                   device=dev).expand(pos.shape))
+    token = torch.randint(0, V, (B, 1), generator=gen, device=dev,
+                          dtype=torch.int32)
+    positions = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    return params, token, positions, caches
+
+
+def dryrun_step(model, ctx, shape, opt_cfg, args, profiled):
+    """One step kind: the dry run on ``meta``, the same step on the card
+    under the op-stream counter (the counts must be equal, the predicted
+    argument bytes the held ones, each kernel launched as often as
+    counted), then timed (CUDA events around one call) and, if
+    ``profiled``, profiled (the device's busy time); the roofline terms
+    from the dry run's record."""
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(DRYRUN_ARCH, shape, "h100", out_dir=None)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dryrun {shape.name}: {rec['error']}")
+    meta_s = time.perf_counter() - t0
+    step = dryrun.make_step(model, ctx, shape, opt_cfg)
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(args))
+    if rec["memory"]["argument_size_in_bytes"] != held:
+        raise AssertionError(
+            f"dryrun {shape.name}: predicted argument bytes "
+            f"{rec['memory']['argument_size_in_bytes']}, held {held}")
+    reset_counts(ALL_KERNELS)  # the main path starts here
+    with hlostats.OpCounter() as counter:
+        step(*args)
+    torch.cuda.synchronize()
+    real = counter.stats()
+    got = {"flops": real.flops, "bytes": real.bytes,
+           "collective_bytes": real.collective_bytes, "ops": real.ops,
+           "kernels": real.kernels}
+    want = {"flops": rec["cost"]["flops"],
+            "bytes": rec["cost"]["bytes_accessed"],
+            "collective_bytes": rec["collectives"]["total"],
+            "ops": rec["ops"], "kernels": rec["kernels"]}
+    if got != want:
+        raise AssertionError(f"dryrun {shape.name}: counted on the card "
+                             f"{got}, on meta {want}")
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    step(*args)
+    e1.record()
+    e1.synchronize()
+    step_ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_call(lambda: step(*args)) if profiled else {}
+    runs = 3 if profiled else 2
+    launches = {k: v for k, v in counts(ALL_KERNELS).items() if v}
+    want_launches = {k: runs * n for k, n in real.kernels.items()
+                     if k in ALL_KERNELS}
+    if launches != want_launches:
+        raise AssertionError(f"dryrun {shape.name}: launches {launches} in "
+                             f"{runs} runs, counted {real.kernels}")
+    d = roofline.derive(rec)
+    t_useful = d["model_flops"] / rec["n_devices"] / roofline.PEAK_BF16
+    bound_s = max(d["t_compute_s"], d["t_memory_s"], d["t_collective_s"])
+    return launches, {
+        "shape": dataclasses.asdict(shape), "reduced": None,
+        "meta_s": meta_s, "step_ms": step_ms,
+        "busy_ms": prof.get("device_busy_ms"), "flash_ms": prof.get("flash_ms"),
+        "gemm_ms": prof.get("gemm_ms"), "other_ms": prof.get("other_ms"),
+        "kernels_profiled": prof.get("kernels"),
+        "argument_bytes": held, "peak_allocated_bytes": peak,
+        "temp_bytes": peak - held, "counted": got,
+        "counted_equal_on_meta": True, "launches": launches,
+        "t_compute_s": d["t_compute_s"], "t_memory_s": d["t_memory_s"],
+        "t_collective_s": d["t_collective_s"], "dominant": d["dominant"],
+        "roofline_fraction": d["roofline_fraction"],
+        "useful_ratio": d["useful_ratio"], "model_flops": d["model_flops"],
+        # the measured step against the same terms
+        "measured_fraction": t_useful / (step_ms / 1e3),
+        "bound_over_measured": bound_s / (step_ms / 1e3),
+    }
+
+
+def dryrun_phase():
+    """qwen3-4b at full width and depth (36 layers, bf16, weights random
+    from seed 0): one train, prefill and decode step on the ``h100``
+    mesh, each dry-run on ``meta`` and run on the card (``dryrun_step``).
+    Returns the kernels' launches."""
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS[DRYRUN_ARCH]
+    model = build_model(cfg)
+    ctx = dryrun.build_ctx(dryrun.mesh_of("h100"))
+    opt_cfg = dryrun.opt_config(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tree_map(lambda t: t.requires_grad_(),
+                      model.init(ctx, gen, device="cuda"))
+    steps, total = {}, {}
+    for cell, shape, reduced, profiled in DRYRUN_STEPS:
+        t0 = time.perf_counter()
+        args = dryrun_args(model, ctx, shape, opt_cfg, params, gen)
+        launches, steps[cell] = dryrun_step(model, ctx, shape, opt_cfg, args,
+                                            profiled)
+        steps[cell]["reduced"] = reduced
+        steps[cell]["seconds"] = time.perf_counter() - t0
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del args
+        free()
+    if not all(total.get(k) for k in FLASH_KERNELS):
+        raise AssertionError(f"dryrun: flash kernels not all launched {total}")
+    emit({"phase": "dryrun", "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": "bfloat16", "mesh": "h100", "card": card(),
+          "steps": steps, "launches": total})
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4755,6 +4900,7 @@ def main():
     zoo_ep = timed(moe_ep_phase)
     slice15 = {k: zoo_serve[k] + zoo_train.get(k, 0) + zoo_ep[k]
                for k in zoo_serve}
+    dryrun_launches = timed(dryrun_phase)
     router_launches += slice15["moe_router"]
     emit({"phase": "timing", "build_s": seconds,
           "seconds_by_phase": seconds_by_phase})
@@ -4789,7 +4935,8 @@ def main():
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
-        "launches": flash_launches[name] + slice14[name] + slice15[name],
+        "launches": flash_launches[name] + slice14[name] + slice15[name]
+        + dryrun_launches.get(name, 0),
         **{key: flash_figures[name][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's

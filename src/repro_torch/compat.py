@@ -11,7 +11,7 @@ packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator, List, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -73,29 +73,39 @@ def device_const(values: Any, dtype: torch.dtype, device: Any) -> torch.Tensor:
     return t
 
 
-def tree_flatten_with_path(tree: Any, path: Tuple = ()) -> Iterator[Tuple]:
+def tree_flatten_with_path(tree: Any, path: Tuple = (),
+                           is_leaf: Optional[Callable[[Any], bool]] = None
+                           ) -> Iterator[Tuple]:
     """Yield ``(path, leaf)`` in JAX's order: dict keys sorted, sequences
-    in order.  A path is the tuple of keys and indices down to the leaf."""
-    if isinstance(tree, dict):
+    in order.  A path is the tuple of keys and indices down to the leaf.
+    ``is_leaf(node)`` True stops the descent there (a ``PartitionSpec``
+    is a tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from tree_flatten_with_path(tree[k], path + (k,))
+            yield from tree_flatten_with_path(tree[k], path + (k,), is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, x in enumerate(tree):
-            yield from tree_flatten_with_path(x, path + (i,))
+            yield from tree_flatten_with_path(x, path + (i,), is_leaf)
     else:
         yield path, tree
 
 
-def tree_leaves(tree: Any) -> List[Any]:
-    return [leaf for _, leaf in tree_flatten_with_path(tree)]
+def tree_leaves(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None
+                ) -> List[Any]:
+    return [leaf for _, leaf in tree_flatten_with_path(tree, (), is_leaf)]
 
 
-def tree_unflatten(skeleton: Any, leaves: List[Any]) -> Any:
+def tree_unflatten(skeleton: Any, leaves: List[Any],
+                   is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """Rebuild ``skeleton``'s structure with ``leaves`` in flatten order
     (the skeleton's own leaves are ignored)."""
     it = iter(leaves)
 
     def build(node):
+        if is_leaf is not None and is_leaf(node):
+            return next(it)
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):
@@ -108,9 +118,25 @@ def tree_unflatten(skeleton: Any, leaves: List[Any]) -> Any:
     return out
 
 
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """Apply ``fn`` leafwise over trees of identical structure."""
-    leaves = [tree_leaves(t) for t in (tree,) + rest]
+def tree_map(fn: Callable, tree: Any, *rest: Any,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
+    """Apply ``fn`` leafwise over trees of identical structure (that of
+    ``tree``: the others are flattened as deep as it is)."""
+    leaves = [tree_leaves(tree, is_leaf)]
+    for t in rest:
+        leaves.append([x for _, x in _flatten_like(tree, t, is_leaf)])
     if any(len(x) != len(leaves[0]) for x in leaves):
         raise ValueError("tree_map over trees of different structure")
-    return tree_unflatten(tree, [fn(*xs) for xs in zip(*leaves)])
+    return tree_unflatten(tree, [fn(*xs) for xs in zip(*leaves)], is_leaf)
+
+
+def _flatten_like(skeleton: Any, tree: Any, is_leaf) -> Iterator[Tuple]:
+    """``tree``'s nodes at the leaves of ``skeleton``."""
+    if is_leaf is None:
+        yield from tree_flatten_with_path(tree)
+        return
+    for path, _ in tree_flatten_with_path(skeleton, (), is_leaf):
+        node = tree
+        for key in path:
+            node = node[key]
+        yield path, node

@@ -41,12 +41,20 @@ class GlobalAddress:
 
 
 class PartitionSpec(tuple):
-    """The port's ``jax.sharding.PartitionSpec`` for ``Context.spmd``:
-    ``P("node")`` splits the leading dimension over the ranks, ``P()``
-    replicates."""
+    """The port's ``jax.sharding.PartitionSpec``: one entry per dimension,
+    an axis name, a tuple of names (``("pod", "data")``) or None.  For
+    ``Context.spmd``, ``P("node")`` splits the leading dimension over the
+    ranks and ``P()`` replicates.  Entries are normalised as JAX's are: a
+    list becomes a tuple, a one-name tuple its name, an empty one None."""
 
-    def __new__(cls, *axes: Optional[str]):
-        return super().__new__(cls, axes)
+    def __new__(cls, *axes: Any):
+        def norm(entry):
+            if isinstance(entry, (tuple, list)):
+                entry = tuple(entry)
+                return entry[0] if len(entry) == 1 else (entry or None)
+            return entry
+
+        return super().__new__(cls, tuple(norm(a) for a in axes))
 
     @property
     def sharded(self) -> bool:

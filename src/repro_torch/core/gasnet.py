@@ -79,6 +79,7 @@ from repro_torch.core import extended
 from repro_torch.core.addrspace import AddressSpace, P
 from repro_torch.core.engine import CommEngine, make_engine
 from repro_torch.core.indexing import as_i32, dynamic_slice
+from repro_torch.kernels import cost
 from repro_torch.obs import trace as obs_trace
 
 __all__ = ["Shift", "Perm", "Context", "Node", "P"]
@@ -806,7 +807,8 @@ class Context:
             return program(node, *local_args)
 
         ids = torch.arange(n, dtype=torch.int32, device=self.device)
-        out = vmap(body, in_dims=(0,) + dims, out_dims=0)(ids, *lifted)
+        with cost.per_rank(n):  # an op-stream counter counts one rank
+            out = vmap(body, in_dims=(0,) + dims, out_dims=0)(ids, *lifted)
 
         def join(spec, tree):
             if spec.sharded:

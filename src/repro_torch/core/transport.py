@@ -51,7 +51,7 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import cost, ops, ref
 
 __all__ = [
     "shift",
@@ -180,11 +180,28 @@ def _gas_move_vjp(ctx, grad):
 _gas_move.register_autograd(_gas_move_vjp, setup_context=_gas_move_setup)
 
 
+# op -> (the reference's collective type, result bytes over operand bytes)
+_COLLECTIVE = {
+    "shift": ("collective-permute", lambda n: 1),
+    "permute": ("collective-permute", lambda n: 1),
+    "all_gather": ("all-gather", lambda n: n),
+    "reduce_scatter": ("reduce-scatter", lambda n: 1 / n),
+    "all_reduce": ("all-reduce", lambda n: 1),
+    "all_to_all": ("all-to-all", lambda n: 1),
+}
+
+
 def _move(xs: torch.Tensor, op: str, args: List[int], backend: str):
-    """The transfer, through ``gas_move`` where autograd records it."""
-    if torch.is_grad_enabled() and xs.requires_grad:
-        return _gas_move(xs, op, list(args), backend)
-    return _move_plain(xs, op, list(args), backend)
+    """The transfer, through ``gas_move`` where autograd records it;
+    reported to an active op-stream counter as one collective of the
+    reference's type, whatever the backend moves it with."""
+    kind, grow = _COLLECTIVE[op]
+    operand = xs.numel() * xs.element_size()
+    with cost.kernel(f"gas_{op}", 0, operand * (1 + grow(xs.shape[0])),
+                     collective=kind, coll_bytes=operand):
+        if torch.is_grad_enabled() and xs.requires_grad:
+            return _gas_move(xs, op, list(args), backend)
+        return _move_plain(xs, op, list(args), backend)
 
 
 @torch.library.custom_op("repro_torch::gas_shift", mutates_args=())

@@ -10,20 +10,23 @@ The token stream is Zipf-ish with a planted bigram structure
 (``next = (5 * tok + 7) % vocab`` with noise), so a real model shows a
 falling loss.
 
-:class:`Loader` is ``ShardedLoader`` without a mesh: it prefetches one
-batch ahead on a background thread and places each batch on one device.
+:class:`Loader` prefetches one batch ahead on a background thread and
+places each batch on one device.  :class:`ShardedLoader` is the
+reference's loader with its mesh: on the one card it places the global
+batch whole, after checking that the batch divides its data-parallel
+axes (where the reference's ``sanitize`` would drop them, it raises).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["SyntheticLM", "Loader"]
+__all__ = ["SyntheticLM", "Loader", "ShardedLoader"]
 
 
 class SyntheticLM:
@@ -78,11 +81,11 @@ class Loader:
     checkpoints as ``data_step``).  :meth:`close` stops the thread."""
 
     def __init__(self, source: SyntheticLM, device: Any = "cpu",
-                 start_step: int = 0):
+                 start_step: int = 0, prefetch: int = 1):
         self.source = source
         self.device = torch.device(device)
         self.step = start_step
-        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
@@ -117,3 +120,28 @@ class Loader:
         except queue.Empty:
             pass
         self._thread.join(timeout=5)
+
+
+class ShardedLoader(Loader):
+    """The reference's ``ShardedLoader(source, mesh, dp_axes, start_step,
+    prefetch)``: batches with the mesh's batch sharding, ``P(dp_axes)`` on
+    the leading dim.  The port holds a global batch whole on ``device``;
+    a batch whose leading dim the ``dp_axes`` do not divide (which the
+    reference's sanitation would replicate) raises here."""
+
+    def __init__(self, source: SyntheticLM, mesh: Optional[Any] = None,
+                 dp_axes=("data",), start_step: int = 0, prefetch: int = 1,
+                 device: Any = "cpu"):
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes)
+        if mesh is not None:
+            from repro_torch.core.addrspace import PartitionSpec as P
+            from repro_torch.parallel.sharding import sanitize
+
+            spec = P(self.dp_axes)
+            if sanitize(spec, (source.batch,), mesh) != spec:
+                raise ValueError(
+                    f"batch {source.batch} does not divide the mesh's "
+                    f"{self.dp_axes} axes ({dict(mesh.shape)})")
+        super().__init__(source, device=device, start_step=start_step,
+                         prefetch=prefetch)

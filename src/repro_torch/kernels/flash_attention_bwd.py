@@ -22,7 +22,8 @@ In f32 both stay SIMT FMAs (TF32 would miss the f32 tolerance).
   row log-sum-exp and saves ``q, k, v, out, lse``; its backward computes
   ``delta = rowsum(dO * O)`` in plain torch and launches the two kernels.
   On CPU tensors it runs the same steps on the plain versions of
-  ``repro_torch.kernels.ref``; on any other device it raises.
+  ``repro_torch.kernels.ref``; on ``meta`` shape-only stand-ins; on any
+  other device it raises.
 
 The wrappers take contiguous CUDA tensors only, check them, launch on
 PyTorch's current stream and count their launches.
@@ -35,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels import flash_attention as _fa
 
 __all__ = ["NAME", "FlashAttention", "flash_attention_dkv",
@@ -127,35 +128,65 @@ class FlashAttention(torch.autograd.Function):
     ``apply(q, k, v, causal, window, scale, block_q, block_k)``: the last
     five are plain arguments with no gradient (``flash_attention_vjp``'s
     ``nondiff_argnums``).  q ``(B, Hq, Sq, D)``, k and v ``(B, Hkv, Sk, D)``,
-    contiguous."""
+    contiguous.  On ``meta`` each kernel is a shape-only stand-in (the
+    dry run).  Each kernel call is reported to an active op-stream
+    counter as one op (``kernels.cost``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, block_q, block_k):
         _fa.check_blocks(q.shape[2], k.shape[2], block_q, block_k)
         kw = dict(causal=causal, window=window, scale=scale)
-        if q.device.type == "cuda":
-            out, lse = _fa.flash_attention_fwd(
-                q, k, v, block_q=block_q, block_k=block_k, **kw)
-        elif q.device.type == "cpu":
-            out, lse = ref.flash_attention_fwd(q, k, v, **kw)
-        else:
-            raise ValueError(f"no flash attention for device {q.device}")
+        work = _work(q, k, causal, window)
+        with _report(work, "flash_attention_fwd"):
+            if q.device.type == "cuda":
+                out, lse = _fa.flash_attention_fwd(
+                    q, k, v, block_q=block_q, block_k=block_k, **kw)
+            elif q.device.type == "cpu":
+                out, lse = ref.flash_attention_fwd(q, k, v, **kw)
+            elif q.device.type == "meta":
+                out = torch.empty_like(q)
+                lse = q.new_empty(q.shape[:3], dtype=torch.float32)
+            else:
+                raise ValueError(f"no flash attention for device {q.device}")
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
+        ctx.work = work
         ctx.blocks = dict(block_q=block_q, block_k=block_k)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type == "cuda":
-            dout = dout.contiguous()
-            delta = (dout.float() * out.float()).sum(-1)
-            dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta,
-                                         **ctx.kw, **ctx.blocks)
-            dq = flash_attention_dq(q, k, v, dout, lse, delta,
-                                    **ctx.kw, **ctx.blocks)
-        else:
-            dq, dk, dv = ref.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                 **ctx.kw)
+        dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(-1)
+        args = (q, k, v, dout, lse, delta)
+        dev = q.device.type
+        if dev not in ("cuda", "cpu", "meta"):
+            raise ValueError(f"no flash attention for device {q.device}")
+        with _report(ctx.work, "flash_attention_dkv"):
+            if dev == "cuda":
+                dk, dv = flash_attention_dkv(*args, **ctx.kw, **ctx.blocks)
+            elif dev == "cpu":
+                dk, dv = ref.flash_attention_dkv(*args, **ctx.kw)
+            else:
+                dk, dv = torch.empty_like(k), torch.empty_like(v)
+        with _report(ctx.work, "flash_attention_dq"):
+            if dev == "cuda":
+                dq = flash_attention_dq(*args, **ctx.kw, **ctx.blocks)
+            elif dev == "cpu":
+                dq = ref.flash_attention_dq(*args, **ctx.kw)
+            else:
+                dq = torch.empty_like(q)
         return dq, dk, dv, None, None, None, None, None
+
+
+def _work(q, k, causal, window):
+    """Each kernel's (bytes, flops) at these shapes (``cost.flash_work``)."""
+    B, Hq, Sq, D = q.shape
+    return cost.flash_work(B, Hq, k.shape[1], Sq, k.shape[2], D, causal,
+                           window, q.dtype)
+
+
+def _report(work, name):
+    nbytes, flops = work[name]
+    return cost.kernel(name, flops, nbytes)

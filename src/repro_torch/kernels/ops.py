@@ -3,7 +3,15 @@
 The reference picks ``impl="ref"|"pallas"`` by flag.  The port picks by
 where the data lies: a CUDA tensor goes to the hand-written kernel (which
 raises on what it cannot take — there is no fallback), a CPU tensor to
-the plain PyTorch version in ``repro_torch.kernels.ref``.
+the plain PyTorch version in ``repro_torch.kernels.ref``, a ``meta``
+tensor (the dry run) to a shape-only stand-in: the plain version where
+its autograd graph matters (the router, and a scan whose inputs need a
+gradient, train through it on the CPU, so a ``meta`` step keeps the same
+backward), else empty results.
+
+Every entry point reports its call to an active op-stream counter as ONE
+op with the work of what it computes (``kernels.cost``), and nothing it
+dispatches inside is counted again.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.compat import resolve_device
+from repro_torch.kernels import cost
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gascore as _gc
 from repro_torch.kernels import moe_router as _moe
@@ -39,12 +48,23 @@ __all__ = [
 
 
 def _on(x: torch.Tensor, kernel, plain, name: str):
-    """CUDA -> the hand kernel, CPU -> the plain version, else raise."""
+    """CUDA -> the hand kernel, CPU and ``meta`` -> the plain version,
+    else raise."""
     if x.device.type == "cuda":
         return kernel
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return plain
     raise ValueError(f"no {name} for device {x.device}")
+
+
+def _paged_work(q, k_pages, page_table):
+    """Paged attention's work with every table slot live (the counter
+    reads no lengths off the device)."""
+    B, Hq, D = q.shape
+    T, Hkv = k_pages.shape[1], k_pages.shape[2]
+    nbytes, flops = cost.paged_attention_work(
+        [page_table.shape[1] * T] * B, Hq, Hkv, D, T, q.dtype)
+    return cost.kernel("paged_attention", flops, nbytes)
 
 
 def attention(
@@ -61,7 +81,8 @@ def attention(
     """Differentiable blockwise attention: q (B, Hq, Sq, D) against k, v
     (B, Hkv, Sk, D), contiguous.  ``FlashAttention`` dispatches on the
     device in its forward and backward: on CUDA the forward, dK/dV and dQ
-    kernels, on the CPU their plain versions, elsewhere it raises."""
+    kernels, on the CPU their plain versions, on ``meta`` shape-only
+    stand-ins, elsewhere it raises."""
     return _fab.FlashAttention.apply(q, k, v, causal, window, scale,
                                      block_q, block_k)
 
@@ -75,15 +96,23 @@ def _paged_attention_op(
     lengths: torch.Tensor,
     scale: Optional[float],
 ) -> torch.Tensor:
-    if q.device.type == "cuda":
-        return _pa.paged_attention(
-            q, k_pages, v_pages, page_table, lengths, scale=scale
-        )
-    if q.device.type == "cpu":
-        return ref.paged_attention(
-            q, k_pages, v_pages, page_table, lengths, scale=scale
-        )
+    with _paged_work(q, k_pages, page_table):
+        if q.device.type == "cuda":
+            return _pa.paged_attention(
+                q, k_pages, v_pages, page_table, lengths, scale=scale
+            )
+        if q.device.type == "cpu":
+            return ref.paged_attention(
+                q, k_pages, v_pages, page_table, lengths, scale=scale
+            )
     raise ValueError(f"no paged_attention for device {q.device}")
+
+
+@_paged_attention_op.register_fake
+def _paged_attention_fake(q, k_pages, v_pages, page_table, lengths, scale):
+    """The shape-only stand-in (``meta``)."""
+    with _paged_work(q, k_pages, page_table):
+        return torch.empty_like(q)
 
 
 def _rank_major(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
@@ -166,8 +195,14 @@ def _moe_router_op(
     """The kernel's ``(words, keep)``, words (3, T, K) int32 the planes
     expert_idx, slot and weight's f32 bits (a custom op's outputs may not
     alias one another, so the kernel's one buffer stays whole)."""
-    return _moe.moe_router(logits, k=k, capacity=capacity,
-                           renormalize=renormalize)
+    with _router_work(logits, k):
+        return _moe.moe_router(logits, k=k, capacity=capacity,
+                               renormalize=renormalize)
+
+
+def _router_work(logits, k):
+    nbytes, flops = cost.router_work(logits.shape[0], logits.shape[1], k)
+    return cost.kernel("moe_router", flops, nbytes)
 
 
 @_moe_router_op.register_vmap
@@ -202,10 +237,12 @@ def moe_router(
     slot, weight and keep, each (T, K), from (T, E) f32 logits.  On the
     CPU the plain version (differentiable in the weights, as the
     reference's); on CUDA the kernel, through a custom op whose vmap rule
-    launches it once a rank of an expert-parallel group."""
-    if logits.device.type == "cpu":
-        return ref.route_topk(logits, k=k, capacity=capacity,
-                              renormalize=renormalize)
+    launches it once a rank of an expert-parallel group.  ``meta`` takes
+    the plain version too: its weights keep the CPU's autograd graph."""
+    if logits.device.type in ("cpu", "meta"):
+        with _router_work(logits, k):
+            return ref.route_topk(logits, k=k, capacity=capacity,
+                                  renormalize=renormalize)
     if logits.device.type != "cuda":
         raise ValueError(f"no moe_router for device {logits.device}")
     words, keep = _moe_router_op(logits, k, capacity, renormalize)
@@ -248,14 +285,28 @@ def selective_scan(
     if _scan_impl(impl) == "chunked":
         return ref.selective_scan_chunked(x, dt, a, b, c, d, chunk=block_s,
                                           final_state=final_state)
-    if x.device.type == "cuda":
-        return _ssm.selective_scan(x, dt, a, b, c, d, final_state=final_state)
-    if x.device.type == "cpu":
-        y = ref.selective_scan(x, dt, a, b, c, d)
-        if final_state:
-            return y, ref.mamba_final_state(x, dt, a, b)
-        return y
+    nbytes, flops = cost.scan_work("selective_scan", tuple(x.shape)
+                                   + (a.shape[-1],), x.dtype)
+    with cost.kernel("selective_scan", flops, nbytes):
+        if x.device.type == "cuda":
+            return _ssm.selective_scan(x, dt, a, b, c, d,
+                                       final_state=final_state)
+        if x.device.type == "meta" and not _needs_grad(x, dt, a, b, c, d):
+            y = torch.empty_like(x)
+            if final_state:
+                return y, x.new_empty((x.shape[0], x.shape[2], a.shape[-1]),
+                                      dtype=torch.float32)
+            return y
+        if x.device.type in ("cpu", "meta"):
+            y = ref.selective_scan(x, dt, a, b, c, d)
+            if final_state:
+                return y, ref.mamba_final_state(x, dt, a, b)
+            return y
     raise ValueError(f"no selective_scan for device {x.device}")
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def gated_linear_scan(a: torch.Tensor, b: torch.Tensor, *, impl: str = "ref",
@@ -266,8 +317,13 @@ def gated_linear_scan(a: torch.Tensor, b: torch.Tensor, *, impl: str = "ref",
     ``2 * block_s`` steps."""
     if _scan_impl(impl) == "chunked":
         return ref.gated_linear_scan_chunked(a, b, chunk=2 * block_s)
-    return _on(b, _rglru.gated_linear_scan, ref.gated_linear_scan,
-               "gated_linear_scan")(a, b)
+    nbytes, flops = cost.scan_work("gated_linear_scan", tuple(b.shape),
+                                   b.dtype)
+    with cost.kernel("gated_linear_scan", flops, nbytes):
+        if b.device.type == "meta" and not _needs_grad(a, b):
+            return torch.empty_like(b)
+        return _on(b, _rglru.gated_linear_scan, ref.gated_linear_scan,
+                   "gated_linear_scan")(a, b)
 
 
 def profiling_targets(
@@ -319,15 +375,26 @@ def profiling_targets(
 # --------------------------------------------------------------------------- #
 # GAScore transport (global rank-stacked tensors, see kernels/gascore.py)
 # --------------------------------------------------------------------------- #
+def _transfer(name: str, x: torch.Tensor, collective: str):
+    """A GAScore kernel's report: a collective of ``x``'s bytes (every
+    rank's operand), moving ``cost.gascore_bytes``."""
+    n = x.shape[0]
+    nbytes = cost.gascore_bytes(name, n, x.numel() * x.element_size() // n)
+    return cost.kernel(name, 0, nbytes, collective=collective,
+                       coll_bytes=x.numel() * x.element_size())
+
+
 def ring_shift(x: torch.Tensor, k: int) -> torch.Tensor:
-    return _on(x, _gc.ring_shift, ref.ring_shift, "ring_shift")(x, k)
+    with _transfer("ring_shift", x, "collective-permute"):
+        return _on(x, _gc.ring_shift, ref.ring_shift, "ring_shift")(x, k)
 
 
 def perm_put(x: torch.Tensor, dst: Sequence[int]) -> torch.Tensor:
     """Bijections only, on either device (the GAScore contract)."""
     if sorted(int(d) for d in dst) != list(range(x.shape[0])):
         raise ValueError(f"perm_put requires a bijection, got {tuple(dst)}")
-    return _on(x, _gc.perm_put, ref.perm_put, "perm_put")(x, dst)
+    with _transfer("perm_put", x, "collective-permute"):
+        return _on(x, _gc.perm_put, ref.perm_put, "perm_put")(x, dst)
 
 
 def offset_put(
@@ -335,15 +402,19 @@ def offset_put(
 ) -> torch.Tensor:
     """On CUDA the kernel writes into ``seg`` in place and returns it; the
     plain version returns a new segment.  Callers use the return value."""
-    return _on(seg, _gc.offset_put, ref.offset_put, "offset_put")(
-        seg, data, offset, k
-    )
+    with _transfer("offset_put", data, "collective-permute"):
+        return _on(seg, _gc.offset_put, ref.offset_put, "offset_put")(
+            seg, data, offset, k
+        )
 
 
 def ring_all_gather(x: torch.Tensor) -> torch.Tensor:
-    return _on(x, _gc.ring_all_gather, ref.all_gather, "ring_all_gather")(x)
+    with _transfer("ring_all_gather", x, "all-gather"):
+        return _on(x, _gc.ring_all_gather, ref.all_gather,
+                   "ring_all_gather")(x)
 
 
 def ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
-    return _on(x, _gc.ring_reduce_scatter, ref.reduce_scatter,
-               "ring_reduce_scatter")(x)
+    with _transfer("ring_reduce_scatter", x, "reduce-scatter"):
+        return _on(x, _gc.ring_reduce_scatter, ref.reduce_scatter,
+                   "ring_reduce_scatter")(x)

@@ -1,20 +1,78 @@
-"""Per-rank engine maps and serving roles (port of ``repro.launch.mesh``).
+"""Meshes, per-rank engine maps and serving roles (port of
+``repro.launch.mesh``).
 
-The node map and the serving-role functions are ported; the port runs
-every rank on one device, so it builds no device mesh.
+The port runs every rank on one device, so its mesh is a DESCRIPTION:
+axis names and sizes, with no devices (:class:`Mesh`).  The spec code
+reads it (``parallel/sharding.py``, ``models/build.py``'s spec half,
+``launch/dryrun.py``); nothing places a tensor by it.  Building one
+touches no device, so importing this module never does either.
+
+Axis roles:
+  pod   — inter-pod links: pure data parallel by default.
+  data  — intra-pod FSDP/data-parallel (batch + parameter dim 0).
+  model — tensor/expert parallel (heads, d_ff columns, experts, vocab).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+import math
+from typing import Iterable, Optional, Sequence, Tuple
 
 __all__ = [
+    "Mesh",
+    "make_production_mesh",
+    "make_mesh",
+    "mesh_axes",
     "node_backends",
     "serve_roles",
     "decode_groups",
     "role_backends",
     "promote_spare",
 ]
+
+
+class Mesh:
+    """A device-less mesh: ``axis_names`` and ``shape`` (name -> size, in
+    axis order, as ``jax.sharding.Mesh.shape``), and ``size`` (their
+    product: the chips the mesh stands for)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        shape = tuple(int(n) for n in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(shape):
+            raise ValueError(f"mesh shape {shape} for axes {axis_names}")
+        if min(shape, default=1) < 1:
+            raise ValueError(f"mesh shape {shape}: sizes must be >= 1")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return f"Mesh({dict(self.shape)!r})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's two production meshes: 16 x 16 ``(data, model)``,
+    or 2 x 16 x 16 ``(pod, data, model)``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes)
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
+    """Arbitrary mesh for tests / elastic restarts."""
+    return Mesh(shape, axes)
+
+
+def mesh_axes(mesh: Mesh) -> Tuple[Tuple[str, ...], str]:
+    """(dp_axes, tp_axis) role assignment for a mesh by convention."""
+    names = mesh.axis_names
+    tp = "model" if "model" in names else names[-1]
+    dp = tuple(n for n in names if n != tp)
+    return dp, tp
 
 
 def node_backends(

@@ -5,14 +5,18 @@ warmup-cosine schedule, the deterministic synthetic data stream, async
 checkpoints and restart, on ONE device: CUDA unless ``--device`` names
 another (it raises when CUDA is asked for and absent).  On CUDA the
 attention of every layer runs on the hand-written flash-attention
-kernels, forward and backward.  The reference's ``--devices`` and
-``--mesh-shape`` are left out: the port trains on one card, without a
-mesh.
+kernels, forward and backward.  ``--mesh-shape`` builds the reference's
+mesh (``launch/mesh.py``: ``4,2`` is data=4, model=2; three sizes add
+"pod") and its axis roles into the ``RunCtx`` and the ``ShardedLoader``;
+on the one device the losses are those of the run without a mesh.  The
+reference's ``--devices`` (forced XLA host devices) has no counterpart.
 
 Examples::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
         --smoke --steps 100 --device cpu --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+        --smoke --mesh-shape 4,2 --steps 50 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
         --steps 6 --batch 2 --seq 2048 --remat full     # on the GPU
 """
@@ -27,6 +31,8 @@ def main() -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-trainable)")
+    ap.add_argument("--mesh-shape", default="",
+                    help="e.g. 4,2 -> mesh (data=4, model=2)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -47,7 +53,8 @@ def main() -> None:
 
     from repro_torch.compat import resolve_device
     from repro_torch.configs.registry import ARCHS, SMOKE
-    from repro_torch.data.synthetic import Loader, SyntheticLM
+    from repro_torch.data.synthetic import ShardedLoader, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh, mesh_axes
     from repro_torch.models.build import build_model
     from repro_torch.optim import adamw
     from repro_torch.parallel.ctx import RunCtx
@@ -56,7 +63,17 @@ def main() -> None:
     device = resolve_device(args.device)
     cfg = (SMOKE if args.smoke else ARCHS)[args.arch]
     model = build_model(cfg)
-    ctx = RunCtx(remat=args.remat)
+
+    mesh = None
+    dp, tp = ("data",), "model"
+    if args.mesh_shape:
+        shape = tuple(int(x) for x in args.mesh_shape.split(","))
+        axes = ("data", "model")[: len(shape)] if len(shape) <= 2 else (
+            "pod", "data", "model")
+        mesh = make_mesh(shape, axes)
+        dp, tp = mesh_axes(mesh)
+
+    ctx = RunCtx(mesh=mesh, dp=dp, tp=tp, remat=args.remat)
     opt = adamw.AdamWConfig(
         lr=args.lr,
         weight_decay=0.0,
@@ -81,8 +98,10 @@ def main() -> None:
         params, opt_state = trainer.init(gen)
 
     src = SyntheticLM(cfg, batch=args.batch, seq_len=args.seq, seed=args.seed)
-    loader = Loader(src, device=device,
-                    start_step=int(extra.get("data_step", start_step)))
+    loader = ShardedLoader(
+        src, mesh=mesh, dp_axes=dp, device=device,
+        start_step=int(extra.get("data_step", start_step)),
+    )
     try:
         params, opt_state, history = trainer.run(
             params, opt_state, loader, start_step=start_step,

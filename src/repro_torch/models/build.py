@@ -1,8 +1,15 @@
-"""Model facade of the port: init / train / prefill / decode.
+"""Model facade of the port: init / train / prefill / decode, and the
+spec half the dry run reads.
 
 Counterpart of ``repro.models.build``.  Parameters are plain nested dicts
 of tensors with the reference's key paths and stacked ``(L, ...)``
 leaves; :func:`params_from_jax` carries a reference tree across by value.
+The dry run's stand-ins are the reference's with ``meta`` in place of
+``eval_shape``: :meth:`Model.abstract_init` builds the parameter tree on
+``meta`` beside its PartitionSpecs, :meth:`Model.input_structs` and
+:meth:`Model.cache_structs` give ``TensorSpec`` trees (the cache's from a
+prefill run on ``meta``), and ``input_specs`` / ``cache_specs`` their
+specs.
 """
 
 from __future__ import annotations
@@ -13,12 +20,20 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.compat import TensorSpec, resolve_device, tree_map
+from repro_torch.compat import (TensorSpec, resolve_device,
+                                tree_flatten_with_path, tree_map,
+                                tree_unflatten)
+from repro_torch.configs.registry import ShapeConfig
+from repro_torch.core.addrspace import PartitionSpec as P
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ArchConfig, Segment, build_layer_program
 from repro_torch.parallel.ctx import RunCtx
 
-__all__ = ["Model", "build_model", "params_from_jax"]
+__all__ = ["Model", "build_model", "ctx_local", "meta_tensors",
+           "params_from_jax", "structs_of"]
+
+PROMPT_STRUCT = 128  # the prompt of cache_structs' prefill on meta
 
 
 @dataclasses.dataclass
@@ -48,6 +63,17 @@ class Model:
             _, params["enc"] = T.stack_init(["enc"] * cfg.n_enc_layers, cfg,
                                             ctx, generator)
         return params
+
+    def abstract_init(self, ctx: RunCtx) -> Tuple[Dict, Dict]:
+        """(parameter tree on ``meta``, PartitionSpecs leaf for leaf) with
+        no allocation and no generator: how the dry run stands up a
+        1T-parameter model on any host."""
+        cfg = self.cfg
+        specs = {"io": T.lm_io_specs(cfg, ctx),
+                 "dec": T.stack_specs(cfg.layer_kinds(), cfg, ctx)}
+        if cfg.n_enc_layers:
+            specs["enc"] = T.stack_specs(["enc"] * cfg.n_enc_layers, cfg, ctx)
+        return self.init(ctx, L.MetaGenerator(), device="meta"), specs
 
     # ------------------------------------------------------------------ #
     def _encode(self, params, ctx: RunCtx, frames: torch.Tensor) -> torch.Tensor:
@@ -176,6 +202,91 @@ class Model:
         return logits, pool_caches
 
     # ------------------------------------------------------------------ #
+    # dry-run stand-ins
+    # ------------------------------------------------------------------ #
+    def input_structs(self, shape: ShapeConfig) -> Dict[str, TensorSpec]:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind == "train":
+            batch = {
+                "inputs": TensorSpec((B, S), i32),
+                "targets": TensorSpec((B, S), i32),
+                "mask": TensorSpec((B, S), torch.float32),
+            }
+        elif shape.kind == "prefill":
+            batch = {"inputs": TensorSpec((B, S), i32)}
+        else:  # decode
+            batch = {"token": TensorSpec((B, 1), i32),
+                     "positions": TensorSpec((B,), i32)}
+        if shape.kind != "decode":
+            if cfg.n_enc_layers:
+                batch["frames"] = TensorSpec((B, S, cfg.d_model), cfg.dtype)
+            elif cfg.cross_kv_len:
+                batch["xkv"] = TensorSpec((B, cfg.cross_kv_len, cfg.d_model),
+                                          cfg.dtype)
+        return batch
+
+    def input_specs(self, shape: ShapeConfig, ctx: RunCtx) -> Dict[str, P]:
+        specs: Dict[str, P] = {}
+        for k in self.input_structs(shape):
+            if k in ("inputs", "targets", "mask", "token"):
+                specs[k] = P(ctx.dp, None)
+            elif k == "positions":
+                specs[k] = P(ctx.dp)
+            else:  # frames / xkv
+                specs[k] = P(ctx.dp, None, None)
+        return specs
+
+    def cache_structs(self, shape: ShapeConfig, ctx: RunCtx) -> Any:
+        """The cache tree a decode step of ``shape`` reads, as
+        ``TensorSpec`` leaves: a prefill run on ``meta`` with a cache of
+        ``S`` slots.  Prefill pads every cache to its length, so a short
+        prompt gives the same shapes; an encoder's frames keep their
+        ``S`` (the cross cache holds them)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        lctx = ctx_local(ctx)
+        params, _ = self.abstract_init(lctx)
+        batch = {"inputs": TensorSpec((B, min(S, PROMPT_STRUCT)), torch.int32)}
+        if cfg.n_enc_layers:
+            batch["frames"] = TensorSpec((B, S, cfg.d_model), cfg.dtype)
+        elif cfg.cross_kv_len:
+            batch["xkv"] = TensorSpec((B, cfg.cross_kv_len, cfg.d_model),
+                                      cfg.dtype)
+        _, caches = self.prefill(params, lctx, meta_tensors(batch),
+                                 cache_len=S)
+        return structs_of(caches)
+
+    def cache_specs(self, cache_struct: Any, ctx: RunCtx) -> Any:
+        """PartitionSpecs for a cache tree, by leaf name (the reference's
+        rules)."""
+        cfg = self.cfg
+        tp_heads = ctx.tp_size and cfg.n_kv_heads % max(ctx.tp_size, 1) == 0
+
+        def spec_for(path, leaf) -> P:
+            name = path[-1]
+            if name in ("k", "v"):  # (L, B, W, KH, Dh)
+                if tp_heads:
+                    return P(None, ctx.dp, None, ctx.tp, None)
+                return P(None, ctx.dp, ctx.tp, None, None)
+            if name == "pos":  # (L, B, W)
+                if tp_heads:
+                    return P(None, ctx.dp, None)
+                return P(None, ctx.dp, ctx.tp)
+            if name == "conv":  # (L, B, Wc-1, C)
+                return P(None, ctx.dp, None, ctx.tp)
+            if name == "ssm":  # (L, B, Di, N)
+                return P(None, ctx.dp, ctx.tp, None)
+            if name == "h":  # (L, B, W)
+                return P(None, ctx.dp, ctx.tp)
+            return P(*([None] * len(leaf.shape)))
+
+        return tree_unflatten(cache_struct, [
+            spec_for(path, leaf)
+            for path, leaf in tree_flatten_with_path(cache_struct)])
+
+    # ------------------------------------------------------------------ #
     def kv_block_struct(
         self, ctx: RunCtx, prompt_len: int, cache_len: int, batch: int = 1
     ) -> Any:
@@ -233,6 +344,23 @@ class Model:
              for i, kind in enumerate(seg.unit)}
             for seg in self.dec_segments
         ]
+
+
+def ctx_local(ctx: RunCtx) -> RunCtx:
+    """ctx variant with no mesh (for the structure derivation)."""
+    return dataclasses.replace(ctx, mesh=None, moe_mode="local")
+
+
+def meta_tensors(structs: Any) -> Any:
+    """``TensorSpec`` leaves as unallocated ``meta`` tensors."""
+    return tree_map(
+        lambda st: torch.empty(st.shape, dtype=st.dtype, device="meta"),
+        structs)
+
+
+def structs_of(tree: Any) -> Any:
+    """A tensor tree's shapes and dtypes as ``TensorSpec`` leaves."""
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), tree)
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -8,7 +8,11 @@ mixture-of-experts FFN on one device or expert-parallel over the ranks
 of a GAS engine, the depthwise causal conv, the mamba-1 mixer and the
 RG-LRU mixer.  Parameter trees have the reference's keys and shapes, so
 a tree crosses from JAX by value
-(``repro_torch.models.build.params_from_jax``).
+(``repro_torch.models.build.params_from_jax``).  Beside each ``*_init``
+a ``*_specs`` gives the reference's PartitionSpecs of the same tree
+(FSDP over ``data``, tensor parallel over ``ctx.tp``), read by the dry
+run only; an init given :class:`MetaGenerator` builds the tree on
+``meta``, shapes and dtypes without storage.
 
 Decode updates caches IN PLACE (the reference returns new arrays): the
 dense cache rows, the page pools and the recurrent states (conv windows,
@@ -24,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.addrspace import PartitionSpec as P
 from repro_torch.kernels import ops
 from repro_torch.models.common import ArchConfig
 from repro_torch.parallel.ctx import RunCtx, use_weight
@@ -43,6 +48,8 @@ def _normal(gen: torch.Generator, shape, dtype, scale: float,
     the f32 draw of a stacked leaf (granite-34b's ``(88, 6144, 24576)``
     ``wi``, kimi-k2's experts) never lies on the device whole."""
     shape = tuple(shape)
+    if gen.device.type == "meta":  # abstract init: shapes only
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     if n_lead == 0:
         x = torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32)
@@ -62,9 +69,29 @@ def linear_init(gen, in_dim: int, out_dims, dtype, scale=None, lead=()):
                    n_lead=len(lead))
 
 
+def _uniform(gen, shape) -> torch.Tensor:
+    """f32 draws uniform in [0, 1) (shapes only on ``meta``)."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    return torch.rand(tuple(shape), generator=gen, device=gen.device,
+                      dtype=torch.float32)
+
+
+class MetaGenerator:
+    """The generator an abstract init takes: it lives on ``meta``, so
+    every draw is an unallocated tensor of the right shape and dtype
+    (the reference's ``eval_shape`` of ``init``)."""
+
+    device = torch.device("meta")
+
+
 def norm_init(d: int, device, lead=()) -> Params:
     return {"scale": torch.ones(tuple(lead) + (d,), dtype=torch.float32,
                                 device=device)}
+
+
+def norm_specs() -> Params:
+    return {"scale": P(None)}
 
 
 def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
@@ -130,6 +157,28 @@ def attention_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
         params["q_norm"] = norm_init(dh, gen.device, lead)
         params["k_norm"] = norm_init(dh, gen.device, lead)
     return params
+
+
+def _kv_spec(cfg: ArchConfig, ctx: RunCtx) -> P:
+    """KV projections: heads over tp when divisible, else replicated heads."""
+    if ctx.tp_size and cfg.n_kv_heads % ctx.tp_size == 0:
+        return P("data", ctx.tp, None)
+    return P("data", None, None)
+
+
+def attention_specs(cfg: ArchConfig, ctx: RunCtx) -> Params:
+    """The reference's PartitionSpecs of :func:`attention_init`'s tree."""
+    specs = {
+        "norm": norm_specs(),
+        "wq": P("data", ctx.tp, None),
+        "wk": _kv_spec(cfg, ctx),
+        "wv": _kv_spec(cfg, ctx),
+        "wo": P(ctx.tp, "data"),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = norm_specs()
+        specs["k_norm"] = norm_specs()
+    return specs
 
 
 def _gqa_scores_softmax_v(q, k, v, mask, scale):
@@ -368,6 +417,17 @@ def mlp_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=(),
     return params
 
 
+def mlp_specs(cfg: ArchConfig, ctx: RunCtx) -> Params:
+    specs = {
+        "norm": norm_specs(),
+        "wi": P("data", ctx.tp),
+        "wo": P(ctx.tp, "data"),
+    }
+    if cfg.mlp_gated:
+        specs["wg"] = P("data", ctx.tp)
+    return specs
+
+
 def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor,
               ctx: RunCtx, tp=None) -> torch.Tensor:
     """The MLP (pre-norm, residual added by caller): ``act(h wg) * (h
@@ -412,6 +472,22 @@ def moe_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
         params["dense_res"] = mlp_init(cfg, ctx, gen, lead,
                                        d_ff=cfg.resolved_d_ff_dense)
     return params
+
+
+def moe_specs(cfg: ArchConfig, ctx: RunCtx) -> Params:
+    """Experts over tp, their input dim over data (FSDP)."""
+    specs = {
+        "norm": norm_specs(),
+        "router": P("data", None),
+        "wi": P(ctx.tp, "data", None),
+        "wg": P(ctx.tp, "data", None),
+        "wo": P(ctx.tp, None, "data"),
+    }
+    if cfg.n_shared_experts:
+        specs["shared"] = mlp_specs(cfg, ctx)
+    if cfg.moe_dense_residual:
+        specs["dense_res"] = mlp_specs(cfg, ctx)
+    return specs
 
 
 def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
@@ -579,7 +655,7 @@ def mamba_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
     dev, lead = gen.device, tuple(lead)
     f32 = torch.float32
     # dt_bias = softplus^-1(dt) for dt log-uniform in [1e-3, 1e-1]
-    u = torch.rand(lead + (Di,), generator=gen, device=dev, dtype=f32)
+    u = _uniform(gen, lead + (Di,))
     log_dt = math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))
     a_log = torch.log(torch.arange(1, N + 1, dtype=f32, device=dev))
     return {
@@ -595,6 +671,22 @@ def mamba_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
         "a_log": a_log.expand(lead + (Di, N)).contiguous(),
         "d_skip": torch.ones(lead + (Di,), dtype=f32, device=dev),
         "out_proj": linear_init(gen, Di, (D,), cfg.dtype, lead=lead),
+    }
+
+
+def mamba_specs(cfg: ArchConfig, ctx: RunCtx) -> Params:
+    return {
+        "norm": norm_specs(),
+        "in_x": P("data", ctx.tp),
+        "in_gate": P("data", ctx.tp),
+        "conv_w": P(None, ctx.tp),
+        "conv_b": P(ctx.tp),
+        "x_proj": P(ctx.tp, None),
+        "dt_proj": P(None, ctx.tp),
+        "dt_bias": P(ctx.tp),
+        "a_log": P(ctx.tp, None),
+        "d_skip": P(ctx.tp),
+        "out_proj": P(ctx.tp, "data"),
     }
 
 
@@ -667,8 +759,7 @@ _RGLRU_C = 8.0
 def rec_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
     D, W, Wc = cfg.d_model, cfg.resolved_lru_width, cfg.conv_width
     dev, lead = gen.device, tuple(lead)
-    lam = torch.rand(lead + (W,), generator=gen, device=dev,
-                     dtype=torch.float32)
+    lam = _uniform(gen, lead + (W,))
     return {
         "norm": norm_init(D, dev, lead),
         "in_x": linear_init(gen, D, (W,), cfg.dtype, lead=lead),
@@ -680,6 +771,20 @@ def rec_init(cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
         "w_igate": linear_init(gen, W, (W,), cfg.dtype, lead=lead),
         "lam": 0.5 + 3.5 * lam,  # uniform in [0.5, 4)
         "out_proj": linear_init(gen, W, (D,), cfg.dtype, lead=lead),
+    }
+
+
+def rec_specs(cfg: ArchConfig, ctx: RunCtx) -> Params:
+    return {
+        "norm": norm_specs(),
+        "in_x": P("data", ctx.tp),
+        "in_gate": P("data", ctx.tp),
+        "conv_w": P(None, ctx.tp),
+        "conv_b": P(ctx.tp),
+        "w_rgate": P("data", ctx.tp),
+        "w_igate": P("data", ctx.tp),
+        "lam": P(ctx.tp),
+        "out_proj": P(ctx.tp, "data"),
     }
 
 

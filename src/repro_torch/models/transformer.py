@@ -26,6 +26,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.compat import tree_leaves, tree_map, tree_unflatten
+from repro_torch.core.addrspace import PartitionSpec as P
 from repro_torch.models import layers as L
 from repro_torch.models.common import ArchConfig, Segment, build_layer_program
 from repro_torch.parallel.ctx import RunCtx, shard, use_weight
@@ -115,6 +116,28 @@ def block_init(kind: str, cfg: ArchConfig, ctx: RunCtx, gen, lead=()) -> Params:
     raise ValueError(kind)
 
 
+def block_specs(kind: str, cfg: ArchConfig, ctx: RunCtx) -> Params:
+    """The reference's PartitionSpecs of :func:`block_init`'s tree."""
+    if kind in ("global", "local", "dense", "enc"):
+        return {"attn": L.attention_specs(cfg, ctx),
+                "mlp": L.mlp_specs(cfg, ctx)}
+    if kind == "moe":
+        return {"attn": L.attention_specs(cfg, ctx),
+                "moe": L.moe_specs(cfg, ctx)}
+    if kind == "mamba":
+        return {"mix": L.mamba_specs(cfg, ctx)}
+    if kind == "rec":
+        return {"mix": L.rec_specs(cfg, ctx), "mlp": L.mlp_specs(cfg, ctx)}
+    if kind in ("cross", "xdec"):
+        specs = {"attn": L.attention_specs(cfg, ctx),
+                 "xattn": L.attention_specs(cfg, ctx),
+                 "mlp": L.mlp_specs(cfg, ctx)}
+        if kind == "cross":
+            specs["xgate"] = P()
+        return specs
+    raise ValueError(kind)
+
+
 def block_apply(
     kind: str,
     p: Params,
@@ -198,6 +221,22 @@ def stack_init(
             for i, kind in enumerate(seg.unit)
         })
     return segments, seg_params
+
+
+def stack_specs(kinds: Sequence[str], cfg: ArchConfig,
+                ctx: RunCtx) -> List[Params]:
+    """:func:`stack_init`'s specs: each block's, with the stacked layer
+    axis (unsharded) prepended."""
+    return [
+        {f"b{i}_{kind}": tree_map(lambda s: P(None, *s),
+                                  block_specs(kind, cfg, ctx), is_leaf=_is_p)
+         for i, kind in enumerate(seg.unit)}
+        for seg in build_layer_program(kinds)
+    ]
+
+
+def _is_p(x: Any) -> bool:
+    return isinstance(x, P)
 
 
 def _maybe_remat(fn: Callable, ctx: RunCtx) -> Callable:
@@ -302,6 +341,13 @@ def lm_io_init(cfg: ArchConfig, ctx: RunCtx, gen) -> Params:
     if not cfg.tie_embeddings:
         params["out"] = L.linear_init(gen, cfg.d_model, (cfg.vocab,), cfg.dtype)
     return params
+
+
+def lm_io_specs(cfg: ArchConfig, ctx: RunCtx) -> Params:
+    specs = {"tok": P(ctx.tp, "data"), "norm_f": L.norm_specs()}
+    if not cfg.tie_embeddings:
+        specs["out"] = P("data", ctx.tp)
+    return specs
 
 
 def embed(io: Params, cfg: ArchConfig, ctx: RunCtx,

@@ -1,7 +1,7 @@
 """Live SLO health: deadline-risk gauges, at-risk instants, backpressure.
 
-The port of ``repro.obs.health``.  The reference's attribution module
-(``repro.obs.attrib``, not ported yet) answers *after the fact* where a
+The port of ``repro.obs.health``.  The attribution module
+(``repro_torch.obs.attrib``) answers *after the fact* where a
 request's time went; this monitor answers the live
 question — *is the cluster about to miss its SLOs?* — on the same tick
 clock the tracer merges ranks on.  Per tracked request it projects:

@@ -8,8 +8,9 @@ the port updates parameters and moments IN PLACE under ``torch.no_grad()``
 (and clips the gradients in place), and runs the element-wise update over
 chunks of a leaf's leading axis, so that a leaf's f32 temporaries stay near
 ``CHUNK_ELEMS`` elements instead of the whole stacked leaf; element-wise
-arithmetic gives the same bits either way.  No ``state_specs``: the port
-runs on one device, without a mesh.
+arithmetic gives the same bits either way.  ``state_specs`` gives the
+reference's PartitionSpecs of the state (the dry run reads them; the port
+runs on one device).
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ import torch
 
 from repro_torch.compat import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "init_state", "apply_updates", "warmup_cosine",
-           "global_norm", "clip_by_global_norm"]
+__all__ = ["AdamWConfig", "init_state", "apply_updates", "state_specs",
+           "warmup_cosine", "global_norm", "clip_by_global_norm"]
 
 CHUNK_ELEMS = 1 << 26  # elements per slice of the in-place update
 
@@ -59,6 +60,17 @@ def init_state(params: Any, cfg: AdamWConfig) -> Any:
         "m": tree_map(zeros, params),
         "v": tree_map(zeros, params),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def state_specs(param_specs: Any) -> Any:
+    """Optimizer-state PartitionSpecs mirror the parameter specs."""
+    from repro_torch.core.addrspace import PartitionSpec as P
+
+    return {
+        "m": param_specs,
+        "v": param_specs,
+        "step": P(),
     }
 
 

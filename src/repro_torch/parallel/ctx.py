@@ -1,8 +1,12 @@
-"""Run context of the port: the reference's ``RunCtx`` without a mesh.
+"""Run context of the port: the reference's ``RunCtx``.
 
 The port runs on one device, so sharding constraints and FSDP
 unshard-at-use are the identity; the context keeps the knobs the
-single-device model code reads.  Expert parallelism keeps the
+single-device model code reads.  ``mesh`` (a device-less
+``launch.mesh.Mesh``), the axis roles ``dp`` and ``tp``, ``fsdp_gather``
+and ``seq_shard_acts`` are the reference's: only the spec code reads
+them (``models/build.py``'s ``abstract_init``, ``input_specs`` and
+``cache_specs``, ``launch/dryrun.py``).  Expert parallelism keeps the
 reference's mesh shape as ``ep_grid``: ``(data, model)`` ranks of GAS
 engines, all on the one device (``models.layers._moe_ep``).
 """
@@ -10,6 +14,7 @@ engines, all on the one device (``models.layers._moe_ep``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Optional, Tuple
 
 __all__ = ["MOE_BACKENDS", "MOE_MODES", "REMAT_POLICIES", "SCAN_IMPLS",
            "RunCtx", "shard", "use_weight"]
@@ -23,6 +28,9 @@ MOE_BACKENDS = ("xla", "gascore")
 
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
+    mesh: Optional[Any] = None  # a launch.mesh.Mesh: read by the specs only
+    dp: Tuple[str, ...] = ("data",)  # batch / FSDP axes (includes "pod")
+    tp: str = "model"  # tensor/expert-parallel axis
     attn_chunk: int = 512  # query block of the prefill attention
     # training: "full" recomputes each layer's forward in the backward
     # (the reference's ``jax.checkpoint``), "none" keeps its activations;
@@ -43,6 +51,10 @@ class RunCtx:
     moe_backend: str = "xla"
     # EP ranks (data, model): the stand-in for the reference's mesh shape
     ep_grid: tuple = (1, 1)
+    # the reference's FSDP unshard-at-use and sequence-sharded saved
+    # activations: sharding constraints, the identity on one device
+    fsdp_gather: bool = False
+    seq_shard_acts: bool = False
 
     def __post_init__(self):
         if self.remat not in REMAT_POLICIES:
@@ -62,10 +74,18 @@ class RunCtx:
         if len(grid) != 2 or min(grid) < 1:
             raise ValueError(f"ep_grid {self.ep_grid!r}: (data, model) >= 1")
         object.__setattr__(self, "ep_grid", grid)
+        object.__setattr__(self, "dp", tuple(self.dp))
+
+    @property
+    def tp_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        return self.mesh.shape[self.tp]
 
 
 def use_weight(w, ctx: RunCtx, spec=None):
-    """Identity: weights are whole on the one device."""
+    """Identity: weights are whole on the one device (``fsdp_gather``
+    would constrain them to their gathered form on a mesh)."""
     return w
 
 

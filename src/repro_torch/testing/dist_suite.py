@@ -1,14 +1,15 @@
 """Distributed substrate suite on one device: the compressed gradient
 ring, GPipe forward and backward, expert-parallel MoE against the local
-MoE, the remat=names policy, and the elastic restart of data-parallel
-training.
+MoE, the remat=names policy, ``fsdp_gather`` with remat=names on the
+reference's mesh, and the elastic restart of data-parallel training.
 
 Twin of ``repro.testing.dist_suite`` (which needs 8 XLA devices) on the
 port's rank-stacked layout: every "device" is a rank of ``Context.spmd``
-(the EP check's (data, model) mesh is ``RunCtx.ep_grid``).  Its
-``fsdp_gather`` half has no meaning without a mesh; the elastic restart
-runs through ``examples/train_lm.py``'s functions (8 -> 6 ranks) where
-the reference restarts its mesh trainer.
+(the EP check's (data, model) mesh is ``RunCtx.ep_grid``).  The
+``fsdp_gather`` check runs with the reference's (4, 2) mesh in its
+``RunCtx`` (a description: the weights stay whole on the one device);
+the elastic restart runs through ``examples/train_lm.py``'s functions (8
+-> 6 ranks) where the reference restarts its mesh trainer.
 
 Run:  PYTHONPATH=src python -m repro_torch.testing.dist_suite [--device cpu]
 """
@@ -29,6 +30,7 @@ from repro_torch.core import gasnet
 from repro_torch.core.gasnet import P
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.examples import train_lm
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import layers
 from repro_torch.models.build import build_model
 from repro_torch.optim import compression
@@ -123,9 +125,9 @@ def ep_moe_parity(device: torch.device, backend: str = "xla") -> float:
     return frac_same
 
 
-def remat_names_parity(device: torch.device):
-    """qwen3-4b SMOKE: loss and gradients under remat "names" against
-    "full" (loss within 1e-4, gradients atol 2e-4, rtol 2e-3)."""
+def _parity(device: torch.device, base: RunCtx, other: RunCtx):
+    """qwen3-4b SMOKE: loss and gradients under ``other`` against
+    ``base`` (loss within 1e-4, gradients atol 2e-4, rtol 2e-3)."""
     cfg = SMOKE["qwen3-4b"]
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(2)
@@ -133,16 +135,31 @@ def remat_names_parity(device: torch.device):
                       model.init(RunCtx(), gen, device=device))
     batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
         cfg, batch=8, seq_len=32, seed=5).batch_at(0).items()}
-    out = {}
-    for remat in ("full", "names"):
-        loss = model.train_loss(params, RunCtx(remat=remat), batch)
+    out = []
+    for ctx in (base, other):
+        loss = model.train_loss(params, ctx, batch)
         grads = torch.autograd.grad(loss, tree_leaves(params))
-        out[remat] = (float(loss.detach()), grads)
-    assert abs(out["full"][0] - out["names"][0]) < 1e-4, (
-        out["full"][0], out["names"][0])
-    for a, b in zip(out["full"][1], out["names"][1]):
+        out.append((float(loss.detach()), grads))
+    assert abs(out[0][0] - out[1][0]) < 1e-4, (out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
         torch.testing.assert_close(b.float(), a.float(), atol=2e-4, rtol=2e-3)
-    return out["full"][0], out["names"][0]
+    return out[0][0], out[1][0]
+
+
+def remat_names_parity(device: torch.device):
+    """qwen3-4b SMOKE: loss and gradients under remat "names" against
+    "full" (loss within 1e-4, gradients atol 2e-4, rtol 2e-3)."""
+    return _parity(device, RunCtx(remat="full"), RunCtx(remat="names"))
+
+
+def fsdp_gather_parity(device: torch.device):
+    """The reference's check (``dist_suite.py:151-171``): on a (4, 2)
+    ``(data, model)`` mesh, ``fsdp_gather=True, remat="names"`` against
+    ``remat="full"``, to its tolerances."""
+    mesh = make_mesh((4, 2), ("data", "model"))
+    base = RunCtx(mesh=mesh, dp=("data",), tp="model", remat="full")
+    return _parity(device, base, dataclasses.replace(
+        base, fsdp_gather=True, remat="names"))
 
 
 def elastic_restart(device: torch.device, ckpt_dir: str) -> dict:
@@ -177,6 +194,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(f"EP MoE vs local OK ({frac_same:.2%} token rows identical)")
     full, names = remat_names_parity(device)
     print(f"remat=names parity OK (loss {names:.6f} vs full {full:.6f})")
+    full, opt = fsdp_gather_parity(device)
+    print(f"fsdp_gather/remat=names parity OK (loss {opt:.6f} vs {full:.6f})")
     with tempfile.TemporaryDirectory() as td:
         elastic_restart(device, td)
     print("elastic restart OK (8 -> 6 ranks, bitwise the snapshot's)")

@@ -226,8 +226,9 @@ def test_dq_bf16_rounding_points_match_reference(case):
 
 def test_dispatch_and_checks():
     """Blocks that do not divide the sequence raise on every device; the
-    CUDA wrappers refuse CPU tensors before any build or launch; another
-    device raises."""
+    CUDA wrappers refuse CPU tensors before any build or launch; on
+    ``meta`` (the dry run) the forward is a shape-only stand-in that
+    launches nothing."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 1, 96, 96, 64, 0))
     with pytest.raises(ValueError, match="divisible"):
         ops.attention(q, k, v, block_q=64, block_k=64)
@@ -245,8 +246,11 @@ def test_dispatch_and_checks():
                       fab.flash_attention_dkv.launches,
                       fab.flash_attention_dq.launches)
     meta = torch.empty((1, 2, 64, 64), device="meta")
-    with pytest.raises(ValueError, match="device"):
-        ops.attention(meta, meta[:, :1], meta[:, :1])
+    out = ops.attention(meta, meta[:, :1], meta[:, :1])
+    assert out.device.type == "meta" and out.shape == meta.shape
+    assert before == (fa.flash_attention_fwd.launches,
+                      fab.flash_attention_dkv.launches,
+                      fab.flash_attention_dq.launches)
 
 
 def test_training_shape_bounds():

@@ -43,14 +43,20 @@ def test_port_and_chip_smoke_import_without_jax_or_reference():
     # and heartbeat; slice 12's tensor-parallel groups, parallel/tp.py and
     # testing/tp_suite.py; the device-time profiler, the int8 compression,
     # GPipe, the data-parallel example and the distributed suite; slice
-    # 16's suite twins and stencil example)
+    # 16's suite twins and stencil example; slice 17's analysis tools:
+    # the kernels' cost formulas, sharding specs, the op-stream counter,
+    # the roofline, the dry run and the counter's collective suite)
     names = proc.stdout.split()
-    assert len(names) >= 79
+    assert len(names) >= 85
     assert {"repro_torch.obs.profile", "repro_torch.optim.compression",
             "repro_torch.parallel.pipeline", "repro_torch.examples.train_lm",
             "repro_torch.testing.dist_suite", "repro_torch.testing.gas_suite",
             "repro_torch.testing.gascore_suite",
-            "repro_torch.examples.stencil_halo"} <= set(names)
+            "repro_torch.examples.stencil_halo",
+            "repro_torch.kernels.cost", "repro_torch.parallel.sharding",
+            "repro_torch.launch.hlostats", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun",
+            "repro_torch.testing.hlostats_coll_suite"} <= set(names)
 
 
 def test_ab_reduce_scatter_tool_imports_without_jax_and_needs_a_card():

@@ -1559,3 +1559,70 @@ def test_cuda_gascore_suite(cuda, capsys):
     gascore_suite.main(device=cuda)
     assert capsys.readouterr().out.splitlines()[-1] == "GASCORE_SUITE_PASS"
     assert all(k.launches > b for k, b in zip(kernels, before))
+
+
+def _entry_calls(dev):
+    """Every kernel entry point once, on ``dev``, at small shapes (the
+    inputs made here, outside the calls)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dtype).to(dev)
+
+    q = t(1, 4, 128, 64, dtype=torch.bfloat16).requires_grad_()
+    k = t(1, 2, 128, 64, dtype=torch.bfloat16).requires_grad_()
+    v = t(1, 2, 128, 64, dtype=torch.bfloat16).requires_grad_()
+    pq, pk, pv = t(2, 8, 64), t(9, 8, 2, 64), t(9, 8, 2, 64)
+    table = torch.arange(8, dtype=torch.int32).reshape(2, 4).to(dev)
+    lens = torch.full((2,), 30, dtype=torch.int32).to(dev)
+    logits = t(16, 32)
+    sx, sdt, sb, sc = t(1, 64, 32), t(1, 64, 32), t(1, 64, 4), t(1, 64, 4)
+    sa, sd = -torch.ones((32, 4)).to(dev), torch.ones((32,)).to(dev)
+    la, lb = torch.rand((1, 64, 32), generator=g).to(dev), t(1, 64, 32)
+    x8 = t(8, 256)
+    seg, offs = torch.zeros((8, 512)).to(dev), torch.zeros(
+        (8,), dtype=torch.int32).to(dev)
+
+    def attention_fwd_bwd():
+        out = ops.attention(q, k, v)
+        return (out,) + torch.autograd.grad(out.float().sum(), (q, k, v))
+
+    return {
+        "attention": attention_fwd_bwd,
+        "paged_attention": lambda: ops.paged_attention(pq, pk, pv, table,
+                                                       lens),
+        "moe_router": lambda: ops.moe_router(logits, k=2, capacity=4),
+        "selective_scan": lambda: ops.selective_scan(
+            sx, sdt, sa, sb, sc, sd, final_state=True),
+        "gated_linear_scan": lambda: ops.gated_linear_scan(la, lb),
+        "ring_shift": lambda: ops.ring_shift(x8, 3),
+        "perm_put": lambda: ops.perm_put(x8, (3, 0, 6, 1, 7, 2, 5, 4)),
+        "offset_put": lambda: ops.offset_put(seg, x8, offs, 1),
+        "ring_all_gather": lambda: ops.ring_all_gather(x8),
+        "ring_reduce_scatter": lambda: ops.ring_reduce_scatter(x8),
+    }
+
+
+def _flat(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)]
+
+
+@pytest.mark.cuda
+def test_cuda_meta_stand_ins_match_the_kernels(cuda):
+    """On ``meta`` each entry point returns what its kernel returns on the
+    card, shape and dtype, and counts as the same one op."""
+    from repro_torch.launch import hlostats
+
+    calls = {dev: _entry_calls(dev) for dev in (cuda, torch.device("meta"))}
+    for name, fn in calls[cuda].items():
+        with hlostats.OpCounter() as on_card:
+            got = _flat(fn())
+        torch.cuda.synchronize()
+        with hlostats.OpCounter() as on_meta:
+            want = _flat(calls[torch.device("meta")][name]())
+        assert [(tuple(a.shape), a.dtype) for a in got] == [
+            (tuple(b.shape), b.dtype) for b in want], name
+        assert all(b.device.type == "meta" for b in want), name
+        assert on_card.stats().as_dict() == on_meta.stats().as_dict(), name

@@ -144,8 +144,11 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     before = ssm_scan.selective_scan.launches
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssm_scan.selective_scan(*args)
-    with pytest.raises(ValueError, match="no selective_scan"):
-        ops.selective_scan(*[t.to("meta") for t in args])
+    # meta (the dry run): shape-only stand-ins, no launch
+    y, h = ops.selective_scan(*[t.to("meta") for t in args], final_state=True)
+    assert y.device.type == "meta" and y.shape == args[0].shape
+    assert h.shape == (args[0].shape[0], args[0].shape[2], args[2].shape[1])
+    assert h.dtype == torch.float32
     assert ssm_scan.selective_scan.launches == before
 
 
