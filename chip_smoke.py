@@ -201,9 +201,9 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
 14. serve_arctic — arctic-480b the same way, 2 ``moe`` layers of 128
              experts with the dense residual FFN.
 15. serve_zoo — the rest of the model zoo in bf16, seeded random weights:
-             granite-34b at full width and depth (88 layers, 63.3 GiB)
-             and llama3-405b at full width on 4 layers (reduced: n_layers
-             126 -> 4) through ``PagedServer`` (slice 1's traffic; 8
+             granite-34b at full width on 12 layers (reduced: n_layers
+             88 -> 12, for the script's time) and llama3-405b on 4
+             (reduced: n_layers 126 -> 4) through ``PagedServer`` (slice 1's traffic; 8
              requests of 32 new tokens for llama3), the first step held
              against the dense ``Server``, then granite's f32 TieGate pass
              (paged vs dense) on 2 layers; gemma3-27b at full depth
@@ -231,6 +231,40 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              beside local.  Then arctic on 2 layers through
              ``PagedServer`` with EP on "gascore" (4 requests), launches
              gated per forward call.
+17a. scan_bwd — the two scans' backward kernels (slice 18) against
+             their plain versions: the selective scan's (falcon-mamba's
+             B 1 x S 4,096 x Di 8,192 x N 16, an odd S of 77, an S of 200
+             off the kernel's 16-step chunks) held row by row to the f64
+             plain (dx, ddt and dB, dC step by step, dA and dD channel by
+             channel: 2 x the f32 plain's error + 2**-8 (bf16 results) or
+             1e-4 (f32) x the row's max); the RG-LRU's (recurrentgemma's
+             B 1 x S 4,096 x W 4,096, S 77) equal to its plain version bit
+             for bit; bf16 and f32; ``device_ms`` at full width beside the
+             bound and the exponentials' floor.
+17b. router_bwd — the router's backward kernel at kimi's (E 384, K 8)
+             and arctic's (E 128, K 2) widths at T 8, 128 and 8,192, with
+             and without repeated logits and renormalisation, token by
+             token against the f64 plain (2 x the f32 plain's error + 1e-5
+             x the row's max); ``device_ms`` L2 warm and flushed.
+17c. train_ssm — ``Trainer`` with the default ``RunCtx`` scans (the scan
+             kernels forward and backward), full remat, AdamW, 3 steps at
+             full width, 1 x 4,096: falcon-mamba-7b on 8 layers (reduced:
+             n_layers 64 -> 8), recurrentgemma-9b on its 2 rec layers of
+             one (rec, rec, local) group (reduced: n_layers 38 -> 2; its
+             local layers' head dim of 256 has no flash kernel, fault F4c
+             in ROADMAP.md); finite losses and grad norms, step 0 near
+             ln(vocab), two scan forwards (the step's and the
+             recompute's) and one scan backward a scan layer a step, no
+             other kernel.
+17d. train_moe — (a) one ``moe`` layer at full width, kimi-k2 (33.8 GB of
+             experts) then arctic (26.8 GB), experts frozen, T 1,024: the
+             router's and the input's gradients through the router kernel
+             and its backward against the plain route on the same inputs,
+             expert column by column and token by token (within 2**-7 and
+             2**-6 of the row's max); (b) ``Trainer`` for arctic-480b on 2 layers
+             of 8 experts (reduced: n_layers 35 -> 2, n_experts 128 -> 8),
+             1 x 2,048, 3 steps: one router backward a ``moe`` layer a
+             step, every router's weights moved by AdamW.
 
 18. dryrun — the analysis tools (``launch/dryrun.py``, ``hlostats.py``,
              ``roofline.py``) against real steps: qwen3-4b at full width
@@ -254,7 +288,8 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              measured step, beside the card's name and power limit.
 
 Phases 10-18 run after the training phase has freed its memory, each
-after the one before it has freed its own.  Every ``reduced`` cut is
+after the one before it has freed its own.  The ``kernels`` line lists
+all 15 kernels, the three backward kernels of slice 18 among them.  Every ``reduced`` cut is
 printed in its phase's line.
 Then a ``timing`` line (seconds by phase), the card's name and power
 limit, the ``kernels`` line, and as the
@@ -2920,15 +2955,15 @@ def sm_clock_mhz():
     return float(out.stdout.split()[0])
 
 
-# Hopper's special-function units return 16 exponentials a clock per SM
-SFU_PER_CLOCK = 16
+SFU_PER_CLOCK = cost.SFU_PER_CLOCK
 
 
 def scan_sfu_floor(name, case, clock_mhz):
     """Least time for the scan's exponentials on the special-function
-    units: one per (b, t, channel, state) for the selective scan, none for
-    the RG-LRU scan; over the SMs x 16 a clock x the maximum SM clock."""
-    exps = math.prod(case) if name == "selective_scan" else 0
+    units (``cost.exponentials``: one per (b, t, channel, state) for the
+    selective scan and its backward, none for the RG-LRU's); over the SMs
+    x 16 a clock x the maximum SM clock."""
+    exps = cost.exponentials(name, case)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {"sfu_floor_ms": 1e3 * exps / (sms * SFU_PER_CLOCK
                                          * clock_mhz * 1e6),
@@ -4105,7 +4140,9 @@ ALL_KERNELS = {**{"paged_attention": (pa.paged_attention, None, None)},
                "gated_linear_scan": (rglru.gated_linear_scan, None, None),
                "moe_router": (mr.moe_router, None, None)}
 ZOO_PAGED = {  # arch: (layers served, f32 layers of the TieGate pass)
-    "granite-34b": (None, 2),  # full depth: 88 layers, 63.3 GiB of bf16
+    # reduced: n_layers 88 -> 12 for the script's time (all 88 layers,
+    # 63.3 GiB of bf16, fit the card)
+    "granite-34b": (12, 2),
     "llama3-405b": (4, None),  # reduced: n_layers 126 -> 4 (810 GB at 126)
 }
 LLAMA3_REQ, LLAMA3_NEW = 8, 32
@@ -4686,6 +4723,451 @@ def moe_ep_phase():
 
 
 # --------------------------------------------------------------------------- #
+# slice 18: the backward kernels, and training the recurrent and MoE families
+# --------------------------------------------------------------------------- #
+# (B, S, Di, N): falcon-mamba's training shape at full width (B 1 x S 4,096),
+# an odd S (and off the kernel's 16-step chunks), an S off the chunks
+SSM_BWD = [(1, 4096, 8192, 16), (2, 77, 8192, 16), (1, 200, 1024, 16)]
+# (B, S, W): recurrentgemma's training shape at full width, an odd S
+LRU_BWD = [(1, 4096, 4096), (2, 77, 4096)]
+# Row by row against the f64 plain backward: each row's largest |kernel -
+# exact| at most 2 x the f32 plain version's largest in that row plus REL
+# x the row's largest |exact|.  REL is one bf16 ulp, 2**-8, for results
+# in bf16, and 1e-4 for the scans' f32 results: the selective scan's
+# exponentials are ex2.approx (~2**-22 relative, as in its forward), and
+# a state's cotangent compounds them over its decay horizon, up to 1 /
+# (dt |A|) = 1,000 steps at dt 1e-3 (2.4e-4 at worst); the router's
+# dlogits (precise exponentials) 1e-5.  Rows: dx and ddt step by step
+# (over channels), dA channel by channel (over states), dD channel by
+# channel (a sum of B S products, so REL x the sum of their sizes), dB and
+# dC step by step (over states); dlogits token by token.  A row of zeros
+# or garbage fails.
+BWD_REL = {torch.bfloat16: 2.0**-8, torch.float32: 1e-4}
+ROUTER_BWD_REL = 1e-5
+BWD_KERNELS = {  # wrapper, source, the reference's oracle it differentiates
+    "selective_scan_bwd": (ssm_scan.selective_scan_bwd, "ssm_scan_bwd.cu",
+                           "ref.py:229"),
+    "gated_linear_scan_bwd": (rglru.gated_linear_scan_bwd, "rglru_bwd.cu",
+                              "ref.py:352"),
+    "moe_router_bwd": (mr.moe_router_bwd, "moe_router_bwd.cu", "ref.py:169"),
+}
+
+
+def rows_exact(name, got, plain, exact, rel, width, scale=None):
+    """Each row of ``width`` trailing elements of the kernel's result
+    against the f64 ``exact``: its largest error over its bound, 2 x the
+    plain version's largest in that row + ``rel`` x the row's largest
+    |exact| (or x ``scale``, one value a row: for a sum, the sum of its
+    terms' magnitudes).  Returns (max |got - plain|, the largest ratio;
+    the caller fails past 1)."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    g, p, e = (t.double().reshape(-1, width) for t in (got, plain, exact))
+    err = (g - e).abs().amax(-1)
+    size = e.abs().amax(-1) if scale is None else scale.double().reshape(-1)
+    bound = 2 * (p - e).abs().amax(-1) + rel * size + 1e-300
+    return float((g - p).abs().max()), float((err / bound).max())
+
+
+def rows_failed(checked):
+    """Raise if any ``row_ratio`` of the checked cases exceeds 1."""
+    bad = {case: r for case, v in checked.items() for r in (
+        v["row_ratio"].values() if isinstance(v["row_ratio"], dict)
+        else [v["row_ratio"]]) if not r <= 1.0}
+    if bad:
+        raise AssertionError(f"rows past their bound (2 x plain's error + "
+                             f"rel x the row's max): {bad}")
+
+
+def events_ms(fn):
+    """One call of ``fn`` timed by CUDA events (a plain version that
+    takes seconds: its launches keep the device busy)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def scan_bwd_phase():
+    """The two scans' backward kernels against their plain versions (the
+    f32 plain and the f64 exact) on every case, bf16 and f32; timed at
+    the full-width cases by ``device_ms`` (L2 flushed) beside the bound.
+    Returns the training path's figures (falcon bf16, recurrentgemma's
+    f32 a and b)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    clock = sm_clock_mhz()
+    checked, figures = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for case in SSM_BWD:
+            args = ssm_inputs(case, dtype, gen)
+            dy = torch.randn(case[:3], generator=gen, device="cuda").to(dtype)
+            got = ssm_scan.selective_scan_bwd(*args, dy)
+            plain, plain_ms = events_ms(
+                lambda: ref.selective_scan_bwd(*args, dy))
+            exact = ref.selective_scan_bwd(*args, dy, acc=torch.float64)
+            B, S, Di, N = case
+            # dD sums B S products: its scale is the sum of their sizes
+            terms = (dy.double().abs() * args[0].double().abs()).sum((0, 1))
+            errs, ratios = {}, {}
+            for name, g, p, e, width in zip(
+                    ("dx", "ddt", "dA", "dB", "dC", "dD"), got, plain, exact,
+                    (Di, Di, N, N, N, 1)):
+                errs[name], ratios[name] = rows_exact(
+                    f"selective_scan_bwd {case} {dname} {name}", g, p, e,
+                    BWD_REL[g.dtype], width,
+                    terms if name == "dD" else None)
+            checked[f"selective_scan_bwd {case} {dname}"] = {
+                "max_abs_err": errs, "row_ratio": ratios}
+            if case == SSM_BWD[0]:
+                figures[f"selective_scan_bwd {dname}"] = {
+                    "case": list(case), "max_abs_err": max(errs.values()),
+                    "ms": device_ms(lambda: ssm_scan.selective_scan_bwd(
+                        *args, dy), 5, flush),
+                    "plain_ms": plain_ms, "library_ms": None,
+                    **scan_bounds("selective_scan_bwd", case, dtype),
+                    **scan_sfu_floor("selective_scan_bwd", case, clock)}
+            del args, dy, got, plain, exact
+        for case in LRU_BWD:
+            a, b = lru_inputs(case, dtype, gen)
+            h = rglru.gated_linear_scan(a, b)
+            dh = torch.randn(case, generator=gen, device="cuda").to(dtype)
+            got = rglru.gated_linear_scan_bwd(a, h, dh)
+            plain, plain_ms = events_ms(
+                lambda: ref.gated_linear_scan_bwd(a, h, dh))
+            # the kernel rounds as the plain version does (a multiply, then
+            # an add, in f32): equal to the last bit in either dtype
+            for name, g, p in zip(("da", "db"), got, plain):
+                if not (torch.isfinite(g.float()).all() and torch.equal(g, p)):
+                    raise AssertionError(
+                        f"gated_linear_scan_bwd {case} {dname} {name}: not "
+                        "equal to the plain version")
+            checked[f"gated_linear_scan_bwd {case} {dname}"] = {
+                "bitwise_equal": True}
+            if case == LRU_BWD[0]:
+                figures[f"gated_linear_scan_bwd {dname}"] = {
+                    "case": list(case), "max_abs_err": 0.0,
+                    "ms": device_ms(lambda: rglru.gated_linear_scan_bwd(
+                        a, h, dh), 10, flush),
+                    "plain_ms": plain_ms, "library_ms": None,
+                    **scan_bounds("gated_linear_scan_bwd", case, dtype),
+                    **scan_sfu_floor("gated_linear_scan_bwd", case, clock)}
+            del a, b, h, dh, got, plain
+    del flush
+    free()
+    emit({"phase": "scan_bwd", "rel": {str(d).split(".")[-1]: r
+                                       for d, r in BWD_REL.items()},
+          "rule": "row max |kernel - f64| <= 2 x plain's + rel x row max",
+          "checked": checked, "full_width": figures,
+          "library": "none: no single PyTorch call computes either backward",
+          "seconds": time.perf_counter() - t0})
+    rows_failed({k: v for k, v in checked.items() if "row_ratio" in v})
+    return {"selective_scan_bwd": figures["selective_scan_bwd bfloat16"],
+            "gated_linear_scan_bwd": figures["gated_linear_scan_bwd float32"]}
+
+
+def router_bwd_phase():
+    """The router's backward kernel against its plain version (f32) and
+    the f64 exact, token by token, at kimi's (E 384, K 8) and arctic's
+    (E 128, K 2) widths at T 8, 128 and 8,192, with and without repeated
+    logits and renormalisation, on the forward kernel's choices; timed by
+    ``device_ms`` (L2 warm, as the backward finds the logits the forward
+    saved) beside its bound.  Returns kimi's figures at T 8,192."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    checked, figures = {}, {}
+    for arch in ROUTER_ARCHS:
+        E, K = ARCHS[arch].n_experts, ARCHS[arch].top_k
+        for T in ROUTER_T:
+            for ties in (False, True):
+                logits = router_logits(T, E, gen, ties=ties)
+                words, _ = mr.moe_router(logits, k=K, capacity=T * K)
+                e = words[0].contiguous()
+                dw = torch.randn((T, K), generator=gen, device="cuda")
+                errs = []
+                for renormalize in (True, False):
+                    got = mr.moe_router_bwd(logits, e, dw,
+                                            renormalize=renormalize)
+                    plain = ref.route_topk_bwd(logits, e, dw,
+                                               renormalize=renormalize)
+                    exact = ref.route_topk_bwd(logits, e, dw,
+                                               renormalize=renormalize,
+                                               acc=torch.float64)
+                    key = f"{arch} T {T} ties {ties} renorm {renormalize}"
+                    err, ratio = rows_exact(
+                        f"moe_router_bwd {key}", got, plain, exact,
+                        ROUTER_BWD_REL, E)
+                    checked[key] = {"max_abs_err": err, "row_ratio": ratio}
+                    errs.append(err)
+                if not ties:
+                    nbytes, flops = cost.router_bwd_work(T, E, K)
+                    figures[f"{arch} T {T}"] = {
+                        "E": E, "K": K, "T": T, "max_abs_err": max(errs),
+                        "ms": device_ms(lambda: mr.moe_router_bwd(
+                            logits, e, dw), 20),
+                        "ms_l2_flushed": device_ms(lambda: mr.moe_router_bwd(
+                            logits, e, dw), 20, flush),
+                        "plain_ms": cuda_time_ms(lambda: ref.route_topk_bwd(
+                            logits, e, dw), 5, flush),
+                        "library_ms": None,
+                        **cost.bound(nbytes, flops, torch.float32),
+                        "bytes": nbytes, "flops": flops}
+    del flush
+    emit({"phase": "router_bwd", "rel": ROUTER_BWD_REL,
+          "checked": checked, "figures": figures,
+          "library": "none: no single PyTorch call computes it",
+          "seconds": time.perf_counter() - t0})
+    rows_failed(checked)
+    return figures[f"{ROUTER_ARCHS[0]} T {ROUTER_T[-1]}"]
+
+
+TRAIN_SSM = [  # arch, layers, batch, seq
+    ("falcon-mamba-7b", 8, 1, 4096),
+    # the two rec layers of a (rec, rec, local) group: the local layers'
+    # head dim of 256 is outside the flash kernels' (16, 32, 64, 128), so
+    # they cannot train on the card (ROADMAP.md, fault F4c)
+    ("recurrentgemma-9b", 2, 1, 4096),
+]
+TRAIN_SSM_STEPS = 3
+SCAN_TRAIN = {  # the block kind, its forward and backward kernels
+    "falcon-mamba-7b": ("mamba", "selective_scan", "selective_scan_bwd"),
+    "recurrentgemma-9b": ("rec", "gated_linear_scan",
+                          "gated_linear_scan_bwd"),
+}
+
+
+def train_record(arch, cfg, B, S, params, history, launches, want, steps):
+    """Gate a ``Trainer`` run (finite losses and grad norms, step 0 near
+    ln(vocab), launches as counted) and return its figures."""
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    lo, hi = ln_vocab_range(cfg.vocab)
+    if launches != want:
+        raise AssertionError(f"train {arch}: launches {launches}, want {want}")
+    if len(history) != steps or not all(
+            math.isfinite(x) for x in losses + norms) or not (
+            lo <= losses[0] <= hi):
+        raise AssertionError(f"train {arch}: losses {losses}, grad norms "
+                             f"{norms}, step 0 outside {(lo, hi)}")
+    step_ms = [1e3 * h["step_time_s"] for h in history]
+    return {"layers": cfg.n_layers, "layers_published": ARCHS[arch].n_layers,
+            "batch": B, "seq": S,
+            "params": sum(t.numel() for t in tree_leaves(params)),
+            "losses": losses, "grad_norms": norms, "step0_range": [lo, hi],
+            "step_ms": step_ms, "step_ms_last": step_ms[-1],
+            "tok_per_s": B * S / (step_ms[-1] / 1e3),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches,
+            "reduced": {"n_layers": [ARCHS[arch].n_layers, cfg.n_layers]}}
+
+
+def run_trainer(cfg, B, S, table, steps, keep=None):
+    """``Trainer`` (full remat, AdamW) for ``steps`` steps from seeded
+    weights; the kernels of ``table`` counted from 0 over the run alone.
+    Returns (params, history, launches, copies of the leaves ``keep``
+    picks from the initial parameters)."""
+    model = build_model(cfg)
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, weight_decay=0.0)
+    trainer = Trainer(model, RunCtx(remat="full"), opt, TrainerConfig(
+        steps=steps, ga_steps=1, log_every=1, ckpt_every=0))
+    params, opt_state = trainer.init(
+        torch.Generator(device="cuda").manual_seed(0))
+    kept = [t.detach().clone() for t in keep(params)] if keep else None
+    loader = Loader(SyntheticLM(cfg, B, S, seed=0), device="cuda")
+    try:
+        reset_counts(table)  # the main path starts here
+        params, opt_state, history = trainer.run(params, opt_state, loader)
+        launches = counts(table)
+    finally:
+        loader.close()
+    del opt_state, trainer
+    return params, history, launches, kept
+
+
+def train_ssm_phase():
+    """``Trainer`` with the default ``RunCtx`` scans (``scan_impl`` "ref":
+    the scan kernels and their backward kernels) and full remat, AdamW, 3
+    steps: falcon-mamba-7b on 8 layers and recurrentgemma-9b on its 2 rec
+    layers, both at full width, 1 x 4,096.  Returns the launches."""
+    t0 = time.perf_counter()
+    table = {**FLASH_KERNELS, **{n: ALL_KERNELS[n] for n in (
+        "selective_scan", "gated_linear_scan")},
+        **{n: BWD_KERNELS[n] for n in ("selective_scan_bwd",
+                                       "gated_linear_scan_bwd")}}
+    total = {name: 0 for name in table}
+    out = {}
+    for arch, layers, B, S in TRAIN_SSM:
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(ARCHS[arch], n_layers=layers)
+        if RunCtx().scan_impl != "ref":
+            raise AssertionError("the default RunCtx no longer scans 'ref'")
+        params, history, launches, _ = run_trainer(cfg, B, S, table,
+                                                   TRAIN_SSM_STEPS)
+        kind, fwd, bwd = SCAN_TRAIN[arch]
+        n_scan = cfg.layer_kinds().count(kind)
+        n_flash = cfg.layer_kinds().count("local")
+        want = {k: 0 for k in table}
+        want.update({k: v * TRAIN_SSM_STEPS
+                     for k, v in train_launches(n_flash).items()})
+        want[fwd] = 2 * n_scan * TRAIN_SSM_STEPS  # the step's and the recompute's
+        want[bwd] = n_scan * TRAIN_SSM_STEPS
+        out[arch] = train_record(arch, cfg, B, S, params, history, launches,
+                                 want, TRAIN_SSM_STEPS)
+        out[arch].update({"scan_impl": RunCtx().scan_impl,
+                          "scan_layers": n_scan, "flash_layers": n_flash})
+        for k, v in launches.items():
+            total[k] += v
+        del params, history
+    free()
+    emit({"phase": "train_ssm", "archs": out, "remat": "full",
+          "steps": TRAIN_SSM_STEPS, "launches": total, "card": card(),
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+TRAIN_MOE_T = 1024  # tokens through one full-width MoE layer
+# A row's max |kernel route - plain route| over the row's max |plain|.
+# The routes' forwards differ only in the weights' last bits (the kernel's
+# within 1e-6 of the plain's), so the cotangents of the bf16 expert
+# products round differently here and there: the router's gradient (f32,
+# through the router backward) within 2**-7 of a column's max, the
+# input's (through the bf16 experts) within 2**-6 of a row's, a few bf16
+# ulps of the row's largest entry.
+TRAIN_MOE_TOL = {"router": 2.0**-7, "input": 2.0**-6}
+MOE_TRAIN = dict(layers=2, experts=8, batch=1, seq=2048)  # arctic's Trainer run
+
+
+def plain_router(logits, *, k, capacity, renormalize=True):
+    """The router's plain route on the card: ``ref.route_topk`` with its
+    weights differentiable through autograd (the reference's gradient)."""
+    return ref.route_topk(logits, k=k, capacity=capacity,
+                          renormalize=renormalize)
+
+
+def moe_layer_grads(p, cfg, x, dy, route):
+    """The router's and the input's gradients of one ``moe`` layer (its
+    experts frozen) for the cotangent ``dy``, the router through
+    ``route`` (``ops.moe_router``, or the plain route)."""
+    keep = ops.moe_router
+    ops.moe_router = route
+    try:
+        xx = x.detach().requires_grad_()
+        y = moe_layers.apply_moe(p, cfg, RunCtx(), xx)
+        g_router, g_x = torch.autograd.grad(y, [p["router"], xx], dy)
+    finally:
+        ops.moe_router = keep
+    return g_router, g_x
+
+
+def router_weights(params):
+    """The ``router`` leaves of a parameter tree."""
+    if isinstance(params, dict):
+        return [t for k, v in params.items() for t in (
+            [v] if k == "router" else router_weights(v))]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in router_weights(v)]
+    return []
+
+
+def train_moe_phase():
+    """(a) One ``moe`` layer at full width, kimi-k2 then arctic, experts
+    frozen, T 1,024: the router's and the input's gradients through the
+    kernels (forward and backward) against the plain route on the same
+    inputs, expert column by column and token row by token row; one
+    router and one router-backward launch a call.  (b) ``Trainer`` for
+    arctic-480b on 2 layers of 8 experts (full width otherwise), 1 x
+    2,048, 3 steps: one router backward a ``moe`` layer a step, the
+    routers' weights moved by AdamW.  Returns the router kernels'
+    launches."""
+    t0 = time.perf_counter()
+    table = {"moe_router": ALL_KERNELS["moe_router"],
+             "moe_router_bwd": BWD_KERNELS["moe_router_bwd"]}
+    total = {k: 0 for k in table}
+    layers_out = {}
+    for arch in ROUTER_ARCHS:
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = ARCHS[arch]
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        p = moe_layers.moe_init(cfg, RunCtx(), gen)
+        for t in tree_leaves(p):
+            t.requires_grad_(False)
+        p["router"].requires_grad_(True)
+        x = (torch.randn((1, TRAIN_MOE_T, cfg.d_model), generator=gen,
+                         device="cuda") * 0.5).to(cfg.dtype)
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(cfg.dtype)
+        reset_counts(table)  # the main path starts here
+        got = moe_layer_grads(p, cfg, x, dy, ops.moe_router)
+        torch.cuda.synchronize()
+        launches = counts(table)
+        if launches != {"moe_router": 1, "moe_router_bwd": 1}:
+            raise AssertionError(f"train_moe {arch}: launches {launches}")
+        want = moe_layer_grads(p, cfg, x, dy, plain_router)
+        ratios = {}
+        for name, g, w, dim in (("router", got[0], want[0], 0),
+                                ("input", got[1], want[1], -1)):
+            g, w = g.float().movedim(dim, -1), w.float().movedim(dim, -1)
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"train_moe {arch} {name}: non-finite")
+            err = (g - w).abs().amax(-1)
+            ratio = float((err / (TRAIN_MOE_TOL[name] * w.abs().amax(-1)
+                                  + 1e-30)).max())
+            if not ratio <= 1.0:
+                raise AssertionError(f"train_moe {arch} {name}: a row lies "
+                                     f"{ratio} x {TRAIN_MOE_TOL[name]} x its "
+                                     "max from the plain route")
+            ratios[name] = ratio
+        layers_out[arch] = {
+            "E": cfg.n_experts, "K": cfg.top_k, "D": cfg.d_model,
+            "F": cfg.d_ff, "T": TRAIN_MOE_T,
+            "expert_gb": 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * 2 / 1e9,
+            "row_ratio": ratios, "tol": TRAIN_MOE_TOL, "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        for k, v in launches.items():
+            total[k] += v
+        del p, x, dy, got, want
+    # (b) arctic through Trainer
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    arch = "arctic-480b"
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=MOE_TRAIN["layers"],
+                              n_experts=MOE_TRAIN["experts"])
+    B, S = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    params, history, launches, init = run_trainer(
+        cfg, B, S, table, TRAIN_SSM_STEPS, keep=router_weights)
+    n_moe = cfg.layer_kinds().count("moe")
+    want = {"moe_router": 2 * n_moe * TRAIN_SSM_STEPS,
+            "moe_router_bwd": n_moe * TRAIN_SSM_STEPS}
+    trained = train_record(arch, cfg, B, S, params, history, launches, want,
+                           TRAIN_SSM_STEPS)
+    # one change a moe layer (a stacked leaf holds a segment's layers)
+    moved = [float((a.detach().float() - b.float()).abs().max())
+             for leaf, b0 in zip(router_weights(params), init)
+             for a, b in zip(leaf.reshape((-1,) + b0.shape[-2:]),
+                             b0.reshape((-1,) + b0.shape[-2:]))]
+    if len(moved) != n_moe or not all(m > 0 for m in moved):
+        raise AssertionError(f"train_moe: the routers' weights did not move "
+                             f"({moved})")
+    trained["reduced"]["n_experts"] = [ARCHS[arch].n_experts, cfg.n_experts]
+    trained["router_max_change"] = moved
+    for k, v in launches.items():
+        total[k] += v
+    del params, history, init
+    free()
+    emit({"phase": "train_moe", "layers": layers_out, "arctic": trained,
+          "launches": total, "card": card(),
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+# --------------------------------------------------------------------------- #
 # the analysis tools against real qwen3-4b steps (launch/dryrun.py)
 # --------------------------------------------------------------------------- #
 DRYRUN_ARCH = "qwen3-4b"
@@ -4847,7 +5329,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    sources = build.sources()  # every csrc/*.cu: eight libraries
+    sources = build.sources()  # every csrc/*.cu: eleven libraries
     seconds = build.build_all(sources)
     emit({"phase": "build", "kernels": sources, "seconds": seconds,
           "arch": "sm_90a", "nvcc_flags": list(build.NVCC_FLAGS)})
@@ -4900,6 +5382,11 @@ def main():
     zoo_ep = timed(moe_ep_phase)
     slice15 = {k: zoo_serve[k] + zoo_train.get(k, 0) + zoo_ep[k]
                for k in zoo_serve}
+    bwd_figures = timed(scan_bwd_phase)
+    bwd_figures["moe_router_bwd"] = timed(router_bwd_phase)
+    slice18 = dict(timed(train_ssm_phase))
+    for k, n in timed(train_moe_phase).items():
+        slice18[k] = slice18.get(k, 0) + n
     dryrun_launches = timed(dryrun_phase)
     router_launches += slice15["moe_router"]
     emit({"phase": "timing", "build_s": seconds,
@@ -4936,7 +5423,7 @@ def main():
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
         "launches": flash_launches[name] + slice14[name] + slice15[name]
-        + dryrun_launches.get(name, 0),
+        + dryrun_launches.get(name, 0) + slice18.get(name, 0),
         **{key: flash_figures[name][key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by")},
         # the device's time alone, the kernel's and the library call's
@@ -4946,7 +5433,7 @@ def main():
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
-        "launches": scan_launches[name] + slice15[name],
+        "launches": scan_launches[name] + slice15[name] + slice18[name],
         **{key: scan_figures[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
@@ -4954,11 +5441,20 @@ def main():
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": f"src/repro/kernels/{where}",
-        "launches": router_launches,
+        "launches": router_launches + slice18[name],
         **{key: router_figures[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-    } for name, (_, src, where) in ROUTER_KERNELS.items()]})
+    } for name, (_, src, where) in ROUTER_KERNELS.items()] + [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        # no TPU kernel: XLA's autodiff of the reference's plain oracle
+        "replaces": f"src/repro/kernels/{where}",
+        "launches": slice18[name],
+        **{key: bwd_figures[name][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, (_, src, where) in BWD_KERNELS.items()]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -48,6 +48,9 @@ __all__ = [
     "gascore_bytes",
     "scan_work",
     "router_work",
+    "router_bwd_work",
+    "exponentials",
+    "SFU_PER_CLOCK",
     "kernel",
     "counting",
     "per_rank",
@@ -160,22 +163,57 @@ def gascore_bytes(name: str, n: int, row_bytes: int) -> int:
 # --------------------------------------------------------------------------- #
 def scan_work(name: str, case: Tuple[int, ...],
               dtype: torch.dtype) -> Tuple[int, int]:
-    """``(bytes, flops)`` of a scan: ``selective_scan`` on ``(B, S, Di,
-    N)`` (x in and y out in ``dtype``, dt in f32, the B and C rows in
-    ``dtype``, A, D and the final state in f32), ``gated_linear_scan`` on
-    ``(B, S, W)`` (a, b in and h out in ``dtype``).  Per (b, t, channel, state) of the selective scan: dt*A, exp,
-    decay*h, dx*B, +, C*h, + (an exponential counts as one operation);
-    per (b, t, channel): dt*x, D*x, +.  The RG-LRU: a*h + b."""
+    """``(bytes, flops)`` of a scan or its backward.
+
+    ``selective_scan`` on ``(B, S, Di, N)`` (x in and y out in ``dtype``,
+    dt in f32, the B and C rows in ``dtype``, A, D and the final state in
+    f32): per (b, t, channel, state) dt*A, exp, decay*h, dx*B, +, C*h, +
+    (an exponential counts as one operation); per (b, t, channel) dt*x,
+    D*x, +.  ``selective_scan_bwd`` (x, dt, dy in and dx, ddt out; B, C
+    in and dB, dC out; A, D in and dA, dD out): per (b, t, channel,
+    state) the forward's state (5 operations) and the reverse step's 14
+    (exp, C*dy, +, B*gh, +, gh*h, *decay, *A, +, *dt, +, decay*gh,
+    dx*gh, dy*h); per (b, t, channel) 9 (dt*x, D*dy, dt*sb, +, x*sb, +,
+    dy*x, +, and the sums' last add).  ``gated_linear_scan`` on ``(B, S,
+    W)`` (a, b in and h out in ``dtype``): a*h + b;
+    ``gated_linear_scan_bwd`` (a, h, dh in and da, db out): a*g + dh,
+    g*h."""
     elem = _elem(dtype)
     if name == "selective_scan":
         B, S, Di, N = case
         nbytes = (B * S * Di * (2 * elem + 4) + 2 * B * S * N * elem
                   + Di * N * 4 + Di * 4 + B * Di * N * 4)
         return nbytes, B * S * Di * (7 * N + 3)
+    if name == "selective_scan_bwd":
+        B, S, Di, N = case
+        nbytes = (B * S * Di * (3 * elem + 8) + 4 * B * S * N * elem
+                  + 2 * Di * N * 4 + 2 * Di * 4)
+        return nbytes, B * S * Di * (19 * N + 9)
     if name == "gated_linear_scan":
         B, S, W = case
         return 3 * B * S * W * elem, 2 * B * S * W
+    if name == "gated_linear_scan_bwd":
+        B, S, W = case
+        return 5 * B * S * W * elem, 3 * B * S * W
     raise ValueError(f"no scan {name!r}")
+
+
+# Hopper's special-function units return 16 exponentials a clock per SM
+SFU_PER_CLOCK = 16
+
+
+def exponentials(name: str, case: Tuple[int, ...]) -> int:
+    """The exponentials a kernel's function needs, each computed once:
+    one per (b, t, channel, state) of the selective scan and of its
+    backward (exp(dt A), kept from the forward pass), one per logit of
+    the router and of its backward (the softmax), none for the RG-LRU
+    scans.  ``case`` is :func:`scan_work`'s, or ``(T, E)``."""
+    if name in ("selective_scan", "selective_scan_bwd", "moe_router",
+                "moe_router_bwd"):
+        return int(np.prod(case[:4] if "scan" in name else case[:2]))
+    if name in ("gated_linear_scan", "gated_linear_scan_bwd"):
+        return 0
+    raise ValueError(f"no kernel {name!r}")
 
 
 def router_work(T: int, E: int, K: int) -> Tuple[int, int]:
@@ -183,6 +221,16 @@ def router_work(T: int, E: int, K: int) -> Tuple[int, int]:
     once and 13 bytes written per choice; per logit a subtract, an exp,
     an add, a divide, and a compare in each of K rounds."""
     return 4 * T * E + 13 * T * K, T * E * (4 + K)
+
+
+def router_bwd_work(T: int, E: int, K: int) -> Tuple[int, int]:
+    """``(bytes, flops)`` of the router's backward: the (T, E) f32 logits
+    read and dlogits written once, the expert indices and the weights'
+    cotangents (4 bytes each a choice) read once; per logit a compare,
+    a subtract, an exp, an add, a divide, a subtract and a multiply (the
+    softmax, then p (g - <p, g>)); per choice 6 (the renormalisation's
+    backward and the <p, g> sum)."""
+    return 8 * T * E + 8 * T * K, 7 * T * E + 6 * T * K
 
 
 # --------------------------------------------------------------------------- #

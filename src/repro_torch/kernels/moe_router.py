@@ -10,10 +10,18 @@ outputs (in the grid plan with the kernel's scratch of per-CTA counts
 behind them), launches the kernel once on PyTorch's current stream and
 counts the launches.
 
-The wrapper takes CUDA tensors only.  CPU tensors go to the plain version
-``repro_torch.kernels.ref.route_topk`` through ``repro_torch.kernels.ops``.
-There is no backward kernel (the reference routes forward only): a call
-that would need a gradient raises.
+The weights' gradient in the logits is a hand kernel too,
+``csrc/moe_router_bwd.cu`` (the reference differentiates its plain
+``route_topk``; the port routes through a kernel, so its gradient is
+one): :func:`moe_router_bwd` launches it, and ``kernels.ops`` binds it
+to the routing weights (the custom ops ``repro_torch::router_weights``
+and ``repro_torch::moe_router_bwd``).
+
+The wrappers take CUDA tensors only.  CPU tensors go to the plain versions
+``repro_torch.kernels.ref.route_topk`` / ``route_topk_bwd`` through
+``repro_torch.kernels.ops``.  :func:`moe_router` itself refuses a call
+that would need a gradient: ``ops.moe_router`` routes without one and
+makes the weights differentiable after.
 """
 
 from __future__ import annotations
@@ -26,10 +34,11 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["moe_router", "plan", "Plan", "regime_edges", "card", "launch",
-           "NAME"]
+__all__ = ["moe_router", "moe_router_bwd", "plan", "Plan", "regime_edges",
+           "card", "launch", "NAME", "NAME_BWD"]
 
 NAME = "moe_router"
+NAME_BWD = "moe_router_bwd"
 MAX_EXPERTS = 1024  # 32 per lane of the warp that routes a token
 MAX_K = 32  # lane j keeps choice j
 CTA, CLUSTER, GRID = 0, 1, 2  # the kernel's modes
@@ -41,6 +50,7 @@ CLUSTER_WARPS = 12  # warps a CTA at most in the cluster plan
 GRID_WARPS = 16  # warps a CTA in the grid plan while a token a warp fits
 
 _fns = None
+_bwd = None
 _cards: Dict[int, Tuple[int, int]] = {}
 
 
@@ -152,8 +162,8 @@ def moe_router(
         )
     if torch.is_grad_enabled() and logits.requires_grad:
         raise RuntimeError(
-            "moe_router has no backward kernel: call it under "
-            "torch.no_grad(), or on the CPU for differentiable weights"
+            "moe_router routes without a gradient: ops.moe_router makes "
+            "its weights differentiable after"
         )
     if logits.dtype != torch.float32:
         raise TypeError(f"logits {logits.dtype}: the router takes float32")
@@ -179,3 +189,59 @@ def moe_router(
 
 
 moe_router.launches = 0
+
+
+def _bwd_kernel():
+    global _bwd
+    if _bwd is None:
+        f = build.load(NAME_BWD).repro_moe_router_bwd
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = [p, p, p, p, i, i, i, i, p]
+        f.restype = ctypes.c_int
+        _bwd = f
+    return _bwd
+
+
+def moe_router_bwd(logits: torch.Tensor, expert_idx: torch.Tensor,
+                   dw: torch.Tensor, *, renormalize: bool = True
+                   ) -> torch.Tensor:
+    """Launch the backward kernel; returns dlogits (T, E) f32, the
+    gradient of the routing weights in the logits for their cotangent
+    dw.  logits (T, E) f32, expert_idx (T, K) int32 (the forward's
+    choices) and dw (T, K) f32, contiguous."""
+    if logits.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel needs CUDA tensors, got {logits.device}")
+    for name, t in (("expert_idx", expert_idx), ("dw", dw)):
+        if t.device != logits.device:
+            raise ValueError(f"{name} on {t.device}, logits on {logits.device}")
+    if logits.dtype != torch.float32 or dw.dtype != torch.float32:
+        raise TypeError(f"logits {logits.dtype}, dw {dw.dtype}: float32")
+    if expert_idx.dtype != torch.int32:
+        raise TypeError(f"expert_idx {expert_idx.dtype}: int32")
+    if logits.dim() != 2:
+        raise ValueError(f"logits {tuple(logits.shape)}: want (T, E)")
+    T, E = logits.shape
+    K = expert_idx.shape[-1] if expert_idx.dim() == 2 else -1
+    if expert_idx.shape != (T, K) or dw.shape != (T, K):
+        raise ValueError(
+            f"expert_idx {tuple(expert_idx.shape)}, dw {tuple(dw.shape)}: "
+            f"want ({T}, K)")
+    if not 1 <= K <= min(MAX_K, E):
+        raise ValueError(f"k={K}: the kernel takes 1..{min(MAX_K, E)}")
+    if not all(t.is_contiguous() for t in (logits, expert_idx, dw)):
+        raise ValueError("logits, expert_idx and dw must be contiguous")
+    out = torch.empty_like(logits)
+    if T == 0:
+        return out
+    err = _bwd_kernel()(
+        logits.data_ptr(), expert_idx.data_ptr(), dw.data_ptr(),
+        out.data_ptr(), T, E, K, int(bool(renormalize)),
+        torch.cuda.current_stream(logits.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"moe_router_bwd launch failed: CUDA error {err}")
+    moe_router_bwd.launches += 1
+    return out
+
+
+moe_router_bwd.launches = 0

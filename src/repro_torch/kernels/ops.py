@@ -4,10 +4,15 @@ The reference picks ``impl="ref"|"pallas"`` by flag.  The port picks by
 where the data lies: a CUDA tensor goes to the hand-written kernel (which
 raises on what it cannot take — there is no fallback), a CPU tensor to
 the plain PyTorch version in ``repro_torch.kernels.ref``, a ``meta``
-tensor (the dry run) to a shape-only stand-in: the plain version where
-its autograd graph matters (the router, and a scan whose inputs need a
-gradient, train through it on the CPU, so a ``meta`` step keeps the same
-backward), else empty results.
+tensor (the dry run) to a shape-only stand-in (the router's forward: its
+plain version, run without a gradient as on the CPU).
+
+Training goes through the same kernels: where an input needs a gradient,
+attention is ``FlashAttention``, the scans ``SelectiveScan`` and
+``GatedLinearScan`` (autograd Functions whose backward is a kernel too)
+and the router's weights ``repro_torch::router_weights`` (whose backward
+is the custom op ``repro_torch::moe_router_bwd``), on every device: the
+kernels on CUDA, their plain versions on the CPU, stand-ins on ``meta``.
 
 Every entry point reports its call to an active op-stream counter as ONE
 op with the work of what it computes (``kernels.cost``), and nothing it
@@ -230,25 +235,134 @@ def _f32_from_bits_vmap(info, in_dims, x):
     return x.view(torch.float32).clone(), in_dims[0]
 
 
+def _router_bwd_work(logits, k):
+    nbytes, flops = cost.router_bwd_work(logits.shape[0], logits.shape[1], k)
+    return cost.kernel("moe_router_bwd", flops, nbytes)
+
+
+@torch.library.custom_op("repro_torch::moe_router_bwd", mutates_args=())
+def _moe_router_bwd_op(logits: torch.Tensor, expert_idx: torch.Tensor,
+                       dw: torch.Tensor, renormalize: bool) -> torch.Tensor:
+    """dlogits (T, E) f32: the routing weights' gradient in the logits
+    for their cotangent dw (T, K), the kernel on CUDA, the plain version
+    on the CPU."""
+    with _router_bwd_work(logits, expert_idx.shape[-1]):
+        if logits.device.type == "cuda":
+            return _moe.moe_router_bwd(logits, expert_idx, dw,
+                                       renormalize=renormalize)
+        if logits.device.type == "cpu":
+            return ref.route_topk_bwd(logits, expert_idx, dw,
+                                      renormalize=renormalize)
+    raise ValueError(f"no moe_router_bwd for device {logits.device}")
+
+
+@_moe_router_bwd_op.register_fake
+def _moe_router_bwd_fake(logits, expert_idx, dw, renormalize):
+    """The shape-only stand-in (``meta``)."""
+    with _router_bwd_work(logits, expert_idx.shape[-1]):
+        return torch.empty_like(logits)
+
+
+def _fold_rows(info, in_dims, *ts):
+    """Each tensor rank-major, its ranks folded into its rows."""
+    out = []
+    for t, dim in zip(ts, in_dims):
+        t = _rank_major(t, dim, info.batch_size)
+        out.append(t.reshape((-1,) + tuple(t.shape[2:])).contiguous())
+    return out
+
+
+@_moe_router_bwd_op.register_vmap
+def _moe_router_bwd_vmap(info, in_dims, logits, expert_idx, dw, renormalize):
+    """ONE call over a vmapped rank axis: the gradient is row by row, so
+    the ranks fold into the rows (the forward launches once a rank only
+    for each rank's capacity)."""
+    n = info.batch_size
+    lg, e, g = _fold_rows(info, in_dims[:3], logits, expert_idx, dw)
+    out = _moe_router_bwd_op(lg, e, g, renormalize)
+    return out.reshape((n, -1) + tuple(out.shape[1:])), 0
+
+
+@torch.library.custom_op("repro_torch::router_weights", mutates_args=())
+def _router_weights(logits: torch.Tensor, expert_idx: torch.Tensor,
+                    weight: torch.Tensor, renormalize: bool) -> torch.Tensor:
+    """The routing weights (a copy of ``weight``, which the router
+    computed without a gradient) as a function of the logits: the
+    backward is ``repro_torch::moe_router_bwd``.  The router's own op
+    returns int32 words, which carry no gradient, so the weights become
+    differentiable here."""
+    return weight.clone()
+
+
+@_router_weights.register_fake
+def _router_weights_fake(logits, expert_idx, weight, renormalize):
+    return torch.empty_like(weight)
+
+
+def _router_weights_setup(ctx, inputs, output):
+    logits, expert_idx, _, renormalize = inputs
+    ctx.save_for_backward(logits, expert_idx)
+    ctx.renormalize = renormalize
+
+
+def _router_weights_backward(ctx, dw):
+    logits, expert_idx = ctx.saved_tensors
+    return (_moe_router_bwd_op(logits, expert_idx, dw.contiguous(),
+                               ctx.renormalize), None, None, None)
+
+
+_router_weights.register_autograd(_router_weights_backward,
+                                  setup_context=_router_weights_setup)
+
+
+@_router_weights.register_vmap
+def _router_weights_vmap(info, in_dims, logits, expert_idx, weight,
+                         renormalize):
+    """ONE call over a vmapped rank axis, the ranks folded into the rows,
+    so the backward is one launch for the group."""
+    n = info.batch_size
+    lg, e, w = _fold_rows(info, in_dims[:3], logits, expert_idx, weight)
+    out = _router_weights(lg, e, w, renormalize)
+    return out.reshape((n, -1) + tuple(out.shape[1:])), 0
+
+
 def moe_router(
     logits: torch.Tensor, *, k: int, capacity: int, renormalize: bool = True
 ):
     """Top-k routing with capacity slots in token order: expert_idx,
     slot, weight and keep, each (T, K), from (T, E) f32 logits.  On the
-    CPU the plain version (differentiable in the weights, as the
-    reference's); on CUDA the kernel, through a custom op whose vmap rule
-    launches it once a rank of an expert-parallel group.  ``meta`` takes
-    the plain version too: its weights keep the CPU's autograd graph."""
+    CPU and ``meta`` the plain version; on CUDA the kernel, through a
+    custom op whose vmap rule launches it once a rank of an
+    expert-parallel group.  Either routes without a gradient; when the
+    logits need one, the weights then pass through
+    ``repro_torch::router_weights``, whose backward is the kernel
+    ``moe_router_bwd`` on CUDA and ``ref.route_topk_bwd`` on the CPU (the
+    reference's gradient: its weights are differentiable in the
+    logits)."""
     if logits.device.type in ("cpu", "meta"):
-        with _router_work(logits, k):
-            return ref.route_topk(logits, k=k, capacity=capacity,
-                                  renormalize=renormalize)
-    if logits.device.type != "cuda":
+        with _router_work(logits, k), torch.no_grad():
+            e, s, w, keep = ref.route_topk(logits, k=k, capacity=capacity,
+                                           renormalize=renormalize)
+    elif logits.device.type == "cuda":
+        words, keep = _moe_router_op(logits.detach(), k, capacity,
+                                     renormalize)
+        if torch._C._functorch.is_batchedtensor(words):
+            e, s, w = words[0], words[1], _f32_from_bits(words[2])
+        else:
+            e, s, w, keep = _moe.unpack(words, keep)
+    else:
         raise ValueError(f"no moe_router for device {logits.device}")
-    words, keep = _moe_router_op(logits, k, capacity, renormalize)
-    if torch._C._functorch.is_batchedtensor(words):
-        return words[0], words[1], _f32_from_bits(words[2]), keep
-    return _moe.unpack(words, keep)
+    if torch.is_grad_enabled() and _unbatched(logits).requires_grad:
+        w = _router_weights(logits, e, w, renormalize)
+    return e, s, w, keep
+
+
+def _unbatched(t: torch.Tensor) -> torch.Tensor:
+    """The tensor under every vmap level (a batched tensor reports no
+    ``requires_grad`` of its own)."""
+    while torch._C._functorch.is_batchedtensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
 
 
 # dispatch/combine are the plain scatter and gather on both devices, as
@@ -285,6 +399,8 @@ def selective_scan(
     if _scan_impl(impl) == "chunked":
         return ref.selective_scan_chunked(x, dt, a, b, c, d, chunk=block_s,
                                           final_state=final_state)
+    if not final_state and _needs_grad(x, dt, a, b, c, d):
+        return _ssm.SelectiveScan.apply(x, dt, a, b, c, d)
     nbytes, flops = cost.scan_work("selective_scan", tuple(x.shape)
                                    + (a.shape[-1],), x.dtype)
     with cost.kernel("selective_scan", flops, nbytes):
@@ -317,10 +433,12 @@ def gated_linear_scan(a: torch.Tensor, b: torch.Tensor, *, impl: str = "ref",
     ``2 * block_s`` steps."""
     if _scan_impl(impl) == "chunked":
         return ref.gated_linear_scan_chunked(a, b, chunk=2 * block_s)
+    if _needs_grad(a, b):
+        return _rglru.GatedLinearScan.apply(a, b)
     nbytes, flops = cost.scan_work("gated_linear_scan", tuple(b.shape),
                                    b.dtype)
     with cost.kernel("gated_linear_scan", flops, nbytes):
-        if b.device.type == "meta" and not _needs_grad(a, b):
+        if b.device.type == "meta":
             return torch.empty_like(b)
         return _on(b, _rglru.gated_linear_scan, ref.gated_linear_scan,
                    "gated_linear_scan")(a, b)

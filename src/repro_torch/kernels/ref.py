@@ -29,11 +29,14 @@ __all__ = [
     "paged_attention",
     "paged_attention_split",
     "route_topk",
+    "route_topk_bwd",
     "moe_dispatch",
     "moe_combine",
     "selective_scan",
     "mamba_final_state",
     "gated_linear_scan",
+    "selective_scan_bwd",
+    "gated_linear_scan_bwd",
     "selective_scan_chunked",
     "gated_linear_scan_chunked",
 ]
@@ -464,6 +467,37 @@ def route_topk(
     )
 
 
+def route_topk_bwd(
+    logits: torch.Tensor,
+    expert_idx: torch.Tensor,
+    dw: torch.Tensor,
+    *,
+    renormalize: bool = True,
+    acc: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The gradient of :func:`route_topk`'s weights in the logits: dlogits
+    (T, E) from the chosen experts ``expert_idx`` (T, K) and the weights'
+    cotangent ``dw`` (T, K), computed and returned in ``acc`` (f32; f64
+    gives the exact values a kernel is held to).  p = softmax(logits) is
+    recomputed; dw is carried back through the renormalisation ``w = p_K
+    / max(s, 1e-9)`` (the clamp passes its gradient where ``s >= 1e-9``,
+    as ``torch.clamp`` does) onto the K chosen p, scattered into g (T,
+    E), and ``dlogits = p * (g - <p, g>)``."""
+    p = torch.softmax(logits.to(acc), dim=-1)
+    idx = expert_idx.long()
+    pk = p.gather(1, idx)
+    dw = dw.to(acc)
+    if renormalize:
+        s = pk.sum(dim=-1, keepdim=True)
+        sc = torch.clamp(s, min=1e-9)
+        dpk = dw / sc - torch.where(s >= 1e-9, (dw * pk).sum(
+            dim=-1, keepdim=True) / (sc * sc), 0.0)
+    else:
+        dpk = dw
+    g = torch.zeros_like(p).scatter(1, idx, dpk)
+    return p * (g - (pk * dpk).sum(dim=-1, keepdim=True))
+
+
 def moe_dispatch(
     tokens: torch.Tensor,
     expert_idx: torch.Tensor,
@@ -567,6 +601,104 @@ def gated_linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not ys:
         return torch.empty_like(b)
     return torch.stack(ys, 1).to(b.dtype)
+
+
+def selective_scan_bwd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    d: torch.Tensor,
+    dy: torch.Tensor,
+    chunk: int = 16,
+    *,
+    acc: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`selective_scan` for the cotangent ``dy`` of
+    y: ``(dx, ddt, dA, dB, dC, dD)``, the algorithm of the CUDA kernel
+    (``csrc/ssm_scan_bwd.cu``) in plain torch, summed in ``acc``.
+
+    The forward runs once, keeping the state at the start of every
+    ``chunk`` of steps; the chunks are then walked in reverse, h
+    recomputed inside each from its start state, and the reverse state
+    scan ``gh_t = C_t dy_t + exp(dt_{t+1} A) gh_{t+1}`` run through it:
+
+      dx_t  = D dy_t + dt_t (B_t . gh_t),
+      ddt_t = x_t (B_t . gh_t) + sum_n gh_t h_{t-1} exp(dt_t A) A,
+      dA    = sum_{b,t} gh_t h_{t-1} exp(dt_t A) dt_t,
+      dB_t  = sum_i dt_t x_t gh_t,   dC_t = sum_i dy_t h_t,
+      dD    = sum_{b,t} dy_t x_t.
+
+    Results in the inputs' dtypes with ``acc`` f32; left in ``acc``
+    otherwise (an f64 ``acc`` gives the exact sums a kernel is held to)."""
+    Bn, S, Di = x.shape
+    N = a.shape[1]
+    xf, dtf, af = x.to(acc), dt.to(acc), a.to(acc)
+    bf, cf, df, dyf = b.to(acc), c.to(acc), d.to(acc), dy.to(acc)
+    chunk = max(1, int(chunk))
+
+    def step(h, t):
+        decay = torch.exp(dtf[:, t, :, None] * af[None])
+        return decay * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+
+    h = torch.zeros((Bn, Di, N), dtype=acc, device=x.device)
+    starts = []
+    for t in range(S):
+        if t % chunk == 0:
+            starts.append(h)
+        h = step(h, t)
+    dx = torch.zeros((Bn, S, Di), dtype=acc, device=x.device)
+    ddt = torch.zeros_like(dx)
+    db = torch.zeros((Bn, S, N), dtype=acc, device=x.device)
+    dc = torch.zeros_like(db)
+    da = torch.zeros((Di, N), dtype=acc, device=x.device)
+    r = torch.zeros((Bn, Di, N), dtype=acc, device=x.device)
+    for ci in reversed(range(len(starts))):
+        t0 = ci * chunk
+        hs = [starts[ci]]
+        for t in range(t0, min(S, t0 + chunk)):
+            hs.append(step(hs[-1], t))
+        for t in reversed(range(t0, min(S, t0 + chunk))):
+            decay = torch.exp(dtf[:, t, :, None] * af[None])
+            hprev, ht = hs[t - t0], hs[t - t0 + 1]
+            gh = cf[:, t, None, :] * dyf[:, t, :, None] + r
+            sb = (gh * bf[:, t, None, :]).sum(-1)
+            dx[:, t] = df[None] * dyf[:, t] + dtf[:, t] * sb
+            gdec = gh * hprev * decay
+            ddt[:, t] = xf[:, t] * sb + (gdec * af[None]).sum(-1)
+            da = da + (gdec * dtf[:, t, :, None]).sum(0)
+            db[:, t] = ((dtf[:, t] * xf[:, t])[..., None] * gh).sum(1)
+            dc[:, t] = (dyf[:, t, :, None] * ht).sum(1)
+            r = decay * gh
+    dd = (dyf * xf).sum((0, 1))
+    outs = (dx, ddt, da, db, dc, dd)
+    if acc != torch.float32:
+        return outs
+    return tuple(g.to(t.dtype) for g, t in zip(outs, (x, dt, a, b, c, d)))
+
+
+def gated_linear_scan_bwd(
+    a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`gated_linear_scan` from its saved output h
+    and the cotangent dh: the reverse scan ``g_t = dh_t + a_{t+1} g_{t+1}``
+    (a multiply, then an add, as the CUDA kernel rounds), ``db = g`` and
+    ``da_t = g_t h_{t-1}`` with h_{-1} = 0; f32 inside, da in a's dtype
+    and db in h's (b's)."""
+    af, hf, dhf = a.float(), h.float(), dh.float()
+    B, S, W = a.shape
+    da = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    g = torch.zeros((B, W), dtype=torch.float32, device=a.device)
+    anext = torch.zeros_like(g)
+    zero = torch.zeros_like(g)
+    for t in reversed(range(S)):
+        g = dhf[:, t] + anext * g
+        db[:, t] = g
+        da[:, t] = g * (hf[:, t - 1] if t > 0 else zero)
+        anext = af[:, t]
+    return da.to(a.dtype), db.to(h.dtype)
 
 
 # --------------------------------------------------------------------------- #

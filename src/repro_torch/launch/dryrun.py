@@ -58,7 +58,7 @@ from repro_torch.parallel.sharding import named_shardings
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 __all__ = ["MESHES", "argument_bytes", "build_ctx", "make_step", "mesh_of",
-           "opt_config", "run_cell", "step_ctx", "step_structs"]
+           "opt_config", "run_cell", "step_structs"]
 
 MESHES = ("single", "multi", "h100")
 OUT_DIR = "results/dryrun_torch"
@@ -114,16 +114,6 @@ def step_structs(model: Model, ctx: RunCtx, shape: ShapeConfig,
     return ((p_struct, batch["token"], batch["positions"], caches),
             (specs, b_specs["token"], b_specs["positions"],
              model.cache_specs(caches, ctx)))
-
-
-def step_ctx(ctx: RunCtx, cfg, shape: ShapeConfig) -> RunCtx:
-    """``ctx`` for the cell's step: the scan kernels have no backward, so
-    a training step of ``mamba`` / ``rec`` blocks scans ``chunked`` (the
-    port's trainable scans, on every device)."""
-    if (shape.kind == "train" and ctx.scan_impl != "chunked"
-            and {"mamba", "rec"} & set(cfg.layer_kinds())):
-        return dataclasses.replace(ctx, scan_impl="chunked")
-    return ctx
 
 
 def make_step(model: Model, ctx: RunCtx, shape: ShapeConfig,
@@ -191,7 +181,6 @@ def run_cell(
     if overrides.get("cfg"):
         cfg = dataclasses.replace(cfg, **overrides["cfg"])
     model = build_model(cfg)
-    ctx = step_ctx(ctx, cfg, shape)
     rec: Dict[str, Any] = {
         "arch": arch,
         "shape": shape.name,

@@ -99,8 +99,9 @@ def test_run_cell_records(arch, tmp_path):
                         [], dtype=st.dtype).element_size()
                 assert arg == want < _cpu_arg_bytes(model, shape)
         if shape.kind == "train" and arch == "falcon-mamba-7b":
-            # the scan kernel has no backward: training scans chunked
-            assert rec["scan_impl"] == "chunked" and rec["kernels"] == {}
+            # training scans through the scan kernel and its backward
+            assert rec["scan_impl"] == "ref"
+            assert rec["kernels"]["selective_scan_bwd"] == SMOKE[arch].n_layers
         elif shape.kind == "train":
             assert rec["scan_impl"] == "ref"
             assert rec["kernels"]["flash_attention_dkv"] == SMOKE[arch].n_layers

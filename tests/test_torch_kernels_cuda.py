@@ -565,13 +565,14 @@ def _check_selective_scan(cuda, B, S, Di, N, dtype, R=5):
 
 @pytest.mark.cuda
 def test_cuda_selective_scan_refusals(cuda):
-    """No backward kernel: a call that needs a gradient raises; wrong
-    dtypes and state sizes are refused; none of them launches."""
+    """The forward wrapper alone refuses a call that needs a gradient
+    (``SelectiveScan`` is the differentiable scan); wrong dtypes and state
+    sizes are refused; none of them launches."""
     from repro_torch.kernels import ssm_scan
 
     x, dt, a, b, c, d = _ssm_inputs(cuda, 1, 8, 32, 16, torch.float32, 0)
     before = ssm_scan.selective_scan.launches
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="forward alone"):
         ssm_scan.selective_scan(x.requires_grad_(), dt, a, b, c, d)
     x = x.detach()
     with pytest.raises(TypeError):
@@ -604,7 +605,7 @@ def test_cuda_gated_linear_scan_matches_plain(cuda, B, S, W, dtype):
     _close(got, want, SCAN_TOL[dtype])
     if dtype == torch.float32:
         assert torch.equal(got, want)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="forward alone"):
         rglru.gated_linear_scan(a.float().clone().requires_grad_(), b.float())
     with pytest.raises(TypeError):
         rglru.gated_linear_scan(a.float(), b.bfloat16())
@@ -831,7 +832,7 @@ def test_cuda_moe_router_refusals(cuda):
         mr.moe_router(torch.randn((4, 1025), device=cuda), k=2, capacity=4)
     with pytest.raises(ValueError, match="k="):
         mr.moe_router(x[:, :4].contiguous(), k=5, capacity=4)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="without a gradient"):
         mr.moe_router(x.clone().requires_grad_(), k=8, capacity=4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         mr.moe_router(x.cpu(), k=8, capacity=4)
@@ -1626,3 +1627,151 @@ def test_cuda_meta_stand_ins_match_the_kernels(cuda):
             (tuple(b.shape), b.dtype) for b in want], name
         assert all(b.device.type == "meta" for b in want), name
         assert on_card.stats().as_dict() == on_meta.stats().as_dict(), name
+
+
+# --------------------------------------------------------------------------- #
+# the backward kernels (csrc/ssm_scan_bwd.cu, csrc/rglru_bwd.cu,
+# csrc/moe_router_bwd.cu) and the training routes through them
+# --------------------------------------------------------------------------- #
+# |kernel - plain f32| <= tol * (1 + max |plain|) of the tensor: the
+# kernels sum in another order (the selective scan's exponentials are
+# ex2.approx); bf16 results are rounded to 8 mantissa bits
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_close(name, got, want, tol):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), name
+    err = float((got - want).abs().max())
+    assert err <= tol * (1 + float(want.abs().max())), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N,R", [
+    (2, 37, 96, 16, 5), (1, 64, 256, 16, 16), (2, 33, 64, 4, 8),
+    (1, 45, 40, 32, 7), (3, 1, 32, 8, 16), (1, 300, 520, 16, 256)])
+def test_cuda_selective_scan_bwd_matches_plain(cuda, B, S, Di, N, R, dtype):
+    """Every gradient of ``ops.selective_scan`` (the ``SelectiveScan``
+    Function: one forward and one backward launch) against the plain
+    backward on the same inputs; S off the kernel's 16-step chunks, ragged
+    channel blocks, B and C strided views of one projection."""
+    from repro_torch.kernels import ssm_scan
+
+    x, dt, a, b, c, d = _ssm_inputs(cuda, B, S, Di, N, dtype, S + Di, R)
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a, d)]
+    dbc = torch.cat([torch.zeros((B, S, R), dtype=dtype, device=cuda), b, c],
+                    -1).detach()
+    dbc.requires_grad_()
+    bv, cv = dbc[..., R:R + N], dbc[..., R + N:]
+    dy = torch.randn((B, S, Di), device=cuda).to(dtype)
+    before = (ssm_scan.selective_scan.launches,
+              ssm_scan.selective_scan_bwd.launches)
+    y = ops.selective_scan(leaves[0], leaves[1], leaves[2], bv, cv, leaves[3])
+    got = torch.autograd.grad(y, leaves + [dbc], dy)
+    torch.cuda.synchronize()
+    assert (ssm_scan.selective_scan.launches - before[0],
+            ssm_scan.selective_scan_bwd.launches - before[1]) == (1, 1)
+    want = ref.selective_scan_bwd(x, dt, a, b, c, d, dy)
+    for name, g, w in zip(("dx", "ddt", "dA", "dD"), got, (want[0], want[1],
+                                                           want[2], want[5])):
+        assert g.dtype == w.dtype, name
+        _bwd_close(name, g, w, BWD_TOL[dtype])
+    _bwd_close("dB", got[4][..., R:R + N], want[3], BWD_TOL[dtype])
+    _bwd_close("dC", got[4][..., R + N:], want[4], BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W", [(2, 128, 256), (3, 77, 200), (1, 1, 32),
+                                   (1, 1000, 4096)])
+def test_cuda_gated_linear_scan_bwd_matches_plain(cuda, B, S, W, dtype):
+    """da and db of ``ops.gated_linear_scan`` (the ``GatedLinearScan``
+    Function) against the plain backward: f32 equal to the last bit (the
+    kernel rounds as the plain version does), bf16 within rounding."""
+    from repro_torch.kernels import rglru
+
+    a, b = _lru_inputs(cuda, B, S, W, dtype)
+    a, b = a.detach().requires_grad_(), b.detach().requires_grad_()
+    dh = torch.randn((B, S, W), device=cuda).to(dtype)
+    before = rglru.gated_linear_scan_bwd.launches
+    h = ops.gated_linear_scan(a, b)
+    da, db = torch.autograd.grad(h, [a, b], dh)
+    torch.cuda.synchronize()
+    assert rglru.gated_linear_scan_bwd.launches == before + 1
+    want = ref.gated_linear_scan_bwd(a.detach(), h.detach(), dh)
+    if dtype == torch.float32:
+        assert torch.equal(da, want[0]) and torch.equal(db, want[1])
+    _bwd_close("da", da, want[0], BWD_TOL[dtype])
+    _bwd_close("db", db, want[1], BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("T,E,K", [(8, 384, 8), (128, 384, 8), (8192, 384, 8),
+                                   (77, 128, 2), (1, 1024, 32), (33, 5, 5)])
+def test_cuda_moe_router_bwd_matches_plain(cuda, T, E, K, ties):
+    """The weights' gradient of ``ops.moe_router`` (one forward and one
+    backward launch) against the plain backward, with and without
+    renormalisation (f32: 1e-6 of the largest |dlogit|)."""
+    from repro_torch.kernels import moe_router as mr
+
+    logits = torch.from_numpy(_router_logits(T, E, ties, T + E)).to(cuda)
+    dw = torch.randn((T, K), device=cuda)
+    for renormalize in (True, False):
+        lg = logits.clone().requires_grad_()
+        before = (mr.moe_router.launches, mr.moe_router_bwd.launches)
+        e, _, w, _ = ops.moe_router(lg, k=K, capacity=T * K,
+                                    renormalize=renormalize)
+        (got,) = torch.autograd.grad(w, lg, dw)
+        torch.cuda.synchronize()
+        assert (mr.moe_router.launches - before[0],
+                mr.moe_router_bwd.launches - before[1]) == (1, 1)
+        want = ref.route_topk_bwd(logits, e, dw, renormalize=renormalize)
+        _bwd_close("dlogits", got, want, 1e-6)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mr.moe_router_bwd(logits.cpu(), e.cpu(), dw.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", [("falcon-mamba-7b", "mamba"),
+                                       ("recurrentgemma-9b", "rec"),
+                                       ("arctic-480b", "moe")])
+def test_cuda_scan_and_router_train_grads_match_cpu(cuda, arch, kind):
+    """SMOKE ``train_loss`` under full remat on the card: one backward
+    launch a layer of the kind (two forwards: the step's and the
+    recompute's), the loss and every gradient as the CPU's plain route
+    gives them (f32: 1e-5 of the loss, 1e-4 of each leaf's largest |g|)."""
+    from repro_torch.compat import tree_leaves, tree_map
+    from repro_torch.configs.registry import SMOKE
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import rglru, ssm_scan
+    from repro_torch.models.build import build_model
+    from repro_torch.parallel.ctx import RunCtx
+
+    fwd, bwd = {"mamba": (ssm_scan.selective_scan,
+                          ssm_scan.selective_scan_bwd),
+                "rec": (rglru.gated_linear_scan, rglru.gated_linear_scan_bwd),
+                "moe": (mr.moe_router, mr.moe_router_bwd)}[kind]
+    cfg = SMOKE[arch]
+    model, ctx = build_model(cfg), RunCtx(remat="full")
+    params = model.init(ctx, torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in SyntheticLM(cfg, 2, 48, seed=2).batch_at(0).items()}
+
+    def loss_and_grads(dev):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
+        loss = model.train_loss(p, ctx, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        return loss.detach().cpu(), [g.cpu() for g in grads]
+
+    want_loss, want = loss_and_grads("cpu")
+    before = fwd.launches, bwd.launches
+    got_loss, got = loss_and_grads(cuda)
+    torch.cuda.synchronize()
+    n = cfg.layer_kinds().count(kind)
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (2 * n, n)
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
