@@ -115,7 +115,9 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              f32, at the reference's small cases (GQA, windows,
              non-causal, bf16) and at the edges of the bf16 kernels'
              tiles (ragged S, ragged q blocks and kv tiles, Sq != Sk, D 16
-             and 32, narrow and causal windows, a GQA group of 7); timed
+             and 32, narrow and causal windows, a GQA group of 7), and at
+             head dim 256 in f32 and bf16 at the edges of its own tiles;
+             timed
              with CUDA events beside their bound (``ms``: events around
              one call, the host's enqueue included; ``device_ms``, and
              the µs, TFLOP/s and share of the bound: the device's time
@@ -126,8 +128,12 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
              the SIMT (f32) ones.  The zoo's training shapes (seamless'
              encoder: B 2, 16 / 16 heads, S 1,024, D 64, non-causal;
              granite's B 2, 48 / 1, S 2,048, causal; gemma3's B 1, 32 / 16,
-             S 4,096, a causal window of 1,024) held to the plain versions
-             and timed by ``device_ms`` beside their bounds.
+             S 4,096, a causal window of 1,024; recurrentgemma-9b's local
+             layers: B 1, 16 / 1, S 4,096, D 256, a causal window of 2,048,
+             and the same heads causal with no window, where SDPA is the
+             yardstick) held to the plain versions (dK and dV at one KV
+             head key row by key row to the f64 sum) and timed by
+             ``device_ms`` beside their bounds.
 8. train   — qwen3-4b at full width and depth (36 layers, bf16, random
              weights from a seeded generator) through ``Trainer``: batch 2 x
              seq 2048, full remat, AdamW with f32 moments, 6 steps (the
@@ -234,8 +240,10 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
 17a. scan_bwd — the two scans' backward kernels (slice 18) against
              their plain versions: the selective scan's (falcon-mamba's
              B 1 x S 4,096 x Di 8,192 x N 16, an odd S of 77, an S of 200
-             off the kernel's 16-step chunks) held row by row to the f64
-             plain (dx, ddt and dB, dC step by step, dA and dD channel by
+             off the kernel's 16-step chunks; the edges of its 32-step
+             tiles and 32-channel blocks: Di 100, 8,200 and 520, N 8, S
+             33, 48 and 1,000, B and C rows off 16 bytes) held row by row
+             to the f64 plain (dx, ddt and dB, dC step by step, dA and dD channel by
              channel: 2 x the f32 plain's error + 2**-8 (bf16 results) or
              1e-4 (f32) x the row's max); the RG-LRU's (recurrentgemma's
              B 1 x S 4,096 x W 4,096, S 77) equal to its plain version bit
@@ -249,13 +257,13 @@ toolkit:  ``python3 chip_smoke.py``.  Phases, one JSON line each:
 17c. train_ssm — ``Trainer`` with the default ``RunCtx`` scans (the scan
              kernels forward and backward), full remat, AdamW, 3 steps at
              full width, 1 x 4,096: falcon-mamba-7b on 8 layers (reduced:
-             n_layers 64 -> 8), recurrentgemma-9b on its 2 rec layers of
-             one (rec, rec, local) group (reduced: n_layers 38 -> 2; its
-             local layers' head dim of 256 has no flash kernel, fault F4c
-             in ROADMAP.md); finite losses and grad norms, step 0 near
-             ln(vocab), two scan forwards (the step's and the
-             recompute's) and one scan backward a scan layer a step, no
-             other kernel.
+             n_layers 64 -> 8), recurrentgemma-9b on two (rec, rec,
+             local) groups (reduced: n_layers 38 -> 6; the local layers
+             through the flash kernels at head dim 256); finite losses
+             and grad norms, step 0 near ln(vocab), two scan forwards
+             (the step's and the recompute's) and one scan backward a
+             scan layer a step, two flash forwards and one dK/dV and one
+             dQ a local layer a step, no other kernel.
 17d. train_moe — (a) one ``moe`` layer at full width, kimi-k2 (33.8 GB of
              experts) then arctic (26.8 GB), experts frozen, T 1,024: the
              router's and the input's gradients through the router kernel
@@ -2465,23 +2473,43 @@ FLASH_SMALL = [
     (1, 4, 2, 320, 128, True, 100, torch.bfloat16),  # a causal window
     # the persistent forward: 320 work tiles of uneven length on 132 SMs
     (4, 16, 4, 640, 128, True, 100, torch.bfloat16),
+    # head dim 256 (recurrentgemma-9b's local layers): f32 through the
+    # streaming SIMT kernels; bf16 at the edges of its tiles (128 q x 64
+    # kv rows forward, 64 q x 64 kv dK/dV, 128 q x 32 kv dQ), MQA at a
+    # group of 16 under a window
+    (1, 4, 1, 256, 256, True, None, torch.float32),
+    (2, 4, 2, 96, 256, True, 40, torch.float32),
+    (1, 4, 2, (128, 192), 256, False, None, torch.float32),
+    (1, 16, 1, 512, 256, True, 128, torch.bfloat16),
+    (2, 4, 2, 96, 256, True, None, torch.bfloat16),  # S not a tile multiple
+    (1, 4, 2, (192, 320), 256, False, None, torch.bfloat16),  # ragged q
+    (2, 4, 2, (256, 96), 256, False, None, torch.bfloat16),  # ragged kv
+    (1, 4, 2, (384, 128), 256, False, 32, torch.bfloat16),  # rows see no key
+    (1, 4, 1, 320, 256, True, 100, torch.bfloat16),  # a causal window
+    (4, 8, 2, 640, 256, True, 100, torch.bfloat16),  # 160 persistent tiles
 ]
 # the zoo's attention shapes in training (bf16): seamless' encoder
 # (non-causal, head dim 64), granite's MQA (a group of 48), gemma3's
-# local layers (a causal window of 1,024 at S 4,096).  At granite's group
+# local layers (a causal window of 1,024 at S 4,096), recurrentgemma-9b's
+# (16 q heads over one KV head of dim 256, a causal window of 2,048 at S
+# 4,096), and the same heads causal with no window, where SDPA computes
+# the same function (the library yardstick at D 256).  At granite's group
 # dK and dV sum 48 Sq terms an element, each with the bf16 kernel's P or
 # dS rounded to 8 bits on the tensor cores: an element small beside its
 # key row's largest may lie a few bf16 ulps of that row from the plain
 # version (0.125 at |dV| < 5.3 in a row reaching 29.8 on an NVIDIA H100
 # 80GB HBM3 at 700 W, tools/flash_gqa_error.py).  So dK and dV at
-# ``FLASH_EXACT`` are held, key row by key row, to the f64 sum of the same
-# inputs (``within_exact``); the other cases elementwise, as the rest.
+# ``FLASH_EXACT`` (the single KV heads: granite's and recurrentgemma's)
+# are held, key row by key row, to the f64 sum of the same inputs
+# (``within_exact``); the other cases elementwise, as the rest.
 FLASH_ZOO = [
     (2, 16, 16, 1024, 64, False, None, torch.bfloat16),
     (2, 48, 1, 2048, 128, True, None, torch.bfloat16),
     (1, 32, 16, 4096, 128, True, 1024, torch.bfloat16),
+    (1, 16, 1, 4096, 256, True, 2048, torch.bfloat16),
+    (1, 16, 1, 4096, 256, True, None, torch.bfloat16),
 ]
-FLASH_EXACT = {FLASH_ZOO[1]}
+FLASH_EXACT = {FLASH_ZOO[1], FLASH_ZOO[3], FLASH_ZOO[4]}
 # |kernel - plain| <= tol * (1 + |plain|) elementwise.  Both sides take f32
 # products from the same inputs: f32 differs by summation order (the
 # forward at the reference's 2e-5, the gradients at its 5e-4); bf16 by the
@@ -2627,12 +2655,12 @@ def sdpa_calls(q, k, v, dout, causal):
 # each flash kernel's name in the libraries' SASS: (library, count of
 # instantiations, whether its products run on the tensor cores)
 FLASH_SASS = {
-    "fwd_bf16_kernel": (fa.NAME, 4, True),  # D 16, 32, 64, 128
-    "dkv_bf16_kernel": (fab.NAME, 4, True),
-    "dq_bf16_kernel": (fab.NAME, 4, True),
-    "dq_kernel": (fab.NAME, 4, False),  # f32
-    "fwd_kernel": (fa.NAME, 4, False),  # f32
-    "dkv_kernel": (fab.NAME, 4, False),  # f32
+    "fwd_bf16_kernel": (fa.NAME, 5, True),  # D 16, 32, 64, 128, 256
+    "dkv_bf16_kernel": (fab.NAME, 5, True),
+    "dq_bf16_kernel": (fab.NAME, 5, True),
+    "dq_kernel": (fab.NAME, 5, False),  # f32
+    "fwd_kernel": (fa.NAME, 5, False),  # f32
+    "dkv_kernel": (fab.NAME, 5, False),  # f32
 }
 SASS_OPS = ("HGMMA", "HMMA", "FFMA")
 
@@ -2917,16 +2945,17 @@ SCAN_KERNELS = {  # wrapper, source, TPU kernel it replaces
 def ssm_inputs(case, dtype, gen):
     """The model's value ranges: dt = softplus(.) log-uniform in [1e-3,
     1e-1], A = -(1..N) per channel; B and C strided views of one
-    (B, S, R + 2N) projection, as the layer slices them."""
-    B, S, Di, N = case
+    (B, S, R + 2N) projection, as the layer slices them (``case`` is
+    (B, S, Di, N) with R 256, or (B, S, Di, N, R))."""
+    B, S, Di, N, R = (tuple(case) + (256,))[:5]
     dev = torch.device("cuda")
     x = torch.randn((B, S, Di), generator=gen, device=dev).to(dtype)
     u = torch.rand((B, S, Di), generator=gen, device=dev)
     dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
     a = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(Di, 1)
-    dbc = torch.randn((B, S, 256 + 2 * N), generator=gen, device=dev).to(dtype)
+    dbc = torch.randn((B, S, R + 2 * N), generator=gen, device=dev).to(dtype)
     d = torch.ones((Di,), device=dev)
-    return x, dt, a, dbc[..., 256:256 + N], dbc[..., 256 + N:], d
+    return x, dt, a, dbc[..., R:R + N], dbc[..., R + N:], d
 
 
 def lru_inputs(case, dtype, gen):
@@ -4725,9 +4754,17 @@ def moe_ep_phase():
 # --------------------------------------------------------------------------- #
 # slice 18: the backward kernels, and training the recurrent and MoE families
 # --------------------------------------------------------------------------- #
-# (B, S, Di, N): falcon-mamba's training shape at full width (B 1 x S 4,096),
-# an odd S (and off the kernel's 16-step chunks), an S off the chunks
-SSM_BWD = [(1, 4096, 8192, 16), (2, 77, 8192, 16), (1, 200, 1024, 16)]
+# (B, S, Di, N[, R]): falcon-mamba's training shape at full width (B 1 x
+# S 4,096), an odd S (and off the kernel's 32-step tiles and 16-step
+# chunks), an S off the chunks; then the edges of the kernel's tiles: Di
+# off its 32-channel blocks (100: rows of 200 bytes in bf16, staged
+# element by element; 8,200 at full width; 520), N 8 and 16, S of one
+# tile and a half, one step past a tile, and B and C views of one
+# projection whose rows start off 16 bytes (R 7 and 5 columns before
+# them; the others 256, as ``ssm_inputs`` slices them)
+SSM_BWD = [(1, 4096, 8192, 16), (2, 77, 8192, 16), (1, 200, 1024, 16),
+           (2, 77, 100, 8, 7), (1, 33, 8200, 16), (3, 48, 64, 8),
+           (1, 1000, 520, 16, 5)]
 # (B, S, W): recurrentgemma's training shape at full width, an odd S
 LRU_BWD = [(1, 4096, 4096), (2, 77, 4096)]
 # Row by row against the f64 plain backward: each row's largest |kernel -
@@ -4811,7 +4848,7 @@ def scan_bwd_phase():
             plain, plain_ms = events_ms(
                 lambda: ref.selective_scan_bwd(*args, dy))
             exact = ref.selective_scan_bwd(*args, dy, acc=torch.float64)
-            B, S, Di, N = case
+            B, S, Di, N = case[:4]
             # dD sums B S products: its scale is the sum of their sizes
             terms = (dy.double().abs() * args[0].double().abs()).sum((0, 1))
             errs, ratios = {}, {}
@@ -4929,10 +4966,10 @@ def router_bwd_phase():
 
 TRAIN_SSM = [  # arch, layers, batch, seq
     ("falcon-mamba-7b", 8, 1, 4096),
-    # the two rec layers of a (rec, rec, local) group: the local layers'
-    # head dim of 256 is outside the flash kernels' (16, 32, 64, 128), so
-    # they cannot train on the card (ROADMAP.md, fault F4c)
-    ("recurrentgemma-9b", 2, 1, 4096),
+    # two (rec, rec, local) groups: 4 rec layers through the RG-LRU
+    # kernels, 2 local layers (head dim 256, 16 q heads over one KV head,
+    # a window of 2,048) through the flash kernels
+    ("recurrentgemma-9b", 6, 1, 4096),
 ]
 TRAIN_SSM_STEPS = 3
 SCAN_TRAIN = {  # the block kind, its forward and backward kernels
@@ -4993,8 +5030,10 @@ def run_trainer(cfg, B, S, table, steps, keep=None):
 def train_ssm_phase():
     """``Trainer`` with the default ``RunCtx`` scans (``scan_impl`` "ref":
     the scan kernels and their backward kernels) and full remat, AdamW, 3
-    steps: falcon-mamba-7b on 8 layers and recurrentgemma-9b on its 2 rec
-    layers, both at full width, 1 x 4,096.  Returns the launches."""
+    steps: falcon-mamba-7b on 8 layers and recurrentgemma-9b on 6 (two
+    (rec, rec, local) groups: its local layers through the flash kernels
+    at head dim 256), both at full width, 1 x 4,096.  Returns the
+    launches."""
     t0 = time.perf_counter()
     table = {**FLASH_KERNELS, **{n: ALL_KERNELS[n] for n in (
         "selective_scan", "gated_linear_scan")},

@@ -53,10 +53,15 @@
 // KB + v 2 x 32 KB = 192 KB of shared memory at D 128 (three k and v
 // stages beside two q slots would need 256). Blocks the mask cuts compare
 // each score with the band of key positions its row sees.
+// At head dim 256 (recurrentgemma's local layers) that layout would take
+// 384 KB: the kernel keeps one q slot (64 KB; the slot is released right
+// after the output store, so the next tile's q waits on it) and k and v
+// tiles of 64 rows (2 x 32 KB each): 193 KB. S is m64n64k16 over 16 steps
+// of K, out += p . v m64n256k16 (128 accumulator registers a thread).
 // f32 keeps the SIMT kernel: one CTA per (q block of 64, q head, batch),
 // scaled q in shared memory, a 4 x 4 block of scores and a 4 x (D / 16)
 // block of the accumulator per thread, f32 FMAs (TF32 would miss the f32
-// tolerance).
+// tolerance); 209 KB of shared memory at D 256.
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -157,7 +162,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // bf16 on the tensor cores (the header's design).
 constexpr int kTcM = 128;  // q rows per work tile: two consumer warpgroups
-constexpr int kTcN = 128;  // kv rows per tile
 constexpr int kTcThreads = 384;  // the two consumers and a producer warpgroup
 // registers per thread after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536
 constexpr int kConsumerRegs = 232;
@@ -165,9 +169,13 @@ constexpr int kProducerRegs = 40;
 
 template <int D>
 struct FwdSmem {
+  // kv rows per tile and q slots: 128 and 2 up to D 128; at D 256 the
+  // same layout would need 384 KB, so kv tiles of 64 rows and one q slot
+  static constexpr int kN = D > 128 ? 64 : 128;
+  static constexpr int kQSlots = D > 128 ? 1 : 2;
   static constexpr int kQ = kTcM * D * 2;   // a q tile (out leaves from it)
-  static constexpr int kKV = kTcN * D * 2;  // a k or a v tile
-  static constexpr int kK = 2 * kQ;         // two q slots, two k, two v
+  static constexpr int kKV = kN * D * 2;    // a k or a v tile
+  static constexpr int kK = kQSlots * kQ;   // the q slots, two k, two v
   static constexpr int kV = kK + 2 * kKV;
   static constexpr int kBars = kV + 2 * kKV;
   // six pairs of mbarriers (q, k, v: full and empty), and 1 KB to align
@@ -177,15 +185,16 @@ struct FwdSmem {
 
 // The online softmax of one step for one thread: its scores s of rows
 // row0 and row0 + 8 (s[4j + 2h + e] is row row0 + 8h, column k0 + 8j +
-// col + e) masked where the block needs it, the running max m (of scores
-// times scale) moved, p = exp(s * scale - m) in s, alpha = exp(m_old - m)
-// for the old sums, sum = the thread's row sums of p.
+// col + e) of a kv tile of 2 NS rows, masked where the block needs it,
+// the running max m (of scores times scale) moved, p = exp(s * scale - m)
+// in s, alpha = exp(m_old - m) for the old sums, sum = the thread's row
+// sums of p.
 template <int NS>
 __device__ __forceinline__ void online_softmax(
     float (&s)[NS], float (&m)[2], float (&alpha)[2], float (&sum)[2],
     int k0, int row0, int col, int q0, int Sq, int Sk, float scale,
     int causal, int window) {
-  if (!block_full(q0, kTcM, k0, kTcN, Sq, Sk, causal, window)) {
+  if (!block_full(q0, kTcM, k0, 2 * NS, Sq, Sk, causal, window)) {
     // `visible` as a band [lo, hi] of key positions per row (empty past
     // Sq), taken relative to the thread's first column, so that each score
     // compares with a constant
@@ -241,12 +250,13 @@ __device__ __forceinline__ int cta_tile(int j) {
 
 // A work tile's place: q block nq - 1 - t / (B Hq) (the late blocks, with
 // the most causal work, come first), head t % (B Hq), and the run of kv
-// blocks [kb_lo, kb_lo + nkv) that the mask leaves visible to it (a band:
-// blocks the mask hides whole are never loaded).
+// blocks of kN rows [kb_lo, kb_lo + nkv) that the mask leaves visible to
+// it (a band: blocks the mask hides whole are never loaded).
 struct Work {
   int q0, b, h, kb_lo, nkv;
 };
 
+template <int kN>
 __device__ __forceinline__ Work work_tile(int t, int nq, int B, int Hq,
                                           int Sq, int Sk, int causal,
                                           int window) {
@@ -256,10 +266,10 @@ __device__ __forceinline__ Work work_tile(int t, int nq, int B, int Hq,
   w.h = t % heads % Hq;
   w.b = t % heads / Hq;
   const int q1 = min(w.q0 + kTcM, Sq);
-  const int nk = (Sk + kTcN - 1) / kTcN;
+  const int nk = (Sk + kN - 1) / kN;
   int lo = nk, hi = -1;
   for (int kb = 0; kb < nk; ++kb) {
-    if (!block_hidden(w.q0, q1, kb * kTcN, min(kb * kTcN + kTcN, Sk), causal,
+    if (!block_hidden(w.q0, q1, kb * kN, min(kb * kN + kN, Sk), causal,
                       window)) {
       lo = min(lo, kb);
       hi = kb;
@@ -280,8 +290,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                     int Sk, float scale, int causal, int window) {
   using L = tc::Tile<D>;
   using S = FwdSmem<D>;
+  constexpr int kTcN = S::kN;   // kv rows per tile
+  constexpr int QS = S::kQSlots;
   constexpr int NO = D / 2;     // accumulator floats per thread (64 x D)
-  constexpr int NS = kTcN / 2;  // score floats per thread (64 x 128)
+  constexpr int NS = kTcN / 2;  // score floats per thread (64 x kTcN)
   constexpr int NP = kTcN / 16;  // A fragments of p
   const int nq = (Sq + kTcM - 1) / kTcM;
   const int n_tiles = nq * B * Hq;
@@ -293,18 +305,20 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const uint32_t raw = tc::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   uint8_t* base_p = smem_raw + (base - raw);
-  // q slot j % 2 holds work tile j; kv block n (counted over all of this
+  // q slot j % QS holds work tile j; kv block n (counted over all of this
   // CTA's tiles) lands in k and v slot n % 2
-  auto q_tile = [&](int slot) { return base + slot * S::kQ; };
+  auto q_tile = [&](int j) { return base + (j % QS) * S::kQ; };
   auto k_tile = [&](int n) { return base + S::kK + (n & 1) * S::kKV; };
   auto v_tile = [&](int n) { return base + S::kV + (n & 1) * S::kKV; };
   // mbarrier `kind` of slot s: kQFull (q has landed),
   // kQEmpty (both consumers' output stores have read the slot), kKFull,
-  // kKEmpty and kVFull, kVEmpty (the 8 consumer warps are done with it)
+  // kKEmpty and kVFull, kVEmpty (the 8 consumer warps are done with it);
+  // q's barriers are those of tile j's slot, j % QS
   enum { kQFull, kQEmpty, kKFull, kKEmpty, kVFull, kVEmpty };
   auto bar = [&](int kind, int s) {
     return base + S::kBars + 8 * (2 * kind + (s & 1));
   };
+  auto qbar = [&](int kind, int j) { return bar(kind, j % QS); };
 
   if (tid == 0) {
     for (int s = 0; s < 2; ++s) {
@@ -330,12 +344,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int j = 0;; ++j) {
         const int t = cta_tile(j);
         if (t >= n_tiles) break;
-        if (j >= 2) tc::mbar_wait(bar(kQEmpty, j), ((j >> 1) - 1) & 1);
-        const Work w = work_tile(t, nq, B, Hq, Sq, Sk, causal, window);
+        if (j >= QS) tc::mbar_wait(qbar(kQEmpty, j), (j / QS - 1) & 1);
+        const Work w = work_tile<kTcN>(t, nq, B, Hq, Sq, Sk, causal, window);
         const int kv = w.b * Hkv + w.h / (Hq / Hkv);
-        tc::mbar_expect(bar(kQFull, j), S::kQ);
-        tc::tma_tile<D, kTcM>(q_tile(j & 1), &tm_q, w.q0, w.b * Hq + w.h,
-                              bar(kQFull, j));
+        tc::mbar_expect(qbar(kQFull, j), S::kQ);
+        tc::tma_tile<D, kTcM>(q_tile(j), &tm_q, w.q0, w.b * Hq + w.h,
+                              qbar(kQFull, j));
         for (int it = 0; it < w.nkv; ++it, ++n) {
           const int k0 = (w.kb_lo + it) * kTcN;
           if (n >= 2) tc::mbar_wait(bar(kKEmpty, n), ((n >> 1) - 1) & 1);
@@ -382,12 +396,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     // The thread that stores a warpgroup's output releases the q slot it
     // left from once TMA has read it: at the next tile's first product (by
     // then long read), before its own next store, or at the end, so that
-    // no warpgroup waits on a store.
+    // no warpgroup waits on a store. With one q slot (D 256) the next
+    // tile's q waits for it, so it releases right after the store.
     int stored = -1;  // the work tile whose slot awaits release
     auto release = [&]() {
       if (tid % 128 == 0 && stored >= 0) {
         tc::bulk_wait_read<0>();
-        tc::mbar_arrive(bar(kQEmpty, stored));
+        tc::mbar_arrive(qbar(kQEmpty, stored));
         stored = -1;
       }
     };
@@ -396,9 +411,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int j = 0;; ++j) {
       const int t = cta_tile(j);
       if (t >= n_tiles) break;
-      tc::mbar_wait(bar(kQFull, j), (j >> 1) & 1);
-      const Work w = work_tile(t, nq, B, Hq, Sq, Sk, causal, window);
-      const uint32_t q_s = q_tile(j & 1);
+      tc::mbar_wait(qbar(kQFull, j), (j / QS) & 1);
+      const Work w = work_tile<kTcN>(t, nq, B, Hq, Sq, Sk, causal, window);
+      const uint32_t q_s = q_tile(j);
       const int row0 = w.q0 + rloc;
 
       float o[NO], m[2], l[2], alpha[2], sum[2];
@@ -485,7 +500,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         if (lane % 4 == 0 && row < Sq) lse[row_base + row] = m[r] + logf(denom);
         l[r] = 1.f / denom;
       }
-      uint8_t* q_p = base_p + (j & 1) * S::kQ;
+      uint8_t* q_p = base_p + (j % QS) * S::kQ;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj)
 #pragma unroll
@@ -504,6 +519,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         }
         stored = j;
       }
+      if constexpr (QS == 1) release();
     }
     release();
     if (wg == 0) tc::bar_sync(1, 256);  // warpgroup 1's last arrival
@@ -515,9 +531,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
                 float scale, int causal, int window, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  constexpr int kN = FwdSmem<D>::kN;
   int e = tc::make_tile_map<D>(&tm_q, q, B * Hq, Sq, kTcM);
-  if (e == 0) e = tc::make_tile_map<D>(&tm_k, k, B * Hkv, Sk, kTcN);
-  if (e == 0) e = tc::make_tile_map<D>(&tm_v, v, B * Hkv, Sk, kTcN);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_k, k, B * Hkv, Sk, kN);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_v, v, B * Hkv, Sk, kN);
   if (e == 0) e = tc::make_tile_map<D>(&tm_o, out, B * Hq, Sq, kTcM / 2);
   if (e != 0) return e;
   cudaError_t a = cudaFuncSetAttribute(
@@ -571,8 +588,8 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 }  // namespace flash
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); lse is f32.
-// All tensors contiguous, (B, H, S, D) row-major; D is 16, 32, 64 or 128;
-// window < 0 means none. Returns cudaGetLastError() after the launch.
+// All tensors contiguous, (B, H, S, D) row-major; D is 16, 32, 64, 128 or
+// 256; window < 0 means none. Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_fwd(int dtype, const void* q,
                                          const void* k, const void* v,
                                          void* out, float* lse, int B, int Hq,
@@ -591,6 +608,9 @@ extern "C" int repro_flash_attention_fwd(int dtype, const void* q,
                                    Sk, scale, causal, window, s);
   if (D == 128)
     return flash::launch_dtype<128>(dtype, q, k, v, out, lse, B, Hq, Hkv, Sq,
+                                    Sk, scale, causal, window, s);
+  if (D == 256)
+    return flash::launch_dtype<256>(dtype, q, k, v, out, lse, B, Hq, Hkv, Sq,
                                     Sk, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

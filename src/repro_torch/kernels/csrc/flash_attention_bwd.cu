@@ -66,6 +66,20 @@
 // holding q, dO and its dQ accumulator and looping over the KV blocks,
 // reading K and V of head h / G in place. Both skip the blocks the mask
 // hides whole. Their products are f32 FMAs.
+// Head dim 256 (recurrentgemma's local layers) needs its own tiles: the
+// layouts above would take 321-384 KB of shared memory and, in dK/dV, 256
+// accumulator registers a thread. A simple layout that is right, not yet
+// a fast one:
+// - bf16 dK/dV: a CTA holds 64 kv rows (K and V 64 KB), two stages of q
+//   and dO (128 KB); both consumers compute S^T and dP^T of those rows
+//   (the products are recomputed once more, 6 of 4 products' work), and
+//   each accumulates dK and dV of one half of D (64 x 128 f32 each, as at
+//   D 128), m64n128k16 from a column offset. 194 KB.
+// - bf16 dQ: kv tiles of 32 rows in three stages beside q and dO (128
+//   KB), dQ += dS . K by m64n256k16. 225 KB.
+// - f32 dK/dV and dQ stream K and V through shared memory each step in
+//   three tiles of 64 x 257 f32 (225 KB and 209 KB); dK/dV keep 128
+//   accumulators a thread.
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -73,22 +87,18 @@
 namespace flash {
 namespace {
 
-// Scores of one (q block, kv block) pair into p and dS (both (64, 64 + 1) in
-// shared memory, [q row][kv row]): p = exp(s - lse) under the mask, and
-// dS = p * (dO . V^T - delta). q_s holds q * scale.
-template <int D>
-__device__ __forceinline__ void p_and_ds(const float* q_s, const float* k_s,
-                                         const float* do_s, const float* v_s,
-                                         const float (&lse)[4],
-                                         const float (&delta)[4], int q0,
-                                         int k0, int Sq, int Sk, bool causal,
-                                         int window, int ty, int tx,
-                                         float* p_s, float* ds_s) {
+// From the scores s = (q * scale) . k^T and dp = dO . V^T of one (q block,
+// kv block) pair, p and dS into shared memory (both (64, 64 + 1), [q
+// row][kv row]): p = exp(s - lse) under the mask, and dS = p * (dp -
+// delta). p_s may be null.
+__device__ __forceinline__ void p_ds_store(const float (&s)[4][4],
+                                           const float (&dp)[4][4],
+                                           const float (&lse)[4],
+                                           const float (&delta)[4], int q0,
+                                           int k0, int Sq, int Sk, bool causal,
+                                           int window, int ty, int tx,
+                                           float* p_s, float* ds_s) {
   constexpr int BP = kBlock + 1;
-  float s[4][4] = {};
-  float dp[4][4] = {};
-  dot_nt<D>(q_s, k_s, ty, tx, s);
-  dot_nt<D>(do_s, v_s, ty, tx, dp);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
@@ -104,6 +114,28 @@ __device__ __forceinline__ void p_and_ds(const float* q_s, const float* k_s,
     }
   }
 }
+
+// The same from tiles in shared memory: q_s holds q * scale.
+template <int D>
+__device__ __forceinline__ void p_and_ds(const float* q_s, const float* k_s,
+                                         const float* do_s, const float* v_s,
+                                         const float (&lse)[4],
+                                         const float (&delta)[4], int q0,
+                                         int k0, int Sq, int Sk, bool causal,
+                                         int window, int ty, int tx,
+                                         float* p_s, float* ds_s) {
+  float s[4][4] = {};
+  float dp[4][4] = {};
+  dot_nt<D>(q_s, k_s, ty, tx, s);
+  dot_nt<D>(do_s, v_s, ty, tx, dp);
+  p_ds_store(s, dp, lse, delta, q0, k0, Sq, Sk, causal, window, ty, tx, p_s,
+             ds_s);
+}
+
+// Whether an f32 kernel streams K and V through shared memory each step:
+// its resident layout at D 256 would need 296 KB (dK/dV) or 280 KB (dQ).
+template <int D>
+constexpr bool kStreamKV = D > 128;
 
 // f32 dK/dV on the SIMT cores (the header's last paragraph).
 template <typename T, int D>
@@ -123,17 +155,22 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 
+  // Streaming (D 256): K and V are read again each step, and dO takes
+  // K's tile once the scores are done.
+  constexpr bool kStream = kStreamKV<D>;
   extern __shared__ float smem[];
   float* k_s = smem;                  // (64, D + 1)
   float* v_s = k_s + kBlock * DP;     // (64, D + 1)
   float* q_s = v_s + kBlock * DP;     // (64, D + 1): q * scale
-  float* do_s = q_s + kBlock * DP;    // (64, D + 1)
-  float* p_s = do_s + kBlock * DP;    // (64, 64 + 1): [q row][kv row]
+  float* do_s = kStream ? k_s : q_s + kBlock * DP;  // (64, D + 1)
+  float* p_s = (kStream ? q_s : do_s) + kBlock * DP;  // [q row][kv row]
   float* ds_s = p_s + kBlock * BP;    // (64, 64 + 1)
 
   const size_t koff = ((size_t)b * Hkv + hk) * Sk * D;
-  load_tile<T, D>(k_s, k + koff, k0, Sk, 1.f);
-  load_tile<T, D>(v_s, v + koff, k0, Sk, 1.f);
+  if constexpr (!kStream) {
+    load_tile<T, D>(k_s, k + koff, k0, Sk, 1.f);
+    load_tile<T, D>(v_s, v + koff, k0, Sk, 1.f);
+  }
 
   float dk_acc[4][NJ], dv_acc[4][NJ];
 #pragma unroll
@@ -154,13 +191,28 @@ __global__ void __launch_bounds__(kThreads)
         continue;
       __syncthreads();  // the previous block's readers are done
       load_tile<T, D>(q_s, q + qoff, q0, Sq, scale);
-      load_tile<T, D>(do_s, dout + qoff, q0, Sq, 1.f);
       float lse_r[4], delta_r[4];
       load_rows(lse_r, lse_h, q0, Sq, ty);
       load_rows(delta_r, delta_h, q0, Sq, ty);
-      __syncthreads();
-      p_and_ds<D>(q_s, k_s, do_s, v_s, lse_r, delta_r, q0, k0, Sq, Sk, causal,
-                  window, ty, tx, p_s, ds_s);
+      if constexpr (kStream) {
+        load_tile<T, D>(k_s, k + koff, k0, Sk, 1.f);
+        load_tile<T, D>(v_s, v + koff, k0, Sk, 1.f);
+        __syncthreads();
+        float s[4][4] = {};
+        dot_nt<D>(q_s, k_s, ty, tx, s);
+        __syncthreads();  // k's readers are done: dO takes its tile
+        load_tile<T, D>(do_s, dout + qoff, q0, Sq, 1.f);
+        __syncthreads();
+        float dp[4][4] = {};
+        dot_nt<D>(do_s, v_s, ty, tx, dp);
+        p_ds_store(s, dp, lse_r, delta_r, q0, k0, Sq, Sk, causal, window, ty,
+                   tx, p_s, ds_s);
+      } else {
+        load_tile<T, D>(do_s, dout + qoff, q0, Sq, 1.f);
+        __syncthreads();
+        p_and_ds<D>(q_s, k_s, do_s, v_s, lse_r, delta_r, q0, k0, Sq, Sk,
+                    causal, window, ty, tx, p_s, ds_s);
+      }
       __syncthreads();
       acc_nn<D, true>(p_s, do_s, ty, tx, dv_acc);   // dV += p^T . dO
       acc_nn<D, true>(ds_s, q_s, ty, tx, dk_acc);   // dK += dS^T . q * scale
@@ -187,11 +239,13 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 
+  // Streaming (D 256): V and then K take turns in one tile.
+  constexpr bool kStream = kStreamKV<D>;
   extern __shared__ float smem[];
   float* q_s = smem;                  // (64, D + 1): q * scale
   float* do_s = q_s + kBlock * DP;    // (64, D + 1)
   float* k_s = do_s + kBlock * DP;    // (64, D + 1)
-  float* v_s = k_s + kBlock * DP;     // (64, D + 1)
+  float* v_s = kStream ? k_s : k_s + kBlock * DP;  // (64, D + 1)
   float* ds_s = v_s + kBlock * DP;    // (64, 64 + 1): [q row][kv row]
 
   const size_t qoff = ((size_t)b * Hq + h) * Sq * D;
@@ -215,11 +269,25 @@ __global__ void __launch_bounds__(kThreads)
     if (block_hidden(q0, q1, k0, min(k0 + kBlock, Sk), causal, window))
       continue;
     __syncthreads();  // the previous block's readers are done
-    load_tile<T, D>(k_s, k + koff, k0, Sk, 1.f);
-    load_tile<T, D>(v_s, v + koff, k0, Sk, 1.f);
-    __syncthreads();
-    p_and_ds<D>(q_s, k_s, do_s, v_s, lse_r, delta_r, q0, k0, Sq, Sk, causal,
-                window, ty, tx, nullptr, ds_s);
+    if constexpr (kStream) {
+      load_tile<T, D>(v_s, v + koff, k0, Sk, 1.f);
+      __syncthreads();
+      float dp[4][4] = {};
+      dot_nt<D>(do_s, v_s, ty, tx, dp);
+      __syncthreads();  // v's readers are done: k takes its tile
+      load_tile<T, D>(k_s, k + koff, k0, Sk, 1.f);
+      __syncthreads();
+      float s[4][4] = {};
+      dot_nt<D>(q_s, k_s, ty, tx, s);
+      p_ds_store(s, dp, lse_r, delta_r, q0, k0, Sq, Sk, causal, window, ty,
+                 tx, nullptr, ds_s);
+    } else {
+      load_tile<T, D>(k_s, k + koff, k0, Sk, 1.f);
+      load_tile<T, D>(v_s, v + koff, k0, Sk, 1.f);
+      __syncthreads();
+      p_and_ds<D>(q_s, k_s, do_s, v_s, lse_r, delta_r, q0, k0, Sq, Sk, causal,
+                  window, ty, tx, nullptr, ds_s);
+    }
     __syncthreads();
     acc_nn<D, false>(ds_s, k_s, ty, tx, dq_acc);  // dQ += dS . K
   }
@@ -227,7 +295,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // bf16 dK/dV on the tensor cores (the header's design).
-constexpr int kTcN = 128;  // kv rows per CTA: two consumer warpgroups of 64
 constexpr int kTcM = 64;   // q rows per tile
 constexpr int kTcThreads = 384;  // the two consumers and a producer warpgroup
 // registers per thread after setmaxnreg: 2 x 128 x 240 + 128 x 24 <= 65,536
@@ -236,8 +303,14 @@ constexpr int kProducerRegs = 24;
 
 template <int D>
 struct DkvSmem {
-  static constexpr int kStages = 3;  // q, dO, lse and delta in flight
-  static constexpr int kKV = kTcN * D * 2;  // k, and v
+  // Up to D 128 a CTA holds 128 kv rows, 64 a consumer warpgroup, with
+  // three stages. At D 256 (kSplit) it holds 64 kv rows, which both
+  // consumers recompute S^T and dP^T of, each accumulating dK and dV of
+  // one half of D (64 x 128 f32 each, as at D 128), with two stages.
+  static constexpr bool kSplit = D > 128;
+  static constexpr int kN = kSplit ? 64 : 128;  // kv rows per CTA
+  static constexpr int kStages = kSplit ? 2 : 3;  // q, dO, lse, delta
+  static constexpr int kKV = kN * D * 2;  // k, and v
   static constexpr int kQ = kTcM * D * 2;   // q, and dO, per stage
   static constexpr int kRows = 2 * kTcM * 4;  // lse then delta, per stage
   static constexpr int kRowsAt = 2 * kKV + 2 * kStages * kQ;
@@ -260,7 +333,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                     int Sq, int Sk, float scale, int causal, int window) {
   using L = tc::Tile<D>;
   using S = DkvSmem<D>;
-  constexpr int NO = D / 2;     // accumulator floats per thread (64 x D)
+  constexpr int kTcN = S::kN;   // kv rows per CTA
+  constexpr int DO = S::kSplit ? D / 2 : D;  // columns a warpgroup owns
+  constexpr int NO = DO / 2;    // accumulator floats per thread (64 x DO)
   constexpr int NS = kTcM / 2;  // score floats per thread (64 x 64)
   constexpr int NP = kTcM / 16;  // A fragments of p^T and dS^T
   const int heads = B * Hkv;
@@ -346,9 +421,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
   } else {
     tc::regs_inc<kConsumerRegs>();
-    // Warpgroup wg owns kv rows [64 wg, 64 wg + 64) of the block; this
-    // thread kv rows row0 and row0 + 8, q columns 8j + col + {0, 1}.
-    const int row0 = k0 + 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
+    // Warpgroup wg owns kv rows [wr, wr + 64) of the block and columns
+    // [c0, c0 + DO) of dK and dV; this thread kv rows row0 and row0 + 8,
+    // q columns 8j + col + {0, 1}.
+    const int wr = S::kSplit ? 0 : 64 * wg;
+    const int c0 = S::kSplit ? DO * wg : 0;
+    const int row0 = k0 + wr + 16 * ((tid % 128) / 32) + lane / 4;
     const int col = 2 * (lane % 4);
     // The warpgroups take turns to issue their products (barriers 1 and
     // 2), so that one's elementwise work runs while the other's products
@@ -376,11 +454,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       tc::mma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        tc::mma_ss<kTcM, 0>(s, tc::desc_k<D>(k_s, kTcN, 64 * wg, kk),
+        tc::mma_ss<kTcM, 0>(s, tc::desc_k<D>(k_s, kTcN, wr, kk),
                             tc::desc_k<D>(qt, kTcM, 0, kk), kk);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        tc::mma_ss<kTcM, 0>(dp, tc::desc_k<D>(v_s, kTcN, 64 * wg, kk),
+        tc::mma_ss<kTcM, 0>(dp, tc::desc_k<D>(v_s, kTcN, wr, kk),
                             tc::desc_k<D>(do_t, kTcM, 0, kk), kk);
       tc::mma_commit();
       turn_end();
@@ -414,15 +492,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       tc::to_a<NP>(s, pa);
       tc::to_a<NP>(dp, da);
 
-      // dV += p^T . dO and dK += dS^T . q
+      // dV += p^T . dO and dK += dS^T . q, over this warpgroup's columns
+      // (whole column blocks of 64: c0 / 64 blocks of kTcM rows in)
+      const uint32_t cb = (c0 / L::W) * kTcM * L::RB;
       turn_begin();
       tc::mma_fence();
 #pragma unroll
       for (int t = 0; t < NP; ++t)
-        tc::mma_rs<D, 1>(dv_acc, pa[t], tc::desc_mn<D>(do_t, kTcM, t), 1);
+        tc::mma_rs<DO, 1>(dv_acc, pa[t], tc::desc_mn<D>(do_t + cb, kTcM, t),
+                          1);
 #pragma unroll
       for (int t = 0; t < NP; ++t)
-        tc::mma_rs<D, 1>(dk_acc, da[t], tc::desc_mn<D>(qt, kTcM, t), 1);
+        tc::mma_rs<DO, 1>(dk_acc, da[t], tc::desc_mn<D>(qt + cb, kTcM, t), 1);
       tc::mma_commit();
       turn_end();
       tc::mma_wait<0>();
@@ -433,16 +514,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       if (lane == 0) tc::mbar_arrive(empty(it % S::kStages));
     }
     if (wg == 0 && n_it > 0) tc::bar_sync(1, 256);  // warpgroup 1's last
+    // split: both warpgroups' products read all of K and V
+    if constexpr (S::kSplit) tc::bar_sync(5, 256);
 
-    // dK * scale and dV through this warpgroup's rows of k's and v's
-    // shared memory (its products are done with them), then 16-byte rows
+    // dK * scale and dV through this warpgroup's rows and columns of k's
+    // and v's shared memory (its products are done with them), then
+    // 16-byte rows
     const size_t koff = ((size_t)b * Hkv + hk) * Sk * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DO / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r - k0;
-        const uint32_t at = L::chunk(kTcN, row, j) + 2 * col;
+        const uint32_t at = L::chunk(kTcN, row, c0 / 8 + j) + 2 * col;
         const int i = 4 * j + 2 * r;
         *reinterpret_cast<uint32_t*>(k_p + at) =
             tc::pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
@@ -450,8 +534,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             tc::pack_bf16(dv_acc[i], dv_acc[i + 1]);
       }
     tc::bar_sync(3 + wg, 128);
-    for (int i = tid % 128; i < 64 * (D / 8); i += 128) {
-      const int r = 64 * wg + i / (D / 8), c = i % (D / 8);
+    for (int i = tid % 128; i < 64 * (DO / 8); i += 128) {
+      const int r = wr + i / (DO / 8), c = c0 / 8 + i % (DO / 8);
       if (k0 + r >= Sk) continue;
       const size_t at = koff + (size_t)(k0 + r) * D + 8 * c;
       const uint32_t from = L::chunk(kTcN, r, c);
@@ -470,17 +554,18 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     float scale, int causal, int window,
                     cudaStream_t stream) {
   using T = __nv_bfloat16;
+  constexpr int kN = DkvSmem<D>::kN;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int e = tc::make_tile_map<D>(&tm_q, q, B * Hq, Sq, kTcM);
   if (e == 0) e = tc::make_tile_map<D>(&tm_do, dout, B * Hq, Sq, kTcM);
-  if (e == 0) e = tc::make_tile_map<D>(&tm_k, k, B * Hkv, Sk, kTcN);
-  if (e == 0) e = tc::make_tile_map<D>(&tm_v, v, B * Hkv, Sk, kTcN);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_k, k, B * Hkv, Sk, kN);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_v, v, B * Hkv, Sk, kN);
   if (e != 0) return e;
   const cudaError_t a = cudaFuncSetAttribute(
       dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       DkvSmem<D>::kBytes);
   if (a != cudaSuccess) return (int)a;
-  const int nk = (Sk + kTcN - 1) / kTcN;
+  const int nk = (Sk + kN - 1) / kN;
   dkv_bf16_kernel<D><<<nk * B * Hkv, kTcThreads, DkvSmem<D>::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_do, lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dv), B, Hq, Hkv, Sq, Sk, scale, causal, window);
@@ -489,16 +574,18 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
 
 // bf16 dQ on the tensor cores (the header's design).
 constexpr int kDqM = 128;  // q rows per CTA: two consumer warpgroups of 64
-constexpr int kDqN = 64;   // kv rows per tile
 // registers per thread after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536
 constexpr int kDqConsumerRegs = 232;
 constexpr int kDqProducerRegs = 40;
 
 template <int D>
 struct DqSmem {
-  static constexpr int kStages = 4;  // k and v tiles in flight
+  // kv tiles of 64 rows in four stages up to D 128; at D 256 (q and dO
+  // take 128 KB) tiles of 32 rows in three
+  static constexpr int kN = D > 128 ? 32 : 64;  // kv rows per tile
+  static constexpr int kStages = D > 128 ? 3 : 4;  // k and v tiles in flight
   static constexpr int kQ = kDqM * D * 2;   // q, and dO
-  static constexpr int kKV = kDqN * D * 2;  // k, and v, per stage
+  static constexpr int kKV = kN * D * 2;    // k, and v, per stage
   static constexpr int kBars = 2 * kQ + 2 * kStages * kKV;  // full, empty
   // q, dO, (k, v) per stage, the barriers, and 1 KB to align the start
   static constexpr int kBytes = kBars + 16 * kStages + 1024;
@@ -516,8 +603,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                    int Sq, int Sk, float scale, int causal, int window) {
   using L = tc::Tile<D>;
   using S = DqSmem<D>;
+  constexpr int kDqN = S::kN;    // kv rows per tile
   constexpr int NO = D / 2;      // accumulator floats per thread (64 x D)
-  constexpr int NS = kDqN / 2;   // score floats per thread (64 x 64)
+  constexpr int NS = kDqN / 2;   // score floats per thread (64 x kDqN)
   constexpr int NP = kDqN / 16;  // A fragments of dS
   const int nq = (Sq + kDqM - 1) / kDqM;
   const int heads = B * Hq;
@@ -730,11 +818,12 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int B, int Hq, int Hkv, int Sq, int Sk,
                    float scale, int causal, int window, cudaStream_t stream) {
+  constexpr int kN = DqSmem<D>::kN;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int e = tc::make_tile_map<D>(&tm_q, q, B * Hq, Sq, kDqM);
   if (e == 0) e = tc::make_tile_map<D>(&tm_do, dout, B * Hq, Sq, kDqM);
-  if (e == 0) e = tc::make_tile_map<D>(&tm_k, k, B * Hkv, Sk, kDqN);
-  if (e == 0) e = tc::make_tile_map<D>(&tm_v, v, B * Hkv, Sk, kDqN);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_k, k, B * Hkv, Sk, kN);
+  if (e == 0) e = tc::make_tile_map<D>(&tm_v, v, B * Hkv, Sk, kN);
   if (e != 0) return e;
   const cudaError_t a = cudaFuncSetAttribute(
       dq_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -749,12 +838,14 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
 
 template <int D>
 size_t dkv_smem() {
-  return sizeof(float) * (4 * kBlock * (D + 1) + 2 * kBlock * (kBlock + 1));
+  const int tiles = kStreamKV<D> ? 3 : 4;
+  return sizeof(float) * (tiles * kBlock * (D + 1) + 2 * kBlock * (kBlock + 1));
 }
 
 template <int D>
 size_t dq_smem() {
-  return sizeof(float) * (4 * kBlock * (D + 1) + kBlock * (kBlock + 1));
+  const int tiles = kStreamKV<D> ? 3 : 4;
+  return sizeof(float) * (tiles * kBlock * (D + 1) + kBlock * (kBlock + 1));
 }
 
 template <typename T, int D>
@@ -798,7 +889,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace flash
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dk, dv share it); lse and
-// delta are f32 (B, Hq, Sq). All tensors contiguous; D is 16, 32, 64 or 128;
+// delta are f32 (B, Hq, Sq). All tensors contiguous; D is 16, 32, 64, 128
+// or 256;
 // window < 0 means none. Each returns cudaGetLastError() after its launch.
 extern "C" int repro_flash_attention_dkv(int dtype, const void* q,
                                          const void* k, const void* v,
@@ -816,6 +908,7 @@ extern "C" int repro_flash_attention_dkv(int dtype, const void* q,
   if (dtype == 0 && D == 32) REPRO_DKV(float, 32);
   if (dtype == 0 && D == 64) REPRO_DKV(float, 64);
   if (dtype == 0 && D == 128) REPRO_DKV(float, 128);
+  if (dtype == 0 && D == 256) REPRO_DKV(float, 256);
 #undef REPRO_DKV
 #define REPRO_DKV_BF16(DD)                                                    \
   return flash::launch_dkv_bf16<DD>(q, k, v, dout, lse, delta, dk, dv, B, Hq, \
@@ -824,6 +917,7 @@ extern "C" int repro_flash_attention_dkv(int dtype, const void* q,
   if (dtype == 1 && D == 32) REPRO_DKV_BF16(32);
   if (dtype == 1 && D == 64) REPRO_DKV_BF16(64);
   if (dtype == 1 && D == 128) REPRO_DKV_BF16(128);
+  if (dtype == 1 && D == 256) REPRO_DKV_BF16(256);
 #undef REPRO_DKV_BF16
   return (int)cudaErrorInvalidValue;
 }
@@ -843,6 +937,7 @@ extern "C" int repro_flash_attention_dq(int dtype, const void* q,
   if (dtype == 0 && D == 32) REPRO_DQ(float, 32);
   if (dtype == 0 && D == 64) REPRO_DQ(float, 64);
   if (dtype == 0 && D == 128) REPRO_DQ(float, 128);
+  if (dtype == 0 && D == 256) REPRO_DQ(float, 256);
 #undef REPRO_DQ
 #define REPRO_DQ_BF16(DD)                                                    \
   return flash::launch_dq_bf16<DD>(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, \
@@ -851,6 +946,7 @@ extern "C" int repro_flash_attention_dq(int dtype, const void* q,
   if (dtype == 1 && D == 32) REPRO_DQ_BF16(32);
   if (dtype == 1 && D == 64) REPRO_DQ_BF16(64);
   if (dtype == 1 && D == 128) REPRO_DQ_BF16(128);
+  if (dtype == 1 && D == 256) REPRO_DQ_BF16(256);
 #undef REPRO_DQ_BF16
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-// Pieces shared by the two scan kernels (ssm_scan.cu, rglru.cu): f32
-// conversions, TMA maps and loads of 3-D boxes into shared memory, and the
-// element-by-element edge path for rows TMA cannot take.
+// Pieces shared by the scan kernels (ssm_scan.cu, ssm_scan_bwd.cu,
+// rglru.cu): f32 conversions, TMA maps and loads of 3-D boxes into shared
+// memory, the element-by-element edge path for rows TMA cannot take, and
+// tile stores from shared memory.
 #pragma once
 
 #include <cuda.h>
@@ -106,6 +107,33 @@ __device__ __forceinline__ void stage_elements(E* dst, const E* src,
     const int c = i % cols;
     dst[i] = r < live_rows && c < live_cols ? src[r * ld + c]
                                             : from_f32<E>(0.f);
+  }
+}
+
+// Write a rows x cols tile of shared memory (row-major) to dst (row r at
+// dst + r * ld): rows < live_rows, columns < live_cols; by 16-byte chunks
+// where `vec` (dst, ld and cols whole 16 bytes), else element by element.
+template <typename E>
+__device__ __forceinline__ void store_tile(E* dst, long long ld, const E* src,
+                                           int cols, int live_rows,
+                                           int live_cols, bool vec, int tid,
+                                           int n) {
+  if (vec) {
+    constexpr int kChunk = 16 / sizeof(E);
+    const int per_row = cols / kChunk;
+    for (int i = tid; i < live_rows * per_row; i += n) {
+      const int r = i / per_row;
+      const int c = (i % per_row) * kChunk;
+      if (c < live_cols)
+        *reinterpret_cast<uint4*>(dst + r * ld + c) =
+            *reinterpret_cast<const uint4*>(src + r * cols + c);
+    }
+  } else {
+    for (int i = tid; i < live_rows * cols; i += n) {
+      const int r = i / cols;
+      const int c = i % cols;
+      if (c < live_cols) dst[r * ld + c] = src[i];
+    }
   }
 }
 

@@ -131,33 +131,6 @@ struct Smem {
   }
 };
 
-// Write a rows x cols tile of shared memory (row-major) to dst (row r at
-// dst + r * ld): rows < live_rows, columns < live_cols; by 16-byte chunks
-// where `vec` (dst, ld and cols whole 16 bytes), else element by element.
-template <typename E>
-__device__ __forceinline__ void store_tile(E* dst, long long ld, const E* src,
-                                           int cols, int live_rows,
-                                           int live_cols, bool vec, int tid,
-                                           int n) {
-  if (vec) {
-    constexpr int kChunk = 16 / sizeof(E);
-    const int per_row = cols / kChunk;
-    for (int i = tid; i < live_rows * per_row; i += n) {
-      const int r = i / per_row;
-      const int c = (i % per_row) * kChunk;
-      if (c < live_cols)
-        *reinterpret_cast<uint4*>(dst + r * ld + c) =
-            *reinterpret_cast<const uint4*>(src + r * cols + c);
-    }
-  } else {
-    for (int i = tid; i < live_rows * cols; i += n) {
-      const int r = i / cols;
-      const int c = i % cols;
-      if (c < live_cols) dst[r * ld + c] = src[i];
-    }
-  }
-}
-
 // A whole kSteps x kChannels tile of shared memory (row-major) to dst (row
 // r at dst + r * ld) in 16-byte chunks, all loads before all stores; dst
 // and ld whole 16 bytes.
@@ -343,7 +316,7 @@ __global__ void __launch_bounds__(kChannels * N / kStates, 1)
     if ((paths & kVecY) && rows == kSteps && live_cols == kChannels)
       store_whole<kThreads>(dst, Di, L::y(smem, i), tid);
     else
-      store_tile(dst, Di, L::y(smem, i), kChannels, rows, live_cols,
+      scan::store_tile(dst, Di, L::y(smem, i), kChannels, rows, live_cols,
                  paths & kVecY, tid, kThreads);
   };
 

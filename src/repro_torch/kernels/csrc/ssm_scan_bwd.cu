@@ -17,34 +17,59 @@
 // f32; dx in x's dtype, ddt, dA and dD f32, dB and dC in x's dtype.
 // ref.selective_scan_bwd is the same algorithm in plain torch.
 //
-// Bound: operations. Each (b, t, channel) reads x, dt and dy and writes
-// dx and ddt once (at falcon-mamba's training shape, B 1, S 4096, Di
-// 8192, N 16, bf16: ~470 MB, ~0.14 ms at 3.35 TB/s), but every (b, t,
-// channel, state) is stepped three times (the forward pass, its
-// recomputation and the reverse step: ~25 f32 operations and three
-// exponentials in all, the special-function units' 16 a clock per SM
-// bounding the exponentials at ~0.3 ms).
+// Bound: operations. At falcon-mamba's training shape (B 1, S 4,096, Di
+// 8,192, N 16, bf16) the function reads x, dt, dy, B and C and writes dx,
+// ddt, dB, dC, dA and dD once (~470 MB, 0.14 ms at 3.35 TB/s), and does 19
+// f32 operations a (b, t, channel, state) and 9 a (b, t, channel)
+// (kernels/cost.py `scan_work`): 10.5 GFLOP, 156.754 us at 67 TFLOP/s.
+// Its B S Di N = 537 M exponentials, each computed once, take 128.384 us
+// on the special-function units (16 a clock per SM, 1,980 MHz, 132 SMs).
 //
-// Choices (a simple kernel first):
-// - h_{t-1} in the reverse walk: a first forward pass in this kernel
-//   stores the state at the start of every chunk of kChunk = 16 steps
-//   ((B, S/16, Di, N) f32 scratch: 134 MB at the shape above, written and
-//   read back by the same thread); the reverse walk recomputes h inside
-//   a chunk from its start state into registers (16 steps x 4 states),
-//   then steps the chunk backwards. No forward variant is needed, and
-//   the forward kernel stays as it is.
-// - Thread layout as the forward's: a thread holds 4 states of one
-//   channel (G = N / 4 lanes a channel, 32 channels a CTA, one CTA per
-//   32 channels and batch row); B_t . gh_t and the ddt sum over N take a
-//   butterfly of log2 G shuffles each a step; exponentials by ex2.approx
-//   of dt A log2 e and the state update by one fused multiply-add, as the
-//   forward rounds them, so the recomputed states are the forward's.
-// - dA and dD sum over time in registers, over batch rows in a second
-//   pass (a (B, Di, N) partial each). dB and dC sum over channels: a CTA
-//   writes its 32 channels' terms of a chunk into shared memory, sums
-//   them in channel order after a barrier and writes f32 partials
-//   (Di / 32, B, S, 2N); a second kernel sums the partials over channel
-//   blocks in block order. No atomics: the result is deterministic.
+// Design (a redesign of a first version that took 4.34 ms at that shape
+// on an NVIDIA H100 80GB HBM3 at 700 W: its steps loaded dt, x, dy, B and
+// C from device memory inside the dependent loop, with ~8 warps an SM to
+// hide them, and summed dB and dC over shared memory between two CTA
+// barriers a chunk):
+// - One CTA per 32 channels and batch row, a thread 4 states of one
+//   channel (G = N / 4 lanes a channel), as the forward kernel.
+// - Staging: tiles of 32 steps of dt, x and B (the forward pass) and of
+//   dt, x, dy, B and C (the reverse walk) come by TMA boxes into a ring of
+//   4 stages, three tiles ahead, one mbarrier a stage, through one
+//   sequence over both passes (tiles 0 .. nt - 1, then nt - 1 .. 0); an
+//   array TMA cannot take is staged element by element (the forward's
+//   edge path). Steps read f32 or bf16 from shared memory only. Steps past
+//   S and channels past Di are zeros in the tiles: such a step keeps the
+//   state (exp(0) = 1, drive 0) and adds nothing, so every chunk is one
+//   block of straight code and only the stores are guarded.
+// - h_{t-1} in the reverse walk: the forward pass keeps the state at the
+//   start of every chunk of 16 steps ((B, S/16, Di, N) f32 scratch,
+//   written and read back by the same thread; the next chunk's is loaded
+//   a chunk ahead); the reverse walk recomputes the chunk's 16 states
+//   into registers with the forward pass's rounding, then steps back
+//   through them. Three exponentials a state step in all (the forward
+//   pass, the recomputation, the reverse step): the SFU time is 3 x 128
+//   us, under the instructions' issue time.
+// - Sums over a channel's 4 state lanes (B . gh and the ddt term) wait
+//   for G steps and then take one butterfly of G - 1 shuffles each (lane
+//   j ends with step j's sum), as the forward's y.
+// - dB and dC: a step's 8 terms a thread are summed over the warp's
+//   channels by a butterfly reduce-scatter of warp shuffles (7 at N 16:
+//   each lane ends with one of the warp's 2N sums), then over the CTA's
+//   warps from shared memory at the chunk's end (one CTA barrier a chunk,
+//   double-buffered), then over channel blocks by a second small kernel,
+//   all in a fixed order: deterministic, no atomics. dx and ddt leave
+//   through shared memory in 16-byte rows at the chunk's end.
+// - dA and dD sum over time in registers, over batch rows in a third
+//   small kernel.
+// Not taken: splitting time across CTAs (a carry pass and a fourth
+// exponential a step), and chunk-start states from a training variant of
+// the forward kernel (it would save the forward pass here, and change the
+// forward's interface).
+// Where its time goes at that shape (tools/ab_scan.py --bwd on probes, an
+// NVIDIA H100 80GB HBM3 at 700 W; ~1.37 ms in all): ~0.32 ms the dB/dC
+// reduce-scatter, ~0.12 ms the forward pass. Neither a per-warp shared
+// memory transpose in place of the shuffles, nor 8-step chunks, nor a
+// 255-register cap ran faster.
 
 #include "scan_common.cuh"
 
@@ -55,7 +80,10 @@ using scan::to_f32;
 
 constexpr int kStates = 4;     // SSM states a thread
 constexpr int kChannels = 32;  // channels a CTA
+constexpr int kSteps = 32;     // time steps a tile
+constexpr int kRing = 4;       // tiles in the ring
 constexpr int kChunk = 16;     // steps a chunk (start states kept)
+constexpr int kChunks = kSteps / kChunk;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -64,11 +92,115 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Shared memory of a CTA: a chunk's dB and dC terms, [kChunk][kChannels][2N].
-template <int N>
-constexpr int red_bytes() {
-  return kChunk * kChannels * 2 * N * 4;
+// Four consecutive elements of shared memory (16 or 8 bytes, aligned) as
+// f32.
+__device__ __forceinline__ void load4(float (&o)[kStates], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
 }
+__device__ __forceinline__ void load4(float (&o)[kStates],
+                                      const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  o[0] = __uint_as_float(v.x << 16);
+  o[1] = __uint_as_float(v.x & 0xffff0000u);
+  o[2] = __uint_as_float(v.y << 16);
+  o[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// Shared memory of a CTA: kRing stages, each x, dy (T, kSteps x
+// kChannels), B, C (T, kSteps x N) and dt (f32, kSteps x kChannels); two
+// chunk buffers (by the chunk's parity), each the warps' dB and dC sums
+// (f32, kChunk x warps x 2N) and the chunk's dx (T) and ddt (f32) tiles
+// (kChunk x kChannels); a "full" mbarrier a stage; 128 bytes of slack to
+// align. Every part starts on 128 bytes.
+template <typename T, int N>
+struct Smem {
+  static constexpr int kWarps = kChannels * (N / kStates) / 32;
+  static constexpr int kXBytes = kSteps * kChannels * sizeof(T);
+  static constexpr int kBCBytes = kSteps * N * sizeof(T);
+  static constexpr int kStage = 2 * kXBytes + 2 * kBCBytes +
+                                kSteps * kChannels * 4;
+  static constexpr int kRed = kChunk * kWarps * 2 * N * 4;
+  static constexpr int kDx = kChunk * kChannels * sizeof(T);
+  static constexpr int kDdt = kChunk * kChannels * 4;
+  static constexpr int kBuf = kRed + kDx + kDdt;
+  static constexpr int kBarOffset = kRing * kStage + 2 * kBuf;
+  static constexpr int kBytes = kBarOffset + kRing * 8 + 128;
+  static_assert(kBCBytes % 128 == 0 && kDx % 128 == 0, "128-byte parts");
+
+  __device__ static unsigned char* stage(unsigned char* s, int i) {
+    return s + (i % kRing) * kStage;
+  }
+  __device__ static T* x(unsigned char* st) {
+    return reinterpret_cast<T*>(st);
+  }
+  __device__ static T* dy(unsigned char* st) {
+    return reinterpret_cast<T*>(st + kXBytes);
+  }
+  __device__ static T* b(unsigned char* st) {
+    return reinterpret_cast<T*>(st + 2 * kXBytes);
+  }
+  __device__ static T* c(unsigned char* st) {
+    return reinterpret_cast<T*>(st + 2 * kXBytes + kBCBytes);
+  }
+  __device__ static float* dt(unsigned char* st) {
+    return reinterpret_cast<float*>(st + 2 * kXBytes + 2 * kBCBytes);
+  }
+  __device__ static float* red(unsigned char* s, int chunk) {
+    return reinterpret_cast<float*>(s + kRing * kStage + (chunk & 1) * kBuf);
+  }
+  __device__ static T* dx(unsigned char* s, int chunk) {
+    return reinterpret_cast<T*>(s + kRing * kStage + (chunk & 1) * kBuf +
+                                kRed);
+  }
+  __device__ static float* ddt(unsigned char* s, int chunk) {
+    return reinterpret_cast<float*>(s + kRing * kStage + (chunk & 1) * kBuf +
+                                    kRed + kDx);
+  }
+  __device__ static uint32_t full(unsigned char* s, int i) {
+    return scan::smem_addr(s + kBarOffset + 8 * (i % kRing));
+  }
+};
+
+// The butterfly reduce-scatter of a step's 8 dB and dC terms over the
+// warp's channels (lane bits O = 16, 8, ... down to G): while a lane holds
+// M > 1 values it keeps the half its bit O picks and adds the partner's
+// copy of that half; once it holds one, it adds the partner's. A lane
+// ends with terms [idx, idx + M) summed over the warp, idx = 4 (bit 16) +
+// 2 (bit 8) + 1 (bit 4, when G <= 4).
+template <int M, int O, int G>
+__device__ __forceinline__ void scatter_sum(float (&v)[8], int lane) {
+  if constexpr (O >= G) {
+    if constexpr (M > 1) {
+      const bool up = lane & O;
+#pragma unroll
+      for (int i = 0; i < M / 2; ++i) {
+        const float send = up ? v[i] : v[i + M / 2];
+        const float keep = up ? v[i + M / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      scatter_sum<M / 2, O / 2, G>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      scatter_sum<1, O / 2, G>(v, lane);
+    }
+  }
+}
+
+// Which arrays go by TMA (x, dt, dy, B, C) or by 16-byte stores (dx, ddt),
+// as bits.
+enum : int {
+  kTmaX = 1,
+  kTmaDt = 2,
+  kTmaDy = 4,
+  kTmaB = 8,
+  kTmaC = 16,
+  kVecDx = 32,
+  kVecDdt = 64
+};
 
 struct Args {
   const void* x;
@@ -86,23 +218,39 @@ struct Args {
   float* hs;       // (B, S / kChunk, Di, N): chunk-start states
   int S, Di;
   long long b_bstride, b_tstride, c_bstride, c_tstride;
+  int paths;
 };
 
 template <typename T, int N>
 __global__ void __launch_bounds__(kChannels * N / kStates)
-    ssm_scan_bwd_kernel(const Args p) {
+    ssm_scan_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_dt,
+                        const __grid_constant__ CUtensorMap map_dy,
+                        const __grid_constant__ CUtensorMap map_b,
+                        const __grid_constant__ CUtensorMap map_c,
+                        const Args p) {
+  using L = Smem<T, N>;
   constexpr int G = N / kStates;
   constexpr int kThreads = kChannels * G;
-  extern __shared__ float red[];
+  constexpr int kWarps = L::kWarps;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = scan::align128(smem_raw);
   const T* x = static_cast<const T*>(p.x);
   const T* dy = static_cast<const T*>(p.dy);
-  const int S = p.S, Di = p.Di;
+  const T* bm = static_cast<const T*>(p.bm);
+  const T* cm = static_cast<const T*>(p.cm);
+  const int S = p.S, Di = p.Di, paths = p.paths;
   const int tid = threadIdx.x;
   const int g = tid / G;     // channel within the CTA
   const int lane = tid % G;  // states lane * kStates ..
-  const int ch = blockIdx.x * kChannels + g;
+  const int wl = tid % 32;   // lane in the warp
+  const int warp = tid / 32;
+  const int c0 = blockIdx.x * kChannels;
+  const int ch = c0 + g;
   const int bi = blockIdx.y;
   const bool live = ch < Di;
+  const int live_cols = min(kChannels, Di - c0);
+  const int nt = (S + kSteps - 1) / kSteps;
   const int nch = (S + kChunk - 1) / kChunk;
 
   float av[kStates], a2[kStates];
@@ -112,121 +260,246 @@ __global__ void __launch_bounds__(kChannels * N / kStates)
     a2[k] = av[k] * kLog2e;
   }
   const float dv = live ? p.dskip[ch] : 0.f;
-  const long long row = (long long)bi * S * Di + ch;  // x, dt, dy, dx, ddt
-  const T* bb = static_cast<const T*>(p.bm) + bi * p.b_bstride + lane * kStates;
-  const T* cc = static_cast<const T*>(p.cm) + bi * p.c_bstride + lane * kStates;
+  const long long row0 = (long long)bi * S * Di + c0;  // x, dt, dy, dx, ddt
+  const T* bb = bm + bi * p.b_bstride;
+  const T* cc = cm + bi * p.c_bstride;
   const long long hstride = (long long)Di * N;  // chunk to chunk
   float* hst = p.hs + ((long long)bi * nch * Di + ch) * N + lane * kStates;
+  const int fwd_bytes = (paths & kTmaX ? L::kXBytes : 0) +
+                        (paths & kTmaDt ? kSteps * kChannels * 4 : 0) +
+                        (paths & kTmaB ? L::kBCBytes : 0);
+  const int rev_bytes = fwd_bytes + (paths & kTmaDy ? L::kXBytes : 0) +
+                        (paths & kTmaC ? L::kBCBytes : 0);
 
-  // the forward pass: the state at the start of every chunk but the first
-  // (zeros) to the scratch; the last chunk's steps are not needed
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) tma::mbar_init(L::full(smem, i), 1);
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The ring's sequence: s < nt is tile s of the forward pass (dt, x, B),
+  // s >= nt tile 2 nt - 1 - s of the reverse walk (all five). Entry s into
+  // stage s % kRing: thread 0 announces the TMA bytes on the stage's
+  // mbarrier (its one arrival) and asks for the boxes; every thread
+  // stages the edge-path arrays.
+  auto issue = [&](int s) {
+    if (s >= 2 * nt) return;
+    const bool rev = s >= nt;
+    const int t0 = (rev ? 2 * nt - 1 - s : s) * kSteps;
+    const int rows = min(kSteps, S - t0);
+    unsigned char* st = L::stage(smem, s);
+    const uint32_t bar = L::full(smem, s);
+    if (tid == 0) {
+      tma::mbar_expect(bar, rev ? rev_bytes : fwd_bytes);
+      if (paths & kTmaX) scan::tma_load(L::x(st), &map_x, c0, t0, bi, bar);
+      if (paths & kTmaDt) scan::tma_load(L::dt(st), &map_dt, c0, t0, bi, bar);
+      if (paths & kTmaB) scan::tma_load(L::b(st), &map_b, 0, t0, bi, bar);
+      if (rev && (paths & kTmaDy))
+        scan::tma_load(L::dy(st), &map_dy, c0, t0, bi, bar);
+      if (rev && (paths & kTmaC))
+        scan::tma_load(L::c(st), &map_c, 0, t0, bi, bar);
+    }
+    const long long off = row0 + (long long)t0 * Di;
+    if (!(paths & kTmaX))
+      scan::stage_elements(L::x(st), x + off, Di, kSteps, kChannels, rows,
+                           live_cols, tid, kThreads);
+    if (!(paths & kTmaDt))
+      scan::stage_elements(L::dt(st), p.dt + off, Di, kSteps, kChannels, rows,
+                           live_cols, tid, kThreads);
+    if (!(paths & kTmaB))
+      scan::stage_elements(L::b(st), bb + t0 * p.b_tstride, p.b_tstride,
+                           kSteps, N, rows, N, tid, kThreads);
+    if (rev && !(paths & kTmaDy))
+      scan::stage_elements(L::dy(st), dy + off, Di, kSteps, kChannels, rows,
+                           live_cols, tid, kThreads);
+    if (rev && !(paths & kTmaC))
+      scan::stage_elements(L::c(st), cc + t0 * p.c_tstride, p.c_tstride,
+                           kSteps, N, rows, N, tid, kThreads);
+  };
+  // wait for the TMA boxes of entry s (the edge-path arrays are ordered by
+  // the CTA barrier that follows every wait)
+  auto landed = [&](int s) {
+    if (s < 2 * nt) tma::mbar_wait(L::full(smem, s), (s / kRing) & 1);
+  };
+
+  // The forward pass: the state at the start of every chunk to the
+  // scratch.
+  for (int i = 0; i < kRing - 1; ++i) issue(i);
   {
     float h[kStates] = {0.f, 0.f, 0.f, 0.f};
-    for (int c = 0; c < nch; ++c) {
-      if (live)
-        *reinterpret_cast<float4*>(hst + c * hstride) =
-            make_float4(h[0], h[1], h[2], h[3]);
-      if (c == nch - 1) break;
-#pragma unroll 4
-      for (int j = 0; j < kChunk; ++j) {
-        const int t = c * kChunk + j;
-        const float dtt = live ? p.dt[row + (long long)t * Di] : 0.f;
-        const float dx = dtt * (live ? to_f32(x[row + (long long)t * Di]) : 0.f);
-        const T* bt = bb + t * p.b_tstride;
+    for (int s = 0; s < nt; ++s) {
+      landed(s);
+      __syncthreads();  // every thread is done with entry s - 1
+      issue(s + kRing - 1);  // into the stage entry s - 1 held
+      unsigned char* st = L::stage(smem, s);
+      const float* dts = L::dt(st);
+      const T* xs = L::x(st);
+      const T* bs = L::b(st);
+      for (int q = 0; q < kChunks; ++q) {
+        const int c = s * kChunks + q;
+        if (c >= nch) break;
+        if (live)
+          *reinterpret_cast<float4*>(hst + c * hstride) =
+              make_float4(h[0], h[1], h[2], h[3]);
 #pragma unroll
-        for (int k = 0; k < kStates; ++k)
-          h[k] = fmaf(exp2_approx(dtt * a2[k]), h[k], dx * to_f32(bt[k]));
+        for (int j = 0; j < kChunk; ++j) {
+          const int row = q * kChunk + j;
+          const float dtt = dts[row * kChannels + g];
+          const float dx = dtt * to_f32(xs[row * kChannels + g]);
+          float bv[kStates];
+          load4(bv, bs + row * N + lane * kStates);
+#pragma unroll
+          for (int k = 0; k < kStates; ++k)
+            h[k] = fmaf(exp2_approx(dtt * a2[k]), h[k], dx * bv[k]);
+        }
       }
     }
   }
 
-  // the reverse walk, chunk by chunk
+  // The reverse walk, chunk by chunk; chunk c's dB/dC sums, dx and ddt
+  // leave after the barrier that opens chunk c - 1 (or the last one).
+  float* part = p.bc_part + ((long long)blockIdx.x * gridDim.y + bi) * S * 2 * N;
+  auto flush = [&](int c) {
+    const int t0 = c * kChunk;
+    const int rows = min(kChunk, S - t0);
+    const float* rb = L::red(smem, c);
+    for (int o = tid; o < rows * 2 * N; o += kThreads) {
+      const int j = o / (2 * N), v = o % (2 * N);
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += rb[(j * kWarps + w) * 2 * N + v];
+      part[(long long)t0 * 2 * N + o] = sum;
+    }
+    const long long off = row0 + (long long)t0 * Di;
+    scan::store_tile(static_cast<T*>(p.dx) + off, Di, L::dx(smem, c),
+                     kChannels, rows, live_cols, paths & kVecDx, tid,
+                     kThreads);
+    scan::store_tile(p.ddt + off, Di, L::ddt(smem, c), kChannels, rows,
+                     live_cols, paths & kVecDdt, tid, kThreads);
+  };
+  // a lane's dB/dC sums after scatter_sum: terms [idx, idx + M) of the
+  // 8, written by one lane of each group that holds the same sums
+  constexpr int M = G == 8 ? 2 : 1;
+  const int idx = (wl & 16 ? 4 : 0) + (wl & 8 ? 2 : 0) +
+                  (G <= 4 && (wl & 4) ? 1 : 0);
+  const bool writer = (wl & (3 & ~(G - 1))) == 0;
+  int red_at[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int i = idx + m;
+    red_at[m] = warp * 2 * N +
+                (i < 4 ? lane * kStates + i : N + lane * kStates + i - 4);
+  }
+
   float r[kStates] = {0.f, 0.f, 0.f, 0.f};  // exp(dt_{t+1} A) gh_{t+1}
   float da[kStates] = {0.f, 0.f, 0.f, 0.f};
   float dd = 0.f;
-  float* part = p.bc_part + ((long long)blockIdx.x * gridDim.y + bi) * S * 2 * N;
+  float hn[kStates] = {0.f, 0.f, 0.f, 0.f};  // the next chunk's start
+  if (live) load4(hn, hst + (nch - 1) * hstride);
   for (int c = nch - 1; c >= 0; --c) {
-    const int t0 = c * kChunk;
-    float h0[kStates] = {0.f, 0.f, 0.f, 0.f};
-    if (live) {
-      const float4 v = *reinterpret_cast<const float4*>(hst + c * hstride);
-      h0[0] = v.x;
-      h0[1] = v.y;
-      h0[2] = v.z;
-      h0[3] = v.w;
-    }
-    // h inside the chunk from its start state; steps past S keep it
+    const int q = c % kChunks;  // the chunk's place in its tile
+    const int s = 2 * nt - 1 - c / kChunks;
+    const bool opens = c == nch - 1 || q == kChunks - 1;  // a tile's first
+    if (opens) landed(s);
+    __syncthreads();  // chunk c + 1's buffers written; entry s - 1 done
+    if (c < nch - 1) flush(c + 1);
+    if (opens) issue(s + kRing - 1);
+    unsigned char* st = L::stage(smem, s);
+    const float* dts = L::dt(st);
+    const T* xs = L::x(st);
+    const T* dys = L::dy(st);
+    const T* bs = L::b(st);
+    const T* cs = L::c(st);
+    float* rb = L::red(smem, c);
+    T* dxs = L::dx(smem, c);
+    float* ddts = L::ddt(smem, c);
+    const int r0 = q * kChunk;  // the chunk's first row in the tile
+
+    float h0[kStates];
+#pragma unroll
+    for (int k = 0; k < kStates; ++k) h0[k] = hn[k];
+    if (live && c > 0) load4(hn, hst + (c - 1) * hstride);
+
+    // the chunk's states from its start, rounded as the forward pass
     float hist[kChunk][kStates];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
-      const int t = t0 + j;
-      const bool on = live && t < S;
-      const float dtt = on ? p.dt[row + (long long)t * Di] : 0.f;
-      const float dx = dtt * (on ? to_f32(x[row + (long long)t * Di]) : 0.f);
-      const T* bt = bb + (t < S ? t : 0) * p.b_tstride;
+      const int row = r0 + j;
+      const float dtt = dts[row * kChannels + g];
+      const float dx = dtt * to_f32(xs[row * kChannels + g]);
+      float bv[kStates];
+      load4(bv, bs + row * N + lane * kStates);
 #pragma unroll
-      for (int k = 0; k < kStates; ++k) {
-        const float prev = j > 0 ? hist[j - 1][k] : h0[k];
-        hist[j][k] = fmaf(exp2_approx(dtt * a2[k]), prev, dx * to_f32(bt[k]));
-      }
+      for (int k = 0; k < kStates; ++k)
+        hist[j][k] = fmaf(exp2_approx(dtt * a2[k]), j > 0 ? hist[j - 1][k]
+                                                          : h0[k],
+                          dx * bv[k]);
     }
-    // the reverse state scan through the chunk
+    // the reverse state scan through the chunk, G steps a group
 #pragma unroll
-    for (int j = kChunk - 1; j >= 0; --j) {
-      const int t = t0 + j;
-      const bool in = t < S;
-      const bool on = live && in;
-      const long long i = row + (long long)t * Di;
-      const float dtt = on ? p.dt[i] : 0.f;
-      const float xt = on ? to_f32(x[i]) : 0.f;
-      const float dyt = on ? to_f32(dy[i]) : 0.f;
-      const T* bt = bb + (in ? t : 0) * p.b_tstride;
-      const T* ct = cc + (in ? t : 0) * p.c_tstride;
-      float sb = 0.f, sa = 0.f, gh[kStates];
+    for (int grp = kChunk / G - 1; grp >= 0; --grp) {
+      float psb[G], psa[G];
 #pragma unroll
-      for (int k = 0; k < kStates; ++k) {
-        const float decay = exp2_approx(dtt * a2[k]);
-        const float prev = j > 0 ? hist[j - 1][k] : h0[k];
-        gh[k] = fmaf(in ? to_f32(ct[k]) : 0.f, dyt, r[k]);
-        sb = fmaf(in ? to_f32(bt[k]) : 0.f, gh[k], sb);
-        const float gd = gh[k] * prev * decay;
-        sa = fmaf(gd, av[k], sa);
-        da[k] = fmaf(gd, dtt, da[k]);
-        r[k] = decay * gh[k];
-      }
+      for (int jj = G - 1; jj >= 0; --jj) {
+        const int j = grp * G + jj;
+        const int row = r0 + j;
+        const float dtt = dts[row * kChannels + g];
+        const float xt = to_f32(xs[row * kChannels + g]);
+        const float dyt = to_f32(dys[row * kChannels + g]);
+        float bv[kStates], cv[kStates];
+        load4(bv, bs + row * N + lane * kStates);
+        load4(cv, cs + row * N + lane * kStates);
+        const float dxb = dtt * xt;
+        float sb = 0.f, sa = 0.f, v[8];
 #pragma unroll
-      for (int o = 1; o < G; o *= 2) {
-        sb += __shfl_xor_sync(0xffffffffu, sb, o);
-        sa += __shfl_xor_sync(0xffffffffu, sa, o);
+        for (int k = 0; k < kStates; ++k) {
+          const float decay = exp2_approx(dtt * a2[k]);
+          const float prev = j > 0 ? hist[j - 1][k] : h0[k];
+          const float gh = fmaf(cv[k], dyt, r[k]);
+          sb = fmaf(bv[k], gh, sb);
+          const float gd = gh * prev * decay;
+          sa = fmaf(gd, av[k], sa);
+          da[k] = fmaf(gd, dtt, da[k]);
+          r[k] = decay * gh;
+          v[k] = dxb * gh;
+          v[kStates + k] = dyt * hist[j][k];
+        }
+        psb[jj] = sb;
+        psa[jj] = sa;
+        dd = fmaf(dyt, xt, dd);
+        scatter_sum<8, 16, G>(v, wl);
+        if (writer) {
+#pragma unroll
+          for (int m = 0; m < M; ++m)
+            rb[j * kWarps * 2 * N + red_at[m]] = v[m];
+        }
       }
-      if (lane == 0 && on) {
-        static_cast<T*>(p.dx)[i] = from_f32<T>(fmaf(dv, dyt, dtt * sb));
-        p.ddt[i] = fmaf(xt, sb, sa);
+      // B . gh and the ddt term over the channel's G lanes: lane jj ends
+      // with step grp * G + jj's
+#pragma unroll
+      for (int o = G / 2; o >= 1; o /= 2) {
+        const bool up = lane & o;
+#pragma unroll
+        for (int i = 0; i < o; ++i) {
+          const float sb_send = up ? psb[i] : psb[i + o];
+          const float sb_keep = up ? psb[i + o] : psb[i];
+          const float sa_send = up ? psa[i] : psa[i + o];
+          const float sa_keep = up ? psa[i + o] : psa[i];
+          psb[i] = sb_keep + __shfl_xor_sync(0xffffffffu, sb_send, o);
+          psa[i] = sa_keep + __shfl_xor_sync(0xffffffffu, sa_send, o);
+        }
       }
-      dd = fmaf(dyt, xt, dd);
-      const float dxb = dtt * xt;
-      float* rr = red + (j * kChannels + g) * 2 * N + lane * kStates;
-      *reinterpret_cast<float4*>(rr) =
-          make_float4(dxb * gh[0], dxb * gh[1], dxb * gh[2], dxb * gh[3]);
-      *reinterpret_cast<float4*>(rr + N) =
-          make_float4(dyt * hist[j][0], dyt * hist[j][1], dyt * hist[j][2],
-                      dyt * hist[j][3]);
+      const int j = grp * G + lane;
+      const int row = r0 + j;
+      const float dtt = dts[row * kChannels + g];
+      const float xt = to_f32(xs[row * kChannels + g]);
+      const float dyt = to_f32(dys[row * kChannels + g]);
+      dxs[j * kChannels + g] = from_f32<T>(fmaf(dv, dyt, dtt * psb[0]));
+      ddts[j * kChannels + g] = fmaf(xt, psb[0], psa[0]);
     }
-    __syncthreads();
-    // the chunk's dB and dC terms summed over the CTA's channels in order
-    for (int o = tid; o < kChunk * 2 * N; o += kThreads) {
-      const int j = o / (2 * N);
-      const int n2 = o % (2 * N);
-      if (t0 + j < S) {
-        float s = 0.f;
-#pragma unroll 8
-        for (int q = 0; q < kChannels; ++q)
-          s += red[(j * kChannels + q) * 2 * N + n2];
-        part[(long long)(t0 + j) * 2 * N + n2] = s;
-      }
-    }
-    __syncthreads();
   }
+  __syncthreads();
+  flush(0);
   if (live) {
 #pragma unroll
     for (int k = 0; k < kStates; ++k)
@@ -270,30 +543,62 @@ inline unsigned blocks_for(long long n) {
 }
 
 template <typename T, int N>
-int launch(const Args& args, int B, void* db, void* dc, float* da, float* dd,
+int launch(Args args, int B, void* db, void* dc, float* da, float* dd,
            cudaStream_t stream) {
+  using L = Smem<T, N>;
   const cudaError_t e = cudaFuncSetAttribute(
       ssm_scan_bwd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      red_bytes<N>());
+      L::kBytes);
   if (e != cudaSuccess) return (int)e;
-  const int nblk = (args.Di + kChannels - 1) / kChannels;
+  const int S = args.S, Di = args.Di;
+  const long long xb = (long long)S * Di;  // x, dt, dy: batch rows apart
+  CUtensorMap mx{}, mdt{}, mdy{}, mb{}, mc{};
+  int paths = 0, m = 0;
+  if (scan::tma_ok<T>(args.x, Di, xb, kChannels)) {
+    paths |= kTmaX;
+    m = scan::make_map<T>(&mx, args.x, B, S, Di, Di, xb, kChannels, kSteps);
+  }
+  if (m == 0 && scan::tma_ok<float>(args.dt, Di, xb, kChannels)) {
+    paths |= kTmaDt;
+    m = scan::make_map<float>(&mdt, args.dt, B, S, Di, Di, xb, kChannels,
+                              kSteps);
+  }
+  if (m == 0 && scan::tma_ok<T>(args.dy, Di, xb, kChannels)) {
+    paths |= kTmaDy;
+    m = scan::make_map<T>(&mdy, args.dy, B, S, Di, Di, xb, kChannels, kSteps);
+  }
+  if (m == 0 && scan::tma_ok<T>(args.bm, args.b_tstride, args.b_bstride, N)) {
+    paths |= kTmaB;
+    m = scan::make_map<T>(&mb, args.bm, B, S, N, args.b_tstride,
+                          args.b_bstride, N, kSteps);
+  }
+  if (m == 0 && scan::tma_ok<T>(args.cm, args.c_tstride, args.c_bstride, N)) {
+    paths |= kTmaC;
+    m = scan::make_map<T>(&mc, args.cm, B, S, N, args.c_tstride,
+                          args.c_bstride, N, kSteps);
+  }
+  if (m != 0) return m;
+  if (scan::tma_ok<T>(args.dx, Di, xb, kChannels)) paths |= kVecDx;
+  if (scan::tma_ok<float>(args.ddt, Di, xb, kChannels)) paths |= kVecDdt;
+  args.paths = paths;
+  const int nblk = (Di + kChannels - 1) / kChannels;
   const dim3 grid(nblk, B);
-  ssm_scan_bwd_kernel<T, N>
-      <<<grid, kChannels * N / kStates, red_bytes<N>(), stream>>>(args);
+  ssm_scan_bwd_kernel<T, N><<<grid, kChannels * N / kStates, L::kBytes,
+                              stream>>>(mx, mdt, mdy, mb, mc, args);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)B * args.S;
+  const long long rows = (long long)B * S;
   reduce_bc<T><<<blocks_for(rows * 2 * N), kReduceThreads, 0, stream>>>(
       args.bc_part, nblk, rows, N, static_cast<T*>(db), static_cast<T*>(dc));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n_a = (long long)args.Di * N;
+  const long long n_a = (long long)Di * N;
   reduce_rows<<<blocks_for(n_a), kReduceThreads, 0, stream>>>(args.da_part, B,
                                                                n_a, da);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_rows<<<blocks_for(args.Di), kReduceThreads, 0, stream>>>(
-      args.dd_part, B, args.Di, dd);
+  reduce_rows<<<blocks_for(Di), kReduceThreads, 0, stream>>>(args.dd_part, B,
+                                                             Di, dd);
   return (int)cudaGetLastError();
 }
 

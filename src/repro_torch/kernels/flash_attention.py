@@ -28,7 +28,7 @@ __all__ = ["NAME", "HEAD_DIMS", "check_blocks", "check_inputs", "check_qkv",
            "flash_attention_fwd"]
 
 NAME = "flash_attention"  # csrc/flash_attention.cu
-HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are built for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None

@@ -34,13 +34,24 @@ FA_CASES = [
     (1, 2, 1, 128, 64, False, None, "float32"),
     (1, 4, 1, 256, 128, True, None, "bfloat16"),
     (1, 2, 2, 128, 64, True, 32, "bfloat16"),
+    # head dim 256 (recurrentgemma-9b's local layers): MQA at a group of 4,
+    # a window shorter than S, causal and not
+    (1, 4, 1, 256, 256, True, 64, "float32"),
+    (1, 4, 1, 128, 256, False, None, "float32"),
+    (1, 4, 1, 256, 256, True, None, "bfloat16"),
+    (1, 4, 1, 128, 256, False, 48, "bfloat16"),
 ]
-# (B, Hq, Hkv, S, D, causal, window): tests/test_kernels.py:331-336
+# (B, Hq, Hkv, S, D, causal, window): tests/test_kernels.py:331-336, then
+# head dim 256 as above, f32 and bf16 (an eighth entry: the dtype)
 FA_BWD_CASES = [
     (1, 2, 1, 128, 64, True, None),
     (2, 4, 2, 128, 64, True, None),
     (1, 2, 2, 128, 64, False, None),
     (1, 4, 1, 128, 64, True, 64),
+    (1, 4, 1, 128, 256, True, 48),
+    (1, 4, 1, 128, 256, False, None),
+    (1, 4, 1, 128, 256, True, 48, "bfloat16"),
+    (1, 4, 1, 128, 256, False, 48, "bfloat16"),
 ]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -83,8 +94,30 @@ def test_forward_and_lse_match_reference(case):
 @pytest.mark.parametrize("case", FA_BWD_CASES,
                          ids=[str(c) for c in FA_BWD_CASES])
 def test_gradients_match_reference(case):
-    B, Hq, Hkv, S, D, causal, window = case
+    """f32: the gradients of sum(out^2).  bf16: the port on bf16 inputs
+    and a bf16 cotangent against the reference in f32 on the same rounded
+    values, within the bf16 forward's 2e-2 (the port rounds out, which
+    delta reads, and dq, dk, dv to 8 mantissa bits)."""
+    B, Hq, Hkv, S, D, causal, window, *dtype = case
     arrays = _qkv(B, Hq, Hkv, S, S, D, seed=7 * S + Hq)
+    if dtype:
+        dout = np.random.default_rng(S + D).normal(size=(B, Hq, S, D))
+        tq, tk, tv, tdo = (torch.from_numpy(np.asarray(x, np.float32)).to(
+            torch.bfloat16) for x in (*arrays, dout))
+        leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+        out = ops.attention(*leaves, causal=causal, window=window,
+                            block_q=64, block_k=64)
+        got = torch.autograd.grad(out, leaves, tdo)
+        jqkv = tuple(jnp.asarray(t.detach().float().numpy())
+                     for t in (tq, tk, tv))
+        jdo = jnp.asarray(tdo.float().numpy())
+        _, vjp = jax.vjp(lambda q, k, v: flash_attention_vjp(
+            q, k, v, causal, window, None, 64, 64, True), *jqkv)
+        for a, b in zip(got, vjp(jdo)):
+            assert a.dtype == torch.bfloat16
+            np.testing.assert_allclose(_np(a), _np(b), atol=TOL["bfloat16"],
+                                       rtol=TOL["bfloat16"])
+        return
     jqkv = tuple(jnp.asarray(x) for x in arrays)
 
     def loss_vjp(q, k, v):
@@ -251,6 +284,23 @@ def test_dispatch_and_checks():
     assert before == (fa.flash_attention_fwd.launches,
                       fab.flash_attention_dkv.launches,
                       fab.flash_attention_dq.launches)
+
+
+@pytest.mark.parametrize("D", [192, 256, 512])
+def test_head_dim_dispatch(D):
+    """Head dim 256 passes the wrappers' checks (on CPU tensors they then
+    refuse the device, before any build or launch); 192 and 512 are
+    refused for their head dim."""
+    assert fa.HEAD_DIMS == (16, 32, 64, 128, 256)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 1, 64, 64, D, 0))
+    lse = torch.zeros((1, 4, 64))
+    calls = (lambda: fa.flash_attention_fwd(q, k, v),
+             lambda: fab.flash_attention_dkv(q, k, v, q, lse, lse),
+             lambda: fab.flash_attention_dq(q, k, v, q, lse, lse))
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA" if D == 256
+                           else "head dim"):
+            call()
 
 
 def test_training_shape_bounds():

@@ -360,6 +360,20 @@ FLASH_CASES = [
     # a window) on 132 SMs, and a single tile on one CTA
     (4, 16, 4, 640, 128, True, 100, torch.bfloat16),
     (1, 1, 1, 128, 64, False, None, torch.bfloat16),
+    # head dim 256: f32 through the streaming SIMT kernels; bf16 at the
+    # edges of its tiles (128 q x 64 kv rows forward, 64 q x 64 kv dK/dV,
+    # 128 q x 32 kv dQ) and MQA at a group of 16 under a window
+    (1, 4, 1, 256, 256, True, None, torch.float32),
+    (2, 4, 2, 96, 256, True, 40, torch.float32),
+    (1, 4, 2, (128, 192), 256, False, None, torch.float32),
+    (1, 16, 1, 512, 256, True, 128, torch.bfloat16),
+    (2, 4, 2, 96, 256, True, None, torch.bfloat16),
+    (1, 4, 2, (192, 320), 256, False, None, torch.bfloat16),
+    (2, 4, 2, (256, 96), 256, False, None, torch.bfloat16),
+    (1, 4, 2, (384, 128), 256, False, 32, torch.bfloat16),
+    (1, 4, 1, 320, 256, True, 100, torch.bfloat16),
+    (4, 8, 2, 640, 256, True, 100, torch.bfloat16),
+    (1, 1, 1, 64, 256, False, None, torch.bfloat16),
 ]
 # f32: summation order only; bf16: the outputs' rounding (8 mantissa bits)
 FLASH_TOL = {torch.float32: (2e-5, 5e-4), torch.bfloat16: (2e-2, 2e-2)}
@@ -1425,12 +1439,15 @@ def test_cuda_paged_attention_at_the_zoos_groups(cuda, heads, dtype, atol):
 
 
 # seamless' encoder (non-causal, head dim 64), granite's group of 48,
-# gemma3's causal window of 1,024 at S 4,096
+# gemma3's causal window of 1,024 at S 4,096, recurrentgemma-9b's local
+# layers (16 q heads over one KV head of dim 256, a window of 2,048 at S
+# 4,096)
 FLASH_ZOO_CASES = [
     (2, 16, 16, 1024, 64, False, None, torch.bfloat16),
     (1, 48, 1, 2048, 128, True, None, torch.bfloat16),
     (1, 32, 16, 4096, 128, True, 1024, torch.bfloat16),
     (1, 16, 16, 512, 64, False, None, torch.float32),
+    (1, 16, 1, 4096, 256, True, 2048, torch.bfloat16),
 ]
 
 
@@ -1442,10 +1459,11 @@ def test_cuda_flash_kernels_at_the_zoos_shapes(cuda, case):
     the zoo's training shapes, one launch each.  At granite's group of 48
     dK and dV sum 48 S terms an element, each with the bf16 kernel's P or
     dS rounded to 8 bits, so an element small beside its key row's largest
-    may lie a few of that row's bf16 ulps from the plain version: there
-    each key row is held to the f64 sum of the same inputs, its largest
-    error at most twice the plain version's plus 2**-8 of the row's
-    largest |value| (tools/flash_gqa_error.py).  The rest as in
+    may lie a few of that row's bf16 ulps from the plain version: there,
+    and at recurrentgemma's group of 16 (S 4,096), each key row is held
+    to the f64 sum of the same inputs, its largest error at most twice
+    the plain version's plus 2**-8 of the row's largest |value|
+    (tools/flash_gqa_error.py).  The rest as in
     ``test_cuda_flash_kernels_match_plain``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -1473,7 +1491,7 @@ def test_cuda_flash_kernels_at_the_zoos_shapes(cuda, case):
     assert (fa.flash_attention_fwd.launches, fab.flash_attention_dkv.launches,
             fab.flash_attention_dq.launches) == tuple(b + 1 for b in before)
     plain = ref.flash_attention_dkv(*args, **kw)
-    exact = (ref.flash_attention_dkv_f64(*args, **kw) if Hq // Hkv == 48
+    exact = (ref.flash_attention_dkv_f64(*args, **kw) if Hkv == 1
              else None)
     for i, (got, want) in enumerate(zip((dk, dv), plain)):
         assert got.dtype == dtype and torch.isfinite(got.float()).all()
@@ -1650,12 +1668,19 @@ def _bwd_close(name, got, want, tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Di,N,R", [
     (2, 37, 96, 16, 5), (1, 64, 256, 16, 16), (2, 33, 64, 4, 8),
-    (1, 45, 40, 32, 7), (3, 1, 32, 8, 16), (1, 300, 520, 16, 256)])
+    (1, 45, 40, 32, 7), (3, 1, 32, 8, 16), (1, 300, 520, 16, 256),
+    # the redesigned kernel's edges: one step past a 32-step tile at a
+    # ragged full width, one chunk and one tile exactly, a tile and a
+    # half, Di 100 (bf16 rows of 200 bytes: staged element by element),
+    # B and C rows off 16 bytes (R 7 and 5)
+    (1, 33, 8200, 16, 16), (1, 16, 40, 16, 16), (2, 32, 64, 8, 256),
+    (3, 48, 64, 8, 256), (2, 77, 100, 8, 7), (1, 1000, 520, 16, 5)])
 def test_cuda_selective_scan_bwd_matches_plain(cuda, B, S, Di, N, R, dtype):
     """Every gradient of ``ops.selective_scan`` (the ``SelectiveScan``
     Function: one forward and one backward launch) against the plain
-    backward on the same inputs; S off the kernel's 16-step chunks, ragged
-    channel blocks, B and C strided views of one projection."""
+    backward on the same inputs; S off the kernel's 32-step tiles and
+    16-step chunks, ragged channel blocks, B and C strided views of one
+    projection."""
     from repro_torch.kernels import ssm_scan
 
     x, dt, a, b, c, d = _ssm_inputs(cuda, B, S, Di, N, dtype, S + Di, R)

@@ -135,8 +135,9 @@ def test_chip_smoke_bounds_are_perf_md_bound_column():
         1026.165, 2052.329, 1539.247]
     zoo = [c.flash_bounds(case) for case in c.FLASH_ZOO]
     assert [[_us(z[n]["bound_ms"]) for z in zoo] for n in names] == [
-        [8.685, 104.277, 60.807], [17.371, 208.553, 121.614],
-        [13.028, 156.415, 91.210]]
+        [8.685, 104.277, 60.807, 104.243, 139.002],
+        [17.371, 208.553, 121.614, 208.485, 278.003],
+        [13.028, 156.415, 91.210, 156.364, 208.502]]
     ssm, lru = c.SSM_FULL[0], c.LRU_FULL[0]
     assert _us(c.scan_bounds("selective_scan", ssm, bf16)["bound_ms"]) == 10.349
     assert _us(c.scan_bounds("selective_scan", ssm, f32)["bound_ms"]) == 15.367

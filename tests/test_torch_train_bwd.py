@@ -14,6 +14,7 @@ and the router's for kimi-k2 and arctic (local, and expert-parallel on
 layer, as the card launches one.  Inputs are numpy, from seeds.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -178,10 +179,13 @@ def _cross(jinit, tparams):
                                         for t in leaves])
 
 
-def _models(arch):
-    jm = j_build(J_SMOKE[arch])
+def _models(arch, **changes):
+    """Both packages' models at ``arch``'s SMOKE size (with ``changes`` to
+    its config on both sides), and the port's weights crossed into the
+    reference's tree."""
+    jm = j_build(dataclasses.replace(J_SMOKE[arch], **changes))
     jctx = JCtx(mesh=None, remat="none")
-    tm = build_model(SMOKE[arch])
+    tm = build_model(dataclasses.replace(SMOKE[arch], **changes))
     tparams = tm.init(RunCtx(), torch.Generator().manual_seed(0),
                       device="cpu")
     jparams = _cross(lambda k: jm.init(jctx, k)[0], tparams)
@@ -227,6 +231,32 @@ def test_train_grads_match_reference(arch, kind, bwd, monkeypatch):
         k: torch.from_numpy(v.copy()) for k, v in batch.items()})
     tgrads = torch.autograd.grad(tloss, leaves)
     assert len(calls) == tm.cfg.layer_kinds().count(kind)
+    _close(tloss, jloss, GRAD_ATOL)
+    jflat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(jflat) == len(tgrads)
+    for (path, a), b in zip(jflat, tgrads):
+        np.testing.assert_allclose(_np(b), np.asarray(a), atol=GRAD_ATOL,
+                                   rtol=GRAD_ATOL, err_msg=str(path))
+
+
+def test_train_grads_head_dim_256_local_layer(monkeypatch):
+    """recurrentgemma-9b at SMOKE widths but its own head dim of 256, on
+    one (rec, rec, local) group: the local layer's attention goes through
+    ``FlashAttention`` (its plain backward on the CPU, as the card runs
+    the D-256 kernels) with a window of 16 under S 20.  The loss and
+    every parameter's gradient against ``jax.grad`` of the reference."""
+    jm, jctx, jparams, tm, tparams = _models("recurrentgemma-9b",
+                                             head_dim=256, n_layers=3)
+    assert tm.cfg.layer_kinds() == ["rec", "rec", "local"]
+    batch = _batch(tm.cfg.vocab)
+    jloss, jgrads = jax.value_and_grad(lambda p: jm.train_loss(
+        p, jctx, {k: jnp.asarray(v) for k, v in batch.items()}))(jparams)
+    calls = _counting(monkeypatch, "flash_attention_dq")
+    leaves = [t.requires_grad_() for t in tree_leaves(tparams)]
+    tloss = tm.train_loss(tparams, RunCtx(remat="none"), {
+        k: torch.from_numpy(v.copy()) for k, v in batch.items()})
+    tgrads = torch.autograd.grad(tloss, leaves)
+    assert len(calls) == 1
     _close(tloss, jloss, GRAD_ATOL)
     jflat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
     assert len(jflat) == len(tgrads)

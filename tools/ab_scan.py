@@ -23,6 +23,15 @@ bf16 and f32, on ``chip_smoke.py``'s inputs, held against the plain
 versions at ``chip_smoke.SCAN_TOL`` and timed by ``chip_smoke.device_ms``
 (CUDA events behind a sleep kernel, the L2 flushed between calls).
 
+With ``--bwd`` the trees' selective-scan backward
+(``ssm_scan.selective_scan_bwd``) is timed instead, at ``chip_smoke.py``'s
+full-width training case (``SSM_BWD[0]``: falcon-mamba's B 1 x 4,096 x
+8,192, N 16), bf16 and f32, each output held row by row to the f64 plain
+backward as ``chip_smoke.scan_bwd_phase`` holds it (``rows_exact``,
+``BWD_REL``), timed by ``device_ms`` with the L2 flushed:
+
+    python3 tools/ab_scan.py --bwd before=build/ab/before after=.
+
 A tree named with ``--unchecked`` is timed without the check: a probe
 whose kernel was changed on purpose (a cut reduction, a faster
 exponential); its ``max_abs_err`` and ``max_rel_err`` (the largest
@@ -42,6 +51,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("ssm_scan", "rglru")
+BWD_KERNELS = ("ssm_scan_bwd",)
 
 
 def _python(tree: Path, *args: str, timeout: int) -> str:
@@ -54,14 +64,15 @@ def _python(tree: Path, *args: str, timeout: int) -> str:
     return p.stdout
 
 
-def build(tree: Path) -> None:
+def build(tree: Path, kernels=KERNELS) -> None:
     _python(tree, "-c", "import sys; sys.path.insert(0, 'src'); "
             "from repro_torch.kernels import build; "
-            f"build.build_all({list(KERNELS)!r})", timeout=900)
+            f"build.build_all({list(kernels)!r})", timeout=900)
 
 
-def measure_turn(tree: Path, check: bool) -> dict:
-    args = ["--measure", str(tree)] + ([] if check else ["--no-check"])
+def measure_turn(tree: Path, check: bool, bwd: bool = False) -> dict:
+    args = (["--measure", str(tree)] + ([] if check else ["--no-check"])
+            + (["--bwd"] if bwd else []))
     out = _python(tree, str(Path(__file__).resolve()), *args, timeout=900)
     return json.loads(out.strip().splitlines()[-1])
 
@@ -137,27 +148,69 @@ def figures(cs, flush, check):
     return record
 
 
-def measure(tree: Path, check: bool) -> None:
+def figures_bwd(cs, flush, check):
+    """The selective scan's backward at ``SSM_BWD[0]``, bf16 and f32: the
+    largest row ratio of each output against the f64 plain backward
+    (``chip_smoke.rows_exact``; raising past 1 when checked) and
+    ``device_ms``."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    case = cs.SSM_BWD[0]
+    B, S, Di, N = case[:4]
+    record = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        args = cs.ssm_inputs(case, dtype, gen)
+        dy = torch.randn((B, S, Di), generator=gen, device="cuda").to(dtype)
+
+        def call():
+            return cs.ssm_scan.selective_scan_bwd(*args, dy)
+
+        got = call()
+        plain = cs.ref.selective_scan_bwd(*args, dy)
+        exact = cs.ref.selective_scan_bwd(*args, dy, acc=torch.float64)
+        terms = (dy.double().abs() * args[0].double().abs()).sum((0, 1))
+        ratios = {}
+        for name, g, p, e, width in zip(("dx", "ddt", "dA", "dB", "dC", "dD"),
+                                        got, plain, exact,
+                                        (Di, Di, N, N, N, 1)):
+            _, ratios[name] = cs.rows_exact(
+                f"selective_scan_bwd {name}", g, p, e, cs.BWD_REL[g.dtype],
+                width, terms if name == "dD" else None)
+        del got, plain, exact
+        if check:
+            cs.rows_failed({dname: {"row_ratio": ratios}})
+        record[f"{case} {dname}"] = {"row_ratio": ratios,
+                                     "device_ms": cs.device_ms(call, 10,
+                                                               flush)}
+        del args, dy
+    return {"selective_scan_bwd": record}
+
+
+def measure(tree: Path, check: bool, bwd: bool = False) -> None:
     cs = _import_tree(tree)
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    print(json.dumps(figures(cs, flush, check)))
+    print(json.dumps((figures_bwd if bwd else figures)(cs, flush, check)))
 
 
 # ------------------------------------------------------------------ #
 
 
-def bounds(clock_mhz: float) -> dict:
+def bounds(clock_mhz: float, bwd: bool = False) -> dict:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import torch
 
     out = {}
+    kernels = ((("selective_scan_bwd", cs.SSM_BWD[:1]),) if bwd else
+               (("selective_scan", cs.SSM_FULL),
+                ("gated_linear_scan", cs.LRU_FULL)))
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for name, cases in (("selective_scan", cs.SSM_FULL),
-                            ("gated_linear_scan", cs.LRU_FULL)):
+        for name, cases in kernels:
             for case in cases:
                 b = cs.scan_bounds(name, case, dtype)
                 out[f"{name} {case} {dname}"] = {
@@ -173,11 +226,13 @@ def main():
     ap.add_argument("--unchecked", nargs="*", default=[], metavar="NAME",
                     help="trees timed without the check against the plain "
                     "versions (probes changed on purpose)")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time the selective scan's backward instead")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--no-check", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure:
-        return measure(args.measure, check=not args.no_check)
+        return measure(args.measure, check=not args.no_check, bwd=args.bwd)
     trees = dict(t.split("=", 1) for t in args.trees)
     trees = {name: Path(path).resolve() for name, path in trees.items()}
     if not trees or not set(args.unchecked) <= set(trees):
@@ -187,20 +242,22 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("ab_scan.py needs a GPU")
+    kernels = BWD_KERNELS if args.bwd else KERNELS
     with concurrent.futures.ThreadPoolExecutor(len(trees)) as pool:
-        list(pool.map(build, trees.values()))
+        list(pool.map(lambda t: build(t, kernels), trees.values()))
     order = list(trees) + list(reversed(trees))
     turns = {name: [] for name in trees}
     for name in order:
         turns[name].append(measure_turn(trees[name],
-                                        name not in args.unchecked))
+                                        name not in args.unchecked,
+                                        args.bwd))
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
 
     card, clock = cs.card(), cs.sm_clock_mhz()
     print(json.dumps({"card": card, "sm_clock_max_mhz": clock,
                       "order": order, "unchecked": args.unchecked,
-                      "bounds": bounds(clock), "turns": turns}))
+                      "bounds": bounds(clock, args.bwd), "turns": turns}))
 
 
 if __name__ == "__main__":
