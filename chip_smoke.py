@@ -4765,8 +4765,10 @@ def moe_ep_phase():
 SSM_BWD = [(1, 4096, 8192, 16), (2, 77, 8192, 16), (1, 200, 1024, 16),
            (2, 77, 100, 8, 7), (1, 33, 8200, 16), (3, 48, 64, 8),
            (1, 1000, 520, 16, 5)]
-# (B, S, W): recurrentgemma's training shape at full width, an odd S
-LRU_BWD = [(1, 4096, 4096), (2, 77, 4096)]
+# (B, S, W): recurrentgemma's training shape at full width, an odd S, and
+# W 201 (rows of 804 / 402 bytes: staged and stored element by element) at
+# B 3, S one step past two of the kernel's 64-step f32 stages
+LRU_BWD = [(1, 4096, 4096), (2, 77, 4096), (3, 129, 201)]
 # Row by row against the f64 plain backward: each row's largest |kernel -
 # exact| at most 2 x the f32 plain version's largest in that row plus REL
 # x the row's largest |exact|.  REL is one bf16 ulp, 2**-8, for results

@@ -1,7 +1,7 @@
 // Pieces shared by the scan kernels (ssm_scan.cu, ssm_scan_bwd.cu,
-// rglru.cu): f32 conversions, TMA maps and loads of 3-D boxes into shared
-// memory, the element-by-element edge path for rows TMA cannot take, and
-// tile stores from shared memory.
+// rglru.cu, rglru_bwd.cu): f32 conversions, TMA maps, loads and stores of
+// 3-D boxes between device and shared memory, the element-by-element edge
+// path for rows TMA cannot take, and tile stores from shared memory.
 #pragma once
 
 #include <cuda.h>
@@ -91,6 +91,36 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
       "l"(map), "r"(col), "r"(row), "r"(batch), "r"(bar)
       : "memory");
+}
+
+// The box at (col, row, batch) of `map` from shared memory at src by TMA
+// (elements past the tensor's ends are not written), in the issuing
+// thread's current bulk group. The threads that wrote src call
+// fence_async_smem first; bulk_commit closes the group; bulk_wait_read<N>
+// returns once at most N of the thread's groups may still read their
+// shared memory, bulk_wait<0> once every group's writes are done.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int col, int row,
+                                          int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(map),
+      "r"(col), "r"(row), "r"(batch), "r"(smem_addr(src))
+      : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The edge path: a rows x cols tile (row r at src + r * ld) into dst,

@@ -1708,27 +1708,43 @@ def test_cuda_selective_scan_bwd_matches_plain(cuda, B, S, Di, N, R, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,W", [(2, 128, 256), (3, 77, 200), (1, 1, 32),
-                                   (1, 1000, 4096)])
-def test_cuda_gated_linear_scan_bwd_matches_plain(cuda, B, S, W, dtype):
+@pytest.mark.parametrize("B,S,W,offset", [
+    (2, 128, 256, 0), (3, 77, 200, 0), (1, 1, 32, 0), (1, 1000, 4096, 0),
+    # the redesigned kernel's edges: S one short of, equal to and one past
+    # its stages (64 steps in f32, 128 in bf16) at W ragged against its
+    # 32-channel blocks; W 201 (rows of 804 / 402 bytes: staged and stored
+    # element by element) at B 3; views one element into their storage
+    # (bases off 16 bytes: staged element by element)
+    (2, 63, 200, 0), (1, 64, 72, 0), (2, 65, 40, 0), (1, 127, 264, 0),
+    (3, 128, 96, 0), (1, 129, 200, 0), (3, 130, 201, 0), (3, 129, 512, 0),
+    (2, 65, 256, 1), (1, 300, 200, 1)])
+def test_cuda_gated_linear_scan_bwd_matches_plain(cuda, B, S, W, offset,
+                                                  dtype):
     """da and db of ``ops.gated_linear_scan`` (the ``GatedLinearScan``
-    Function) against the plain backward: f32 equal to the last bit (the
-    kernel rounds as the plain version does), bf16 within rounding."""
+    Function) against the plain backward, equal to the last bit in f32 and
+    bf16 (the kernel rounds as the plain version does); with ``offset``,
+    the backward kernel called again on a, h and dh all off 16 bytes."""
     from repro_torch.kernels import rglru
 
-    a, b = _lru_inputs(cuda, B, S, W, dtype)
+    a, b = _lru_inputs(cuda, B, S, W, dtype, offset)
     a, b = a.detach().requires_grad_(), b.detach().requires_grad_()
-    dh = torch.randn((B, S, W), device=cuda).to(dtype)
+    dh = torch.randn((offset + B * S * W,), device=cuda).to(dtype)
+    dh = dh[offset:].view(B, S, W)
     before = rglru.gated_linear_scan_bwd.launches
     h = ops.gated_linear_scan(a, b)
     da, db = torch.autograd.grad(h, [a, b], dh)
     torch.cuda.synchronize()
     assert rglru.gated_linear_scan_bwd.launches == before + 1
     want = ref.gated_linear_scan_bwd(a.detach(), h.detach(), dh)
-    if dtype == torch.float32:
-        assert torch.equal(da, want[0]) and torch.equal(db, want[1])
-    _bwd_close("da", da, want[0], BWD_TOL[dtype])
-    _bwd_close("db", db, want[1], BWD_TOL[dtype])
+    assert torch.isfinite(da.float()).all() and torch.isfinite(db.float()).all()
+    assert torch.equal(da, want[0]) and torch.equal(db, want[1])
+    if offset:
+        hv = torch.empty((offset + h.numel(),), dtype=dtype, device=cuda)
+        hv = hv[offset:].view(B, S, W)
+        hv.copy_(h.detach())
+        assert hv.data_ptr() % 16 and a.data_ptr() % 16 and dh.data_ptr() % 16
+        got = rglru.gated_linear_scan_bwd(a.detach(), hv, dh)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

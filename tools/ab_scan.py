@@ -23,14 +23,20 @@ bf16 and f32, on ``chip_smoke.py``'s inputs, held against the plain
 versions at ``chip_smoke.SCAN_TOL`` and timed by ``chip_smoke.device_ms``
 (CUDA events behind a sleep kernel, the L2 flushed between calls).
 
-With ``--bwd`` the trees' selective-scan backward
-(``ssm_scan.selective_scan_bwd``) is timed instead, at ``chip_smoke.py``'s
-full-width training case (``SSM_BWD[0]``: falcon-mamba's B 1 x 4,096 x
-8,192, N 16), bf16 and f32, each output held row by row to the f64 plain
+With ``--bwd`` the trees' backward kernels are timed instead, at
+``chip_smoke.py``'s full-width training cases, bf16 and f32, by
+``device_ms`` with the L2 flushed: the selective scan's
+(``ssm_scan.selective_scan_bwd`` at ``SSM_BWD[0]``, falcon-mamba's B 1 x
+4,096 x 8,192, N 16), each output held row by row to the f64 plain
 backward as ``chip_smoke.scan_bwd_phase`` holds it (``rows_exact``,
-``BWD_REL``), timed by ``device_ms`` with the L2 flushed:
+``BWD_REL``), and the RG-LRU's (``rglru.gated_linear_scan_bwd`` at
+``LRU_BWD[0]``, recurrentgemma's B 1 x 4,096 x 4,096, on the forward
+kernel's h), held equal to ``ref.gated_linear_scan_bwd`` bit for bit.
+``--only NAME`` (``ssm_scan_bwd`` or ``rglru_bwd``, repeatable) times
+only those:
 
     python3 tools/ab_scan.py --bwd before=build/ab/before after=.
+    python3 tools/ab_scan.py --bwd --only rglru_bwd before=build/ab/before after=.
 
 A tree named with ``--unchecked`` is timed without the check: a probe
 whose kernel was changed on purpose (a cut reduction, a faster
@@ -51,7 +57,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("ssm_scan", "rglru")
-BWD_KERNELS = ("ssm_scan_bwd",)
+BWD_KERNELS = ("ssm_scan_bwd", "rglru_bwd")
 
 
 def _python(tree: Path, *args: str, timeout: int) -> str:
@@ -70,9 +76,10 @@ def build(tree: Path, kernels=KERNELS) -> None:
             f"build.build_all({list(kernels)!r})", timeout=900)
 
 
-def measure_turn(tree: Path, check: bool, bwd: bool = False) -> dict:
+def measure_turn(tree: Path, check: bool, bwd=None) -> dict:
     args = (["--measure", str(tree)] + ([] if check else ["--no-check"])
-            + (["--bwd"] if bwd else []))
+            + ([] if bwd is None else
+               ["--bwd", *(f"--only={k}" for k in bwd)]))
     out = _python(tree, str(Path(__file__).resolve()), *args, timeout=900)
     return json.loads(out.strip().splitlines()[-1])
 
@@ -148,11 +155,49 @@ def figures(cs, flush, check):
     return record
 
 
-def figures_bwd(cs, flush, check):
-    """The selective scan's backward at ``SSM_BWD[0]``, bf16 and f32: the
-    largest row ratio of each output against the f64 plain backward
-    (``chip_smoke.rows_exact``; raising past 1 when checked) and
-    ``device_ms``."""
+def figures_bwd(cs, flush, check, kernels=BWD_KERNELS):
+    """The named backward kernels, bf16 and f32, with ``device_ms``: the
+    selective scan's at ``SSM_BWD[0]`` with the largest row ratio of each
+    output against the f64 plain backward (``chip_smoke.rows_exact``;
+    raising past 1 when checked), the RG-LRU's at ``LRU_BWD[0]`` with its
+    distance from the plain backward (raising unless equal bit for bit
+    when checked)."""
+    out = {}
+    if "ssm_scan_bwd" in kernels:
+        out["selective_scan_bwd"] = _ssm_bwd(cs, flush, check)
+    if "rglru_bwd" in kernels:
+        out["gated_linear_scan_bwd"] = _lru_bwd(cs, flush, check)
+    return out
+
+
+def _lru_bwd(cs, flush, check):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    case = cs.LRU_BWD[0]
+    record = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        a, b = cs.lru_inputs(case, dtype, gen)
+        h = cs.rglru.gated_linear_scan(a, b)
+        dh = torch.randn(case, generator=gen, device="cuda").to(dtype)
+
+        def call():
+            return cs.rglru.gated_linear_scan_bwd(a, h, dh)
+
+        got, want = call(), cs.ref.gated_linear_scan_bwd(a, h, dh)
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        if check and not equal:
+            raise SystemExit(f"gated_linear_scan_bwd {case} {dname}: not "
+                             "equal to the plain version")
+        record[f"{case} {dname}"] = {
+            "da": _errors(got[0], want[0]), "db": _errors(got[1], want[1]),
+            "bit_equal": equal, "device_ms": cs.device_ms(call, 20, flush)}
+        del a, b, h, dh, got, want
+    return record
+
+
+def _ssm_bwd(cs, flush, check):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(18)
@@ -185,29 +230,35 @@ def figures_bwd(cs, flush, check):
                                      "device_ms": cs.device_ms(call, 10,
                                                                flush)}
         del args, dy
-    return {"selective_scan_bwd": record}
+    return record
 
 
-def measure(tree: Path, check: bool, bwd: bool = False) -> None:
+def measure(tree: Path, check: bool, bwd=None) -> None:
     cs = _import_tree(tree)
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    print(json.dumps((figures_bwd if bwd else figures)(cs, flush, check)))
+    print(json.dumps(figures(cs, flush, check) if bwd is None else
+                     figures_bwd(cs, flush, check, bwd)))
 
 
 # ------------------------------------------------------------------ #
 
 
-def bounds(clock_mhz: float, bwd: bool = False) -> dict:
+def bounds(clock_mhz: float, bwd=None) -> dict:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import torch
 
     out = {}
-    kernels = ((("selective_scan_bwd", cs.SSM_BWD[:1]),) if bwd else
-               (("selective_scan", cs.SSM_FULL),
-                ("gated_linear_scan", cs.LRU_FULL)))
+    if bwd is None:
+        kernels = (("selective_scan", cs.SSM_FULL),
+                   ("gated_linear_scan", cs.LRU_FULL))
+    else:
+        kernels = tuple(k for name, k in (
+            ("ssm_scan_bwd", ("selective_scan_bwd", cs.SSM_BWD[:1])),
+            ("rglru_bwd", ("gated_linear_scan_bwd", cs.LRU_BWD[:1])))
+            if name in bwd)
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         for name, cases in kernels:
@@ -227,10 +278,15 @@ def main():
                     help="trees timed without the check against the plain "
                     "versions (probes changed on purpose)")
     ap.add_argument("--bwd", action="store_true",
-                    help="time the selective scan's backward instead")
+                    help="time the backward kernels instead")
+    ap.add_argument("--only", action="append", choices=BWD_KERNELS,
+                    help="with --bwd, time only these backward kernels")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--no-check", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.only and not args.bwd:
+        ap.error("--only needs --bwd")
+    args.bwd = (args.only or list(BWD_KERNELS)) if args.bwd else None
     if args.measure:
         return measure(args.measure, check=not args.no_check, bwd=args.bwd)
     trees = dict(t.split("=", 1) for t in args.trees)
@@ -242,7 +298,8 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("ab_scan.py needs a GPU")
-    kernels = BWD_KERNELS if args.bwd else KERNELS
+    kernels = KERNELS if args.bwd is None else (
+        ("rglru", *args.bwd) if "rglru_bwd" in args.bwd else args.bwd)
     with concurrent.futures.ThreadPoolExecutor(len(trees)) as pool:
         list(pool.map(lambda t: build(t, kernels), trees.values()))
     order = list(trees) + list(reversed(trees))
